@@ -1,0 +1,3 @@
+from colaborativempc_tpu_torch.planners.lpv import (
+    LPVSolution, SOFT_WEIGHT_CAP, build_lpv_qp, lpv_solve,
+)
