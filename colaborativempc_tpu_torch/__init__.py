@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of the collaborative-MPC framework.
 
 A second package beside ``colaborativempc_tpu`` (the JAX reference, which
-it never imports). The first slice covers the collaborative LPV fleet step
-end to end: track geometry, the LPV bicycle model, stage-QP assembly, the
-Riccati+ADMM QP engine with a hand-written CUDA ADMM-epoch kernel
-(``csrc/lqr_kernels.cu``), the safety layer and the batched fleet rollout.
+it never imports). It covers the collaborative LPV fleet step end to end
+(track geometry, the LPV bicycle model, stage-QP assembly, the
+Riccati+ADMM QP engine with a hand-written CUDA ADMM-epoch kernel,
+``csrc/lqr_kernels.cu``, the safety layer, the batched fleet rollout) and
+the NL-OCD family (the SQP planner and the dual-coordination loop over the
+same engine), with the closed-loop experiment runners, batteries, IO and
+checkpoints.
 
 ``vmap`` over agents and scenarios is a written-out leading batch axis; a
 kernel runs whenever its tensors are on a CUDA device, and its plain

@@ -1,9 +1,10 @@
 """Vectorised Frenet -> Cartesian transforms and track lookups (PyTorch port).
 
-Twin of the LPV-path functions of ``colaborativempc_tpu/geometry/frenet.py``
+Twin of the fixed-lane functions of ``colaborativempc_tpu/geometry/frenet.py``
 (reference ``mapManager/track_initialization.py:305-399``,
-``utilities/misc.py:78-126``): every query is a gather over the segment
-table.
+``utilities/misc.py:28-126``): every query is a gather over the segment
+table. The dynamic-lane functions (``cartesian_to_frenet``, ``relocalize``,
+``select_lane``, ``check_lane``) are not ported yet.
 
 ``lane`` is either a Python int (one lane for every query point) or an
 integer tensor whose shape is a prefix of ``s``'s shape — the per-agent lane
@@ -56,6 +57,13 @@ def wrap_s(track: Track, s, lane=0):
     s_closed = torch.remainder(s, L)
     s_open = torch.where(s >= L, s - L, s)
     return torch.where(track.open_flag, s_open, s_closed)
+
+
+def check_lap(track: Track, s, lane=0):
+    """Completed-lap count (reference ``track_initialization.py:319-323``)."""
+    lane = _lane(lane)
+    s = torch.as_tensor(s, dtype=track.s0.dtype, device=track.s0.device)
+    return torch.floor(s / _per_lane(track.track_length, lane, s))
 
 
 def segment_index(track: Track, s, lane=0):
@@ -117,4 +125,15 @@ def frenet_to_cartesian(track: Track, s, ey, lane=0):
 def wrap_to_pi(a):
     """Wrap angle(s) to (-pi, pi]."""
     return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def check_end(track: Track, s, laps: int = 1, lane=0, atol: float = 0.15):
+    """True when an agent has completed ``laps`` laps (reference
+    ``utilities/misc.py:28-48``): s within ``atol`` of (or beyond) the track
+    length and the completed-lap count equal to ``laps``."""
+    lane = _lane(lane)
+    s = torch.as_tensor(s, dtype=track.s0.dtype, device=track.s0.device)
+    L = _per_lane(track.track_length, lane, s)
+    near = torch.isclose(s, torch.broadcast_to(L, s.shape), atol=atol)
+    return (near | (s > L)) & (check_lap(track, s, lane) == laps)
 

@@ -20,6 +20,7 @@ from colaborativempc_tpu_torch.config.params import Gains
 from colaborativempc_tpu_torch.geometry.tracks import Track
 from colaborativempc_tpu_torch.ops.admm import ADMMEpochData, StageQP
 from colaborativempc_tpu_torch.ops.lqr import LQRCost, LQRDynamics
+from colaborativempc_tpu_torch.runtime.ocd import OCDFleetState
 from colaborativempc_tpu_torch.runtime.simulate import FleetState
 from colaborativempc_tpu_torch.utils.device import resolve_device
 
@@ -53,14 +54,24 @@ def track_from_numpy(track, device="cpu", dtype=torch.float32) -> Track:
 
 
 def gains_from_numpy(gains, device="cpu", dtype=torch.float32) -> Gains:
-    return Gains(*(_tensor(_get(gains, f), resolve_device(device), dtype)
+    """One set of gains, or a batch whose arrays carry a leading batch
+    axis. A scalar ``wq`` stays a float; a batch of them becomes a ``(B,)``
+    tensor."""
+    dev = resolve_device(device)
+    wq = np.asarray(_get(gains, "wq"))
+    return Gains(*(_tensor(_get(gains, f), dev, dtype)
                    for f in ("q", "qs", "r", "dr")),
-                 wq=float(_get(gains, "wq")))
+                 wq=float(wq) if wq.ndim == 0 else _tensor(wq, dev, dtype))
 
 
 def fleet_state_from_numpy(state, device="cpu",
                            dtype=torch.float32) -> FleetState:
     return _record(FleetState, state, device, dtype)
+
+
+def ocd_state_from_numpy(state, device="cpu",
+                         dtype=torch.float32) -> OCDFleetState:
+    return _record(OCDFleetState, state, device, dtype)
 
 
 def stage_qp_from_numpy(qp, device="cpu", dtype=torch.float32) -> StageQP:
@@ -91,5 +102,6 @@ def to_numpy(record) -> dict:
 track_to_numpy = to_numpy
 gains_to_numpy = to_numpy
 fleet_state_to_numpy = to_numpy
+ocd_state_to_numpy = to_numpy
 stage_qp_to_numpy = to_numpy
 epoch_data_to_numpy = to_numpy

@@ -3,14 +3,13 @@
 
 from __future__ import annotations
 
-from colaborativempc_tpu_torch.runtime.simulate import FleetState
 from colaborativempc_tpu_torch.utils.device import resolve_device
 
 
-def batch_fleet_state(state: FleetState, n_scen: int,
-                      device="cpu") -> FleetState:
-    """Tile a single-fleet ``(n_ag, ...)`` state into a scenario batch
-    ``(n_scen, n_ag, ...)`` on ``device`` (each scenario its own copy)."""
+def batch_fleet_state(state, n_scen: int, device="cpu"):
+    """Tile a single-fleet ``(n_ag, ...)`` state — a ``FleetState`` or an
+    ``OCDFleetState`` — into a scenario batch ``(n_scen, n_ag, ...)`` on
+    ``device`` (each scenario its own copy)."""
     dev = resolve_device(device)
-    return FleetState(*(
+    return type(state)(*(
         x.to(dev)[None].expand((n_scen,) + x.shape).clone() for x in state))

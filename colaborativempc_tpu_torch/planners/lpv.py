@@ -64,10 +64,20 @@ def _lim(v, dtype, device) -> torch.Tensor:
     return t.reshape(-1, 1)
 
 
-def _gain(g, dtype, device) -> torch.Tensor:
-    if isinstance(g, torch.Tensor):
-        return g.to(device=device, dtype=dtype)
-    return torch.tensor(np.asarray(g, np.float64), dtype=dtype, device=device)
+def _gain(g, k: int, dtype, device) -> torch.Tensor:
+    """A gain vector of length ``k`` as a ``(1, k)`` row, or per-problem
+    gains ``(P, k)`` as they are (a gain battery varies them per problem)."""
+    if not isinstance(g, torch.Tensor):
+        g = torch.tensor(np.asarray(g, np.float64))
+    return g.to(device=device, dtype=dtype).reshape(-1, k)
+
+
+def _wq(wq, dtype, device):
+    """The separation-reward weight: a Python float, or per-problem
+    weights as a ``(P, 1)`` column."""
+    if isinstance(wq, (torch.Tensor, np.ndarray)) and np.ndim(wq) > 0:
+        return torch.as_tensor(wq).to(device=device, dtype=dtype).reshape(-1, 1)
+    return float(wq)
 
 
 def _augment_dynamics(Ad: torch.Tensor, Bd: torch.Tensor) -> LQRDynamics:
@@ -95,33 +105,36 @@ def build_lpv_qp(track: Track, gains: Gains, limits: SysLimits,
 
     planes: ``(P, N, n_nb, 3)`` separating planes; weights: ``(P, N, n_nb)``
     separation reward weights (zeros for a single agent). ``lane``: int or
-    a ``(P,)`` tensor.
+    a ``(P,)`` tensor. ``gains``: each vector shared by all problems or
+    with a leading per-problem axis P (a gain battery); ``wq`` a float or
+    ``(P,)``.
     """
     dtype, dev = x_lin.dtype, x_lin.device
     P = x_lin.shape[0]
     lim = {k: _lim(getattr(limits, k), dtype, dev) for k in limits._fields}
-    gq = _gain(gains.q, dtype, dev)
-    gr = _gain(gains.r, dtype, dev)
-    gdr = _gain(gains.dr, dtype, dev)
-    gqs = torch.clamp_max(_gain(gains.qs, dtype, dev), SOFT_WEIGHT_CAP)
+    gq = _gain(gains.q, NX, dtype, dev)
+    gr = _gain(gains.r, NU, dtype, dev)
+    gdr = _gain(gains.dr, NC, dtype, dev)
+    gqs = torch.clamp_max(_gain(gains.qs, 3, dtype, dev), SOFT_WEIGHT_CAP)
 
     kappas = curvature(track, x_lin[:, :N, 6], lane)
     Ad, Bd = lpv_discrete_horizon(x_lin[:, :N], u_lin, kappas, dt, model)
     dyn = _augment_dynamics(Ad, Bd)
 
     # ---- cost: Q on x, R on u_prev for states 1..N (incl. terminal) -------
-    Qz_diag = torch.cat([2.0 * gq, 2.0 * gr])
+    Qz_diag = torch.cat([2.0 * gq, 2.0 * gr], dim=-1)
     Q = x_lin.new_zeros((P, N + 1, NZ, NZ))
-    Q[:, 1:] = torch.diag(Qz_diag)
-    R = torch.diag(2.0 * gdr).expand(P, N, NC, NC).contiguous()
+    Q[:, 1:] = torch.diag_embed(Qz_diag)[:, None]
+    R = torch.diag_embed(2.0 * gdr)[:, None].expand(P, N, NC, NC).contiguous()
     S = x_lin.new_zeros((P, N, NZ, NC))
 
     # linear terms: vx tracking + separation reward on (X, Y); reward index
     # k (state stage k+1) uses weights row k, planes row k
     q = x_lin.new_zeros((P, N + 1, NZ))
-    q[:, 1:, 0] = -2.0 * gq[0] * lim["vx_ref"]
-    rew_x = 2.0 * gains.wq * torch.sum(weights * planes[..., 0], dim=-1)
-    rew_y = 2.0 * gains.wq * torch.sum(weights * planes[..., 1], dim=-1)
+    q[:, 1:, 0] = -2.0 * gq[:, 0:1] * lim["vx_ref"]
+    wq = _wq(gains.wq, dtype, dev)
+    rew_x = 2.0 * wq * torch.sum(weights * planes[..., 0], dim=-1)
+    rew_y = 2.0 * wq * torch.sum(weights * planes[..., 1], dim=-1)
     q[:, 1:, 7] += rew_x.to(dtype)
     q[:, 1:, 8] += rew_y.to(dtype)
     r = x_lin.new_zeros((P, N, NC))
@@ -143,7 +156,7 @@ def build_lpv_qp(track: Track, gains: Gains, limits: SysLimits,
     E[:, :, 0] = G_[:, :, 0]
     lo[:, :, 0] = lim["min_vel"]
     hi[:, :, 0] = lim["max_vel"]
-    soft_hi[:, :, 0] = gqs[0]
+    soft_hi[:, :, 0] = gqs[:, 0:1]
 
     # lateral error band, soft on both sides (LPV_Planner.py:299-303)
     ey_ub = halfwidth(track, x_lin[:, :N, 6], lane, sm=lim["sm"]).to(dtype)
@@ -151,8 +164,8 @@ def build_lpv_qp(track: Track, gains: Gains, limits: SysLimits,
     E[:, :, 1] = G_[:, :, 3]
     lo[:, :, 1] = -ey_ub
     hi[:, :, 1] = ey_ub
-    soft_lo[:, :, 1] = gqs[1]
-    soft_hi[:, :, 1] = gqs[1]
+    soft_lo[:, :, 1] = gqs[:, 1:2]
+    soft_hi[:, :, 1] = gqs[:, 1:2]
 
     # inputs: u_k = u_prev + du, hard box (LPV_Planner.py:331-339)
     D[:, :, 2, NX + 0] = 1.0
@@ -172,7 +185,7 @@ def build_lpv_qp(track: Track, gains: Gains, limits: SysLimits,
     E[:, :, 4:] = (ax[..., None] * G_[:, :, None, 7]
                    + ay[..., None] * G_[:, :, None, 8]).to(dtype)
     hi[:, :, 4:] = (-lim["min_dist"][..., None] / 2.0 - b).to(dtype)
-    soft_hi[:, :, 4:] = gqs[2]
+    soft_hi[:, :, 4:] = gqs[:, 2, None, None]
 
     return StageQP(dyn=dyn, cost=cost, D=D, E=E, lo=lo, hi=hi,
                    soft_lo=soft_lo, soft_hi=soft_hi)

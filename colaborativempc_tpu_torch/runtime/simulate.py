@@ -19,19 +19,20 @@ escape checks only ``x_pred``/``u_pred`` for finiteness before adopting
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from colaborativempc_tpu_torch.config.params import (
-    ExperimentConfig, SysLimits, lpv_gains, x0_database,
+    ExperimentConfig, Gains, SysLimits, lpv_gains, x0_database,
 )
 from colaborativempc_tpu_torch.geometry import (
-    Track, frenet_to_cartesian, halfwidth, wrap_to_pi,
+    Track, check_end, frenet_to_cartesian, halfwidth, make_track, wrap_to_pi,
 )
 from colaborativempc_tpu_torch.planners.lpv import lpv_solve, LPVSolution
-from colaborativempc_tpu_torch.utils.device import resolve_device
+from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
 from colaborativempc_tpu_torch.utils.warmstart import (
     initialise_agents, warmstart_trajectory,
 )
@@ -83,6 +84,32 @@ def _pairwise_min_dist(agents_xy: torch.Tensor) -> torch.Tensor:
     n = p.shape[-2]
     dist = dist + torch.eye(n, dtype=dist.dtype, device=dist.device) * 1e9
     return torch.amin(dist, dim=(1, 2, 3))
+
+
+def _gains_on(g: Gains, device, dtype) -> Gains:
+    """Gains as tensors on ``device``; a step function moves them there once
+    when it is built, since a host-to-device copy inside the step would
+    synchronise the host. ``wq`` stays a float unless it is per fleet."""
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64) if not isinstance(
+            v, torch.Tensor) else v).to(device=device, dtype=dtype)
+    wq = g.wq
+    if np.ndim(wq) > 0:
+        wq = t(wq)
+    return Gains(q=t(g.q), qs=t(g.qs), r=t(g.r), dr=t(g.dr), wq=wq)
+
+
+def _per_problem(gains: Gains, n: int) -> Gains:
+    """Per-fleet gains ``(B, k)`` repeated for the n agents of each fleet
+    (the flat ``B*n`` problem batch); shared gains as they are."""
+    if gains.q.ndim == 1:
+        return gains
+
+    def rep(v):
+        if isinstance(v, torch.Tensor) and v.ndim > 0:
+            return v.repeat_interleave(n, dim=0)
+        return v
+    return Gains(*(rep(v) for v in gains))
 
 
 def _per_agent_limits(cfg: ExperimentConfig, device) -> SysLimits:
@@ -253,14 +280,16 @@ def hold_vx_scale(cfg: ExperimentConfig, count: torch.Tensor,
                        ones)
 
 
-def escalate_holds(track: Track, cfg: ExperimentConfig, state: FleetState,
-                   lanes: torch.Tensor) -> FleetState:
+def escalate_holds(track: Track, cfg: ExperimentConfig, state, lanes:
+                   torch.Tensor):
     """Recovery escalation ladder, applied before the step's solve. With
     ``count = max(hold_count, brake_count)``: at ``hold_reset_k`` the
     agent's ADMM warm state (w, y, rho_scale) resets; at ``hold_cold_k``
     the agent is cold re-initialised from a fresh warm-start trajectory at
     its current state and its counters restart. Identity when no agent is
-    escalating."""
+    escalating. ``state`` is a ``FleetState`` or a ``runtime/ocd.py
+    OCDFleetState`` (any record with those fields), with leading axes
+    ``hold_count.shape``."""
     if not cfg.hold_on_infeasible or (cfg.hold_reset_k is None
                                       and cfg.hold_cold_k is None):
         return state
@@ -305,12 +334,8 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
             "the associative-scan ADMM path is not ported yet")
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
-    # gains go onto the device once here: a host-to-device copy inside the
-    # step would synchronise the host
-    g = cfg.gains if cfg.gains is not None else lpv_gains()
-    gains = g._replace(**{
-        f: torch.as_tensor(np.asarray(getattr(g, f), np.float64)).to(
-            device=dev, dtype=dtype) for f in ("q", "qs", "r", "dr")})
+    gains = _gains_on(cfg.gains if cfg.gains is not None else lpv_gains(),
+                      dev, dtype)
     n = cfg.n_agents
     ns = torch.as_tensor(_neighbour_index(n), device=dev)
     multi = n > 1
@@ -467,3 +492,135 @@ def init_lpv_fleet(track: Track, cfg: ExperimentConfig,
         hold_count=full((n,), 0, torch.int32),
         brake_count=full((n,), 0, torch.int32),
         jam_count=full((n,), 0, torch.int32))
+
+
+class ExperimentResult(NamedTuple):
+    states: np.ndarray         # (T, n_ag, 9) applied states per step
+    inputs: np.ndarray         # (T, n_ag, 2)
+    feasible: np.ndarray       # (T, n_ag)
+    min_dist: np.ndarray       # (T,) over predictions
+    min_dist_exec: np.ndarray  # (T,) over executed states
+    step_times: np.ndarray     # (T,) wall clock per control step
+    iterations: np.ndarray     # (T, n_ag) ADMM iterations
+    steps: int
+    finished: bool             # lap completed (vs max_it exhausted)
+    exec_beta: np.ndarray = np.ones((0, 0))          # (T, n_ag)
+    wall_clip: np.ndarray = np.zeros((0, 0), bool)   # (T, n_ag)
+
+
+def resolve_single_fleet_schedule(cfg: ExperimentConfig) -> ExperimentConfig:
+    """Fill unset solver knobs with the single-fleet long-horizon (N >= 48)
+    latency schedule of the JAX package: ``epoch_len`` 15, the associative
+    Riccati path, ``admm_iters`` 1000. Each knob fills in only when left
+    unset (None), so a pin always wins — ``SolverConfig(assoc=False)`` runs
+    the sequential path, since the associative one is not ported yet."""
+    if cfg.N < 48:
+        return cfg
+    import dataclasses
+    sv = cfg.solver
+    return dataclasses.replace(cfg, solver=sv._replace(
+        epoch_len=15 if sv.epoch_len is None else sv.epoch_len,
+        assoc=True if sv.assoc is None else sv.assoc,
+        admm_iters=1000 if sv.admm_iters is None else sv.admm_iters))
+
+
+def _fleet0(record):
+    """Fleet 0 of a batched record as numpy arrays (what the IO hooks and
+    the result histories take)."""
+    return type(record)(*(t[0].detach().cpu().numpy() for t in record))
+
+
+def run_lpv_experiment(cfg: ExperimentConfig,
+                       x0s: Optional[np.ndarray] = None,
+                       track: Optional[Track] = None,
+                       io=None,
+                       checkpoint_path: Optional[str] = None,
+                       checkpoint_every: int = 50,
+                       profile_dir: Optional[str] = None,
+                       device="cpu") -> ExperimentResult:
+    """Closed-loop decentralised LPV experiment of one fleet (reference
+    ``LPV_HP_N_main.main``): the host loop handles termination and IO, each
+    control step is ``make_lpv_fleet_step`` on a batch of one fleet.
+
+    ``checkpoint_path`` enables an exact mid-run resume
+    (``runtime/checkpoint.py``); ``profile_dir`` records a
+    ``torch.profiler`` trace of the loop into ``profile_dir/trace.json``.
+    At N >= 48 the schedule resolves ``assoc=True``, which raises
+    ``NotImplementedError`` until the associative path is ported; pin
+    ``SolverConfig(assoc=False)`` to run there.
+    """
+    import os
+    from colaborativempc_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    from colaborativempc_tpu_torch.parallel.fleet import batch_fleet_state
+    cfg = resolve_single_fleet_schedule(cfg)
+    dev = resolve_device(device)
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
+    if track is None:
+        track = make_track(cfg.map_type, device=dev, dtype=dtype)
+    step = make_lpv_fleet_step(track, cfg)
+    state = batch_fleet_state(init_lpv_fleet(track, cfg, x0s, device=dev), 1,
+                              device=dev)
+    it = 0
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state, it = load_checkpoint(checkpoint_path, state)
+    prof = None
+    if profile_dir is not None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+
+    hist = {k: [] for k in ("states", "inputs", "feas", "dist", "dist_e",
+                            "times", "iters", "beta", "wall")}
+    finished = False
+    while it < cfg.max_it:
+        t0 = time.perf_counter()
+        state, metrics = step(state)
+        synchronize(dev)
+        hist["times"].append(time.perf_counter() - t0)
+        st0, m0 = _fleet0(state), _fleet0(metrics)
+        hist["states"].append(st0.x0)
+        hist["inputs"].append(st0.u_old)
+        hist["feas"].append(m0.feasible)
+        hist["dist"].append(float(m0.min_dist))
+        hist["dist_e"].append(float(m0.min_dist_exec))
+        hist["beta"].append(m0.exec_beta)
+        hist["wall"].append(m0.wall_clip)
+        hist["iters"].append(m0.iterations)
+        if io is not None:
+            io.update(it, st0, m0, hist["times"][-1])
+        # the reference accepts inaccurate and budget-capped solves and
+        # stops only on a hard failure (LPV_Planner.py:241-249): abort on a
+        # non-finite state, continue on an infeasible flag
+        if not bool(np.all(np.isfinite(hist["states"][-1]))):
+            break
+        if cfg.verb >= 1 and not bool(np.all(hist["feas"][-1])):
+            bad = np.where(~hist["feas"][-1])[0].tolist()
+            print(f"[step {it}] inaccurate solve accepted (agents {bad})")
+        # lap termination on any agent (reference checkEnd, misc.py:28-48)
+        if bool(check_end(track, state.x0[0, :, 6], laps=cfg.laps,
+                          lane=cfg.lane).any()):
+            finished = True
+            break
+        it += 1
+        if checkpoint_path is not None and it % checkpoint_every == 0:
+            save_checkpoint(checkpoint_path, state, it)
+
+    if prof is not None:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    if checkpoint_path is not None:
+        save_checkpoint(checkpoint_path, state, it)
+    return ExperimentResult(
+        states=np.asarray(hist["states"]), inputs=np.asarray(hist["inputs"]),
+        feasible=np.asarray(hist["feas"]), min_dist=np.asarray(hist["dist"]),
+        min_dist_exec=np.asarray(hist["dist_e"]),
+        step_times=np.asarray(hist["times"]),
+        iterations=np.asarray(hist["iters"]),
+        steps=len(hist["states"]), finished=finished,
+        exec_beta=np.asarray(hist["beta"]),
+        wall_clip=np.asarray(hist["wall"]))

@@ -13,3 +13,11 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA device "
                            "is available")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU), so a
+    host clock read after it covers that work."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -171,3 +171,48 @@ def test_cuda_fleet_rollout_matches_cpu(cuda):
     (fg, (_, _, mg)), (fc, (_, _, mc)) = out["cuda"], out["cpu"]
     close(fg.x_pred, fc.x_pred, 1e-3)
     assert torch.equal(mg.feasible.cpu(), mc.feasible)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_kernel_matches_plain_twin_at_the_hp_opt_shape(cuda):
+    """The NL planner's hp_opt rows with three agents: nc=6, mr=10."""
+    qp, z0, w0, y0 = problems(55, P=37, N=20, nc=6, mr=10)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda),
+                                      epoch_len=20, alpha=1.6)
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0, epoch_len=20,
+                                            alpha=1.6)
+    for g, r in zip(got[:4], ref[:4]):
+        close(g, r, 1e-3)
+    for g, r in zip(got[4:], ref[4:]):
+        close(g, r, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coupling,sweep,tol", [
+    ("eu", "jacobi", 1e-3), ("hp_opt", "jacobi", 1e-3),
+    ("hp_opt", "gauss_seidel", 5e-3)])
+def test_cuda_nl_rollout_matches_cpu(cuda, coupling, sweep, tol):
+    """B=2 NL-OCD fleets for 3 steps on the card and on the CPU: plans
+    within ``tol``, equal feasible flags and OCD iteration counts.
+
+    hp_opt under Gauss-Seidel carries the JAX plane-slot defect (ROADMAP
+    queue 3): pair (1, 2)'s price grows on a wrong plane, and the result
+    becomes sensitive to float32 rounding — the JAX package and the port,
+    both on the CPU, land 2.2e-3 apart at this shape (the other two cases
+    ~1e-6). Its plans are held to 5e-3."""
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        _, rollout, st = monte_carlo.setup(
+            "nl", scenarios=2, agents=3, N=8, steps=3, device=dev,
+            coupling=coupling, sweep=sweep)
+        before = cuda_lqr.admm_epoch_batched.launches
+        out[dev.type] = rollout(st)
+        launched = cuda_lqr.admm_epoch_batched.launches - before
+        assert (launched > 0) == (dev.type == "cuda")
+    (fg, (_, _, mg)), (fc, (_, _, mc)) = out["cuda"], out["cpu"]
+    close(fg.x_pred, fc.x_pred, tol)
+    assert torch.equal(mg.feasible.cpu(), mc.feasible)
+    assert torch.equal(mg.ocd_iterations.cpu(), mc.ocd_iterations)
