@@ -79,8 +79,9 @@ def build() -> dict:
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     lib = ctypes.CDLL(build()["path"])
-    lib.cmpc_admm_epoch.argtypes = [_P] * 25 + [_I] * 6 + [ctypes.c_float, _P]
+    lib.cmpc_admm_epoch.argtypes = ([_P] * 25 + [_I] * 6 + [ctypes.c_float]
+                                    + [_I] * 3 + [_P])
     lib.cmpc_admm_epoch.restype = _I
-    lib.cmpc_lqr_affine.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    lib.cmpc_lqr_affine.argtypes = [_P] * 12 + [_I] * 7 + [_P]
     lib.cmpc_lqr_affine.restype = _I
     return lib

@@ -15,13 +15,93 @@ incremented only where the kernel is launched.
 Layout: row-major with the batch of problems first, ``(P, N, ...)``;
 ``Quu_inv`` is the explicit inverse of the 2x2 ``Quu`` (as in the Pallas
 kernels).
+
+:func:`kernel_plan` chooses each launch's QPs per block, ring depth and
+shared-memory bytes from the shapes and the card's SM count; it is plain
+Python, so the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
+
+# NVIDIA H100 (sm_90): dynamic shared memory a block may use, shared memory
+# of an SM (each resident block reserves 1 KB of it), resident blocks and
+# warps per SM, and its SM count.
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+MAX_BLOCKS_PER_SM = 32
+MAX_WARPS_PER_SM = 64
+H100_SMS = 132
+_RING_CANDIDATES = (32, 16, 8, 4, 2, 1)
+
+
+class KernelPlan(NamedTuple):
+    """One launch's geometry: ``qps_per_block`` warps (one QP each) per
+    block; ``ring`` stages per ring slot (``>= N``: the whole horizon is
+    resident and loads once per launch, else two slots stream chunks of
+    ``ring`` stages); ``smem_bytes`` of dynamic shared memory per block;
+    ``waves``, the rounds of blocks the card runs one after another."""
+    qps_per_block: int
+    ring: int
+    smem_bytes: int
+    waves: int
+
+
+def stage_floats(nz: int, nc: int, mr: int) -> int:
+    """Floats of one stage's fixed data in a ring slot (``stage_floats`` of
+    ``csrc/lqr_kernels.cu``)."""
+    return nz * nz + 3 * nz * nc + nc * nc + 3 * nz + nc + mr * (nz + nc + 5)
+
+
+def qp_floats(N: int, ring: int, nz: int, nc: int, mr: int) -> int:
+    """Floats of shared memory one QP takes (``qp_floats`` of the source):
+    w, y, kff over the horizon, one chunk's scratch, one or two ring
+    slots."""
+    S = min(ring, N)
+    slots = 1 if ring >= N else 2
+    return (2 * N * mr + N * nc + (S + 1) * nz + S * (nz + mr + nc) + nc
+            + slots * S * stage_floats(nz, nc, mr))
+
+
+def kernel_plan(P: int, N: int, nz: int, nc: int, mr: int,
+                sms: int = H100_SMS, ring: Optional[int] = None,
+                qps_per_block: Optional[int] = None) -> KernelPlan:
+    """The launch plan for P QPs of horizon N (``mr = 0``: the affine
+    kernel). Among the whole horizon and rings of 32, 16, 8, 4, 2 and 1
+    stages, and 1 to 4 QPs per block, it takes the fewest waves; then the
+    resident horizon over a streamed ring, the deeper ring, the plan spread
+    over more SMs, and more QPs per block. So the horizon stays resident
+    when every QP's horizon fits on the card at once, and streams when a
+    ring saves waves. ``ring`` and ``qps_per_block`` pin a choice."""
+    rings = ([ring] if ring is not None else
+             [N] + [r for r in _RING_CANDIDATES if r < N])
+    qpbs = [qps_per_block] if qps_per_block is not None else [4, 3, 2, 1]
+    best, best_key = None, None
+    for R in rings:
+        per_qp = 4 * qp_floats(N, R, nz, nc, mr)
+        for qpb in qpbs:
+            smem = qpb * per_qp
+            if smem > SMEM_PER_BLOCK:
+                continue
+            per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // qpb,
+                         SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+            blocks = -(-P // qpb)
+            waves = -(-blocks // (sms * per_sm))
+            key = (waves, R < N, -min(R, N), -min(sms, blocks), -qpb)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = KernelPlan(qpb, min(R, N), smem, waves)
+    if best is None:
+        raise ValueError(f"no launch plan fits P={P}, N={N}, nz={nz}, "
+                         f"nc={nc}, mr={mr}, ring={ring}, "
+                         f"qps_per_block={qps_per_block} in "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory")
+    return best
 
 
 def _mv(A, x):
@@ -106,12 +186,21 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0):
+def _plan_for(dev, plan, P, N, nz, nc, mr) -> KernelPlan:
+    if plan is not None:
+        return plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return kernel_plan(P, N, nz, nc, mr, sms=sms)
+
+
+def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0, *,
+                             plan: Optional[KernelPlan] = None):
     """Batched affine LQR solve with fixed factors.
 
     Args (leading batch axis P): F (P,N,nz,nz), G (P,N,nz,nc), d (P,N,nz),
     K (P,N,nc,nz), Quu_inv (P,N,nc,nc), Qxu (P,N,nz,nc), m (P,N,nz),
-    q (P,N+1,nz), r (P,N,nc), z0 (P,nz).
+    q (P,N+1,nz), r (P,N,nc), z0 (P,nz). ``plan`` pins the launch plan
+    (default :func:`kernel_plan` for the card).
     Returns z (P,N+1,nz), c (P,N,nc).
     """
     if z0.device.type == "cpu":
@@ -127,6 +216,7 @@ def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0):
                 z0=z0)
     for k, shape in shapes.items():
         _check(k, args[k], shape, dev)
+    plan = _plan_for(dev, plan, P, N, nz, nc, 0)
     from colaborativempc_tpu_torch.ops import _build
     lib = _build.load()
     z = torch.empty((P, N + 1, nz), dtype=torch.float32, device=dev)
@@ -135,7 +225,8 @@ def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cmpc_lqr_affine(
             *[_ptr(args[k]) for k in shapes], _ptr(z), _ptr(c),
-            P, N, nz, nc, ctypes.c_void_p(stream))
+            P, N, nz, nc, plan.qps_per_block, plan.ring, plan.smem_bytes,
+            ctypes.c_void_p(stream))
     _raise_on(err, "lqr_affine_solve_batched")
     lqr_affine_solve_batched.launches += 1
     return z, c
@@ -148,13 +239,15 @@ _EPOCH_FIELDS = ("F", "G", "d", "K", "Quu_inv", "Qxu", "m", "q", "r", "D",
 
 
 def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
-                       alpha: float = 1.6):
+                       alpha: float = 1.6,
+                       plan: Optional[KernelPlan] = None):
     """Run a full ADMM epoch for a batch of stage QPs.
 
     Args:
       data: ``ops/admm.py ADMMEpochData`` with a leading batch axis P on
         every field.
       z0 (P,nz), w0/y0 (P,N,mr): initial state / splitting warm starts.
+      plan: pins the launch plan (default :func:`kernel_plan` for the card).
     Returns:
       z (P,N+1,nz), c (P,N,nc), w (P,N,mr), y (P,N,mr), r_prim (P,mr),
       r_dual (P,mr) — the last iteration's per-row-class residuals.
@@ -181,6 +274,7 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
     _check("z0", z0, (P, nz), dev)
     _check("w0", w0, row, dev)
     _check("y0", y0, row, dev)
+    plan = _plan_for(dev, plan, P, N, nz, nc, mr)
     from colaborativempc_tpu_torch.ops import _build
     lib = _build.load()
 
@@ -196,6 +290,7 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
             _ptr(z0), _ptr(w0), _ptr(y0),
             _ptr(z), _ptr(c), _ptr(w), _ptr(y), _ptr(rp), _ptr(rd),
             P, N, nz, nc, mr, int(epoch_len), ctypes.c_float(alpha),
+            plan.qps_per_block, plan.ring, plan.smem_bytes,
             ctypes.c_void_p(stream))
     _raise_on(err, "admm_epoch_batched")
     admm_epoch_batched.launches += 1

@@ -64,7 +64,7 @@ class BatteryResult(NamedTuple):
 
 def run_lpv_battery(cfg: ExperimentConfig, grid: Sequence[Gains],
                     steps: int, track: Track | None = None,
-                    device="cpu") -> BatteryResult:
+                    device="cuda") -> BatteryResult:
     """Advance every gain combination in lock-step, one fleet each. The
     step is the JAX battery's plain LPV step: every agent executes its
     plan's first stage (no plan-holding, envelope or separation filter)."""
@@ -127,7 +127,7 @@ class NLBatteryResult(NamedTuple):
 
 def run_nl_battery(cfg: ExperimentConfig, grid: Sequence[Gains],
                    steps: int, track: Track | None = None,
-                   x0s=None, device="cpu") -> NLBatteryResult:
+                   x0s=None, device="cuda") -> NLBatteryResult:
     """NL-OCD battery: every gain combination runs its full coordination
     loop as one fleet of a batch. The per-fleet freeze of the OCD loop
     keeps each configuration's trajectory and OCD iteration counts those of

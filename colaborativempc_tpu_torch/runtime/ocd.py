@@ -562,7 +562,7 @@ def run_nl_experiment(cfg: ExperimentConfig,
                       io=None,
                       checkpoint_path: Optional[str] = None,
                       checkpoint_every: int = 50,
-                      device="cpu") -> NLExperimentResult:
+                      device="cuda") -> NLExperimentResult:
     """Closed-loop distributed NL-OCD experiment of one fleet (reference
     ``NL_EU_N_main.main``). The host loop handles termination and IO;
     ``checkpoint_path`` enables an exact mid-run resume of the whole state,

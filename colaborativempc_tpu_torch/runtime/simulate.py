@@ -537,7 +537,7 @@ def run_lpv_experiment(cfg: ExperimentConfig,
                        checkpoint_path: Optional[str] = None,
                        checkpoint_every: int = 50,
                        profile_dir: Optional[str] = None,
-                       device="cpu") -> ExperimentResult:
+                       device="cuda") -> ExperimentResult:
     """Closed-loop decentralised LPV experiment of one fleet (reference
     ``LPV_HP_N_main.main``): the host loop handles termination and IO, each
     control step is ``make_lpv_fleet_step`` on a batch of one fleet.

@@ -9,7 +9,8 @@ Reports the distribution of safety and performance metrics across
 scenarios; ``--pipeline nl`` runs the full NL-OCD coordination loop (the
 per-fleet freeze keeps each scenario's OCD iteration counts those of a
 standalone run) and reports the per-scenario OCD iteration distribution.
-``--device`` defaults to the first CUDA device when there is one.
+``--device`` defaults to ``cuda`` and raises when there is no card;
+``--device cpu`` runs on the CPU.
 """
 
 import argparse
@@ -29,13 +30,13 @@ def perturb_x0(shape, noise, rng) -> np.ndarray:
 
 
 def setup(pipeline="nl", scenarios=64, agents=3, N=20, steps=60,
-          map_type="Highway", noise=0.05, device="cpu", seed=0,
+          map_type="Highway", noise=0.05, device="cuda", seed=0,
           coupling="eu", sweep="jacobi"):
     """The sweep's configuration, its rollout function and the perturbed
     initial batch: ``(cfg, rollout, state)``; ``rollout(state)`` returns
     ``(final_state, (x0_hist, u_hist, metrics))`` with ``(scenarios,
     steps, ...)`` histories. ``coupling`` and ``sweep`` apply to the NL
-    pipeline."""
+    pipeline. ``device`` defaults to CUDA and raises without a card."""
     from colaborativempc_tpu_torch.config import (
         ExperimentConfig, OCDConfig, SolverConfig, lpv_gains, nl_gains,
     )
@@ -45,6 +46,8 @@ def setup(pipeline="nl", scenarios=64, agents=3, N=20, steps=60,
         init_lpv_fleet, init_nl_fleet, make_lpv_fleet_rollout,
         make_nl_ocd_rollout,
     )
+    from colaborativempc_tpu_torch.utils import resolve_device
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     if pipeline == "nl":
         cfg = ExperimentConfig(
@@ -102,10 +105,11 @@ def main(argv=None):
                     default="eu", help="NL coupling")
     ap.add_argument("--sweep", choices=("jacobi", "gauss_seidel"),
                     default="jacobi", help="NL coordination sweep order")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda, which raises without "
+                    "a card; --device cpu runs on the CPU)")
     args = ap.parse_args(argv)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
     from colaborativempc_tpu_torch.utils import synchronize
 
     cfg, rollout, state = setup(args.pipeline, args.scenarios, args.agents,

@@ -8,13 +8,13 @@
         [--lambdas data/NL_3agents_eu/pck/ini_lambdas.pkl] [--device cuda]
 
 Writes the reference's csv/pck schema under ``--out`` and prints a summary
-line. ``--device`` defaults to the first CUDA device when there is one.
+line. ``--device`` defaults to ``cuda`` and raises when there is no card;
+``--device cpu`` runs on the CPU.
 """
 
 import argparse
 
 import numpy as np
-import torch
 
 
 def main(argv=None):
@@ -38,11 +38,13 @@ def main(argv=None):
     ap.add_argument("--lane", type=int, default=0)
     ap.add_argument("--dynamic-lane", action="store_true",
                     help="per-step lane re-selection (not ported yet)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda, which raises without "
+                    "a card; --device cpu runs on the CPU)")
     args = ap.parse_args(argv)
     out = args.out or f"data/NL_{args.agents}agents_{args.coupling}"
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    from colaborativempc_tpu_torch.utils import resolve_device
+    device = resolve_device(args.device)
 
     from colaborativempc_tpu_torch.config import (
         ExperimentConfig, OCDConfig, SolverConfig, nl_gains,

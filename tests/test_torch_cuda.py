@@ -216,3 +216,49 @@ def test_cuda_nl_rollout_matches_cpu(cuda, coupling, sweep, tol):
     close(fg.x_pred, fc.x_pred, tol)
     assert torch.equal(mg.feasible.cpu(), mc.feasible)
     assert torch.equal(mg.ocd_iterations.cpu(), mc.ocd_iterations)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,nc,mr,epoch_len,ring,qpb", [
+    (37, 48, 2, 6, 20, None, None),   # N=48, the horizon resident
+    (37, 125, 2, 6, 20, 8, None),     # a ring shorter than N, streamed
+    (1, 20, 2, 6, 20, None, None),    # one QP
+    (7, 20, 2, 6, 20, None, 4),       # the last block one warp short
+    (37, 20, 2, 6, 1, None, None),    # epoch_len = 1
+    (37, 20, 6, 10, 20, 4, None),     # hp_opt rows, streamed
+])
+def test_cuda_epoch_kernel_plans_match_plain_twin(cuda, P, N, nc, mr,
+                                                  epoch_len, ring, qpb):
+    """The epoch kernel under the launch plans it meets: resident and
+    streamed rings, ragged blocks, one iteration, the hp_opt shape."""
+    qp, z0, w0, y0 = problems(60 + N + P, P=P, N=N, nc=nc, mr=mr)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    plan = cuda_lqr.kernel_plan(P, N, 11, nc, mr, ring=ring,
+                                qps_per_block=qpb)
+    assert (plan.ring < N) == (ring is not None and ring < N)
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda),
+                                      epoch_len=epoch_len, alpha=1.6,
+                                      plan=plan)
+    torch.cuda.synchronize()
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0,
+                                            epoch_len=epoch_len, alpha=1.6)
+    for g, r in zip(got[:4], ref[:4]):
+        close(g, r, 1e-3)
+    for g, r in zip(got[4:], ref[4:]):
+        close(g, r, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [None, 16])
+def test_cuda_affine_kernel_matches_plain_twin_at_n125(cuda, ring):
+    qp, z0, _, _ = problems(57, P=37, N=125)
+    d = admm_epoch_inputs(qp)
+    args = (d.F, d.G, d.d, d.K, d.Quu_inv, d.Qxu, d.m, d.q, d.r, z0)
+    plan = cuda_lqr.kernel_plan(37, 125, 11, 2, 0, ring=ring)
+    got = cuda_lqr.lqr_affine_solve_batched(*(a.to(cuda) for a in args),
+                                            plan=plan)
+    torch.cuda.synchronize()
+    ref = cuda_lqr.lqr_affine_solve_batched_plain(*args)
+    close(got[0], ref[0], 5e-5)
+    close(got[1], ref[1], 5e-5)

@@ -88,7 +88,7 @@ def test_nl_battery_matches_jax():
                                   steps=steps, track=jt)
     tt = interop.track_from_numpy(jt, dtype=F64)
     grid = tbat.gain_grid(tcfg.nl_gains(), **kw)
-    got = tbat.run_nl_battery(tc, grid, steps=steps, track=tt)
+    got = tbat.run_nl_battery(tc, grid, steps=steps, track=tt, device="cpu")
     assert got.n_configs == len(grid) == 8
     assert got.states.shape == (steps, 8, 2, 9)
     np.testing.assert_array_equal(got.ocd_iterations, ref.ocd_iterations)
@@ -116,7 +116,8 @@ def test_lpv_battery_matches_jax():
                                    steps=3, track=jt)
     got = tbat.run_lpv_battery(tc, tbat.gain_grid(tcfg.lpv_gains(), **kw),
                                steps=3,
-                               track=interop.track_from_numpy(jt, dtype=F64))
+                               track=interop.track_from_numpy(jt, dtype=F64),
+                               device="cpu")
     np.testing.assert_array_equal(got.feasible, ref.feasible)
     for f in ("states", "min_dist_exec", "progress"):
         close(getattr(got, f), getattr(ref, f), 1e-6)
@@ -131,7 +132,7 @@ def test_run_nl_experiment_matches_jax(verb_ocd, tmp_path):
     ref = jocd.run_nl_experiment(jc)
     tc = tc.__class__(**{**tc.__dict__, "verb_ocd": verb_ocd})
     io = ExperimentIO(tc, path=str(tmp_path))
-    got = tocd.run_nl_experiment(tc, io=io)
+    got = tocd.run_nl_experiment(tc, io=io, device="cpu")
     assert got.steps == ref.steps == 4
     np.testing.assert_array_equal(got.ocd_iterations, ref.ocd_iterations)
     np.testing.assert_array_equal(got.feasible, ref.feasible)
@@ -158,7 +159,8 @@ def lpv_configs(N=8, max_it=3, **kw):
 def test_run_lpv_experiment_matches_jax(tmp_path):
     jc, tc = lpv_configs()
     ref = jsim.run_lpv_experiment(jc)
-    got = tsim.run_lpv_experiment(tc, profile_dir=str(tmp_path / "prof"))
+    got = tsim.run_lpv_experiment(tc, profile_dir=str(tmp_path / "prof"),
+                                  device="cpu")
     assert got.steps == ref.steps == 3 and not got.finished
     np.testing.assert_array_equal(got.iterations, ref.iterations)
     np.testing.assert_array_equal(got.feasible, ref.feasible)
@@ -177,11 +179,11 @@ def test_experiment_resumes_from_checkpoint_exactly(runner, tmp_path):
     else:
         _, tc = nl_configs(max_it=4)
         run = tocd.run_nl_experiment
-    straight = run(tc)
+    straight = run(tc, device="cpu")
     ck = str(tmp_path / "ck.npz")
     first = run(tc.__class__(**{**tc.__dict__, "max_it": 2}),
-                checkpoint_path=ck)
-    resumed = run(tc, checkpoint_path=ck)
+                checkpoint_path=ck, device="cpu")
+    resumed = run(tc, checkpoint_path=ck, device="cpu")
     assert first.steps == 2 and resumed.steps == 2
     np.testing.assert_array_equal(resumed.states, straight.states[2:])
     if runner == "nl":

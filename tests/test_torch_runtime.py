@@ -70,13 +70,14 @@ def test_long_horizon_runners_refuse_the_unported_assoc_path():
     base = dict(n_agents=1, N=48, dt=0.02, map_type="Highway", max_it=1)
     with pytest.raises(NotImplementedError, match="associative"):
         tsim.run_lpv_experiment(tcfg.ExperimentConfig(
-            gains=tcfg.lpv_gains(), **base))
+            gains=tcfg.lpv_gains(), **base), device="cpu")
     with pytest.raises(NotImplementedError, match="associative"):
         tocd.run_nl_experiment(tcfg.ExperimentConfig(
-            gains=tcfg.nl_gains(), **base))
+            gains=tcfg.nl_gains(), **base), device="cpu")
     res = tsim.run_lpv_experiment(tcfg.ExperimentConfig(
         gains=tcfg.lpv_gains(),
-        solver=tcfg.SolverConfig(assoc=False, admm_iters=30), **base))
+        solver=tcfg.SolverConfig(assoc=False, admm_iters=30), **base),
+        device="cpu")
     assert res.steps == 1 and np.isfinite(res.states).all()
 
 
