@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's two main paths through the hand-written CUDA kernels —
-the collaborative LPV fleet rollout of ``bench.py`` (Highway, 3 agents,
-H=20, 256 scenarios, 20 control steps, admm_iters=300) and the NL-OCD
-Monte-Carlo of ``scripts/monte_carlo.py --pipeline nl`` (64 fleets) — and
-checks them:
+Drives the port's main paths through the hand-written CUDA kernels — the
+collaborative LPV fleet rollout of ``bench.py`` (Highway, 3 agents, H=20,
+256 scenarios, 20 control steps, admm_iters=300), the NL-OCD Monte-Carlo of
+``scripts/monte_carlo.py --pipeline nl`` (64 fleets), the MPCC race and
+gain battery, the long-horizon single fleet and the dynamic-lane rollout —
+and checks them:
 
 1. a CUDA device is present; prints the card's name and power limit;
 2. builds the kernels from ``colaborativempc_tpu_torch/csrc`` with nvcc;
@@ -33,9 +34,34 @@ checks them:
    equal feasible flags and OCD iteration counts;
 8. one fleet's closed loop (``run_nl_experiment``, 20 steps): p50/p95 step
    latency;
-9. the layer split of an LPV step (B=256) and of an NL-OCD step (B=64):
-   milliseconds per control step in each layer, from synchronised host
-   timers around the layers' functions.
+9. the layer split of an LPV step (B=256), of an NL-OCD step (B=64) and
+   of an MPCC race step at N=60: milliseconds per control step in each
+   layer, from synchronised host timers around the layers' functions;
+10. the MPCC single race at the reference's N=60 (oval_mt, dt 0.05, the
+   associative schedule with epoch 15): launch counts reset, 10 warm-in
+   steps, then 80 timed steps: every state finite, the epoch kernel
+   launched once per ADMM epoch the solves ran; p50/p95/best latency;
+11. the MPCC gain battery: 18 races (q_contour {20, 50, 120} x q_progress
+   {0.5, 1, 2} x dr_scale {0.5, 1}) at N=20 for 160 steps after 10
+   warm-in steps: finite states, launches equal to the epochs;
+   race-steps/s, laps completed, feasible share;
+12. MPCC kernel vs plain: B=2 races x 5 steps at N=20 on the card and on
+   the CPU (plain twins): states within 1e-3 with equal reset flags, each
+   race's ADMM iteration counts printed where they differ;
+13. the epoch kernel vs its twin on MPCC's own QPs (the first SQP QPs of
+   cold-started races, normalised): P=18/N=20/mr=7 and P=1/N=60/mr=7;
+14. the associative path on the card: ``lqr_affine_solve_assoc`` against
+   ``lqr_affine_solve`` at N=60 and N=125 in float32 (within 1e-3 of the
+   solution's scale); then the time of one torch associative epoch beside
+   one refactorisation + kernel epoch at P=1/N=60/mr=7 and P=3/N=125/mr=6
+   (a record for the precedence rule, not a check);
+15. single-fleet LPV at N=125 with default settings (``run_lpv_experiment``,
+   Highway, 3 agents, 10 steps: assoc, epoch 15, 1000 iterations): finite
+   states, launches equal to the epochs, p50/p95 latency;
+16. dynamic lanes: the LPV fleet rollout with ``dynamic_lane`` on Oval2,
+   B=64 x 10 steps (agent 1 of every other fleet starting on the inner
+   lane): finite states, launches equal to the epochs, the lane switches
+   seen; then B=2 x 3 steps card vs CPU within 1e-3.
 
 Prints a JSON line with each kernel's record, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, on
@@ -326,13 +352,14 @@ def check_nl_epoch(dev, coupling, reps, **pin):
     return out
 
 
-def count_solver_epochs():
-    """Wrap the NL planner's ``admm_solve`` so each call adds the epochs it
-    ran (its slowest problem's iterations over the epoch length) to the
-    returned list; ``restore()`` unwraps it."""
+def count_solver_epochs(planner=None):
+    """Wrap a planner module's ``admm_solve`` (default: the NL planner's) so
+    each call adds the epochs it ran (its slowest problem's iterations over
+    the epoch length) to the returned list; ``restore()`` unwraps it."""
     from colaborativempc_tpu_torch.ops.admm import default_epoch_len
-    from colaborativempc_tpu_torch.planners import nl
-    orig = nl.admm_solve
+    if planner is None:
+        from colaborativempc_tpu_torch.planners import nl as planner
+    orig = planner.admm_solve
     epochs = []
 
     def counting(qp, *args, **kw):
@@ -342,9 +369,27 @@ def count_solver_epochs():
         return sol
 
     def restore():
-        nl.admm_solve = orig
-    nl.admm_solve = counting
+        planner.admm_solve = orig
+    planner.admm_solve = counting
     return epochs, restore
+
+
+def reset_launches():
+    from colaborativempc_tpu_torch.ops import cuda_lqr
+    cuda_lqr.admm_epoch_batched.launches = 0
+    cuda_lqr.lqr_affine_solve_batched.launches = 0
+
+
+def read_launches():
+    from colaborativempc_tpu_torch.ops import cuda_lqr
+    return {"epoch": cuda_lqr.admm_epoch_batched.launches,
+            "affine": cuda_lqr.lqr_affine_solve_batched.launches}
+
+
+def check_epoch_launches(what, launches, epochs):
+    if launches["epoch"] != sum(epochs) or not epochs or sum(epochs) == 0:
+        fail(f"{what}: epoch kernel launched {launches['epoch']} times, the "
+             f"solves ran {sum(epochs)} epochs over {len(epochs)} calls")
 
 
 NL_B, NL_STEPS = 64, 20
@@ -444,7 +489,6 @@ def nl_end_to_end(dev):
                           m.ocd_iterations.cpu(), calls)
         (xg, fg, og, cg), (xc, fc, oc, cc) = outs["cuda"], outs["cpu"]
         dx_f = (xg - xc).abs().flatten(1).amax(dim=1)   # per fleet
-        dx = float(dx_f.max())
         same_feas = bool(torch.equal(fg, fc))
         same_its = bool(torch.equal(og, oc))
         differ = set(range(B)) if len(cg) != len(cc) else set()
@@ -463,29 +507,17 @@ def nl_end_to_end(dev):
             fail(f"NL {coupling}/{sweep} kernel vs plain: feasible flags "
                  f"equal: {same_feas}, OCD iterations equal: {same_its} "
                  f"({og.tolist()} vs {oc.tolist()})")
-        agree = [f for f in range(B) if f not in differ]
-        held, fleets_held = dx, list(range(B))
-        if dx > TOL_ROLLOUT:
-            if not differ or not agree:
-                fail(f"NL {coupling}/{sweep} kernel vs plain: max |dx_pred| "
-                     f"{dx} (tol {TOL_ROLLOUT}); ADMM iterations differ in "
-                     f"{n_differ} of {n_solves} problem solves, fleets "
-                     f"whose counts agree: {agree}")
-            held, fleets_held = float(dx_f[agree].max()), agree
-            if not held <= TOL_ROLLOUT:
-                fail(f"NL {coupling}/{sweep} kernel vs plain: max |dx_pred| "
-                     f"{held} (tol {TOL_ROLLOUT}) in the fleets {agree} "
-                     "whose ADMM iteration counts agree")
+        held = held_to_tolerance(f"phase 7 (NL {coupling}/{sweep} kernel vs "
+                                 "plain)", dx_f, differ)
         out[f"{coupling}_{sweep}"] = dict(
-            max_dx=dx, max_dx_held=held, fleets_held=fleets_held,
-            problem_solves=n_solves, problem_solves_differing=n_differ)
+            held, problem_solves=n_solves, problem_solves_differing=n_differ)
+        dx = held["max_dx"]
         print(f"phase 7: NL {coupling}/{sweep} B={B} x 3 steps, max |dx_pred| "
               f"cuda vs cpu {dx:.3g} ({dx / TOL_ROLLOUT:.3f} of the "
-              f"tolerance; held to it in fleets {fleets_held}: "
-              f"{held:.3g}), ADMM iterations differ in {n_differ} of "
-              f"{n_solves} problem "
-              f"solves, feasible flags and OCD iterations {og.tolist()} "
-              "equal", flush=True)
+              f"tolerance; held to it in fleets {held['members_held']}: "
+              f"{held['max_dx_held']:.3g}), ADMM iterations differ in "
+              f"{n_differ} of {n_solves} problem solves, feasible flags and "
+              f"OCD iterations {og.tolist()} equal", flush=True)
     return out
 
 
@@ -547,41 +579,54 @@ class LayerTimer:
 
 def layer_split(dev, card, steps=3):
     """Phase 9: milliseconds per control step in each layer of the LPV step
-    (B=256, from bench.py's perturbed start) and of the NL-OCD step (B=64,
-    the Monte-Carlo's perturbed start), over ``steps`` steps, with every
-    layer's function wrapped in a synchronised timer (the timers' syncs
-    make the step slower than unwrapped)."""
+    (B=256, from bench.py's perturbed start), of the NL-OCD step (B=64, the
+    Monte-Carlo's perturbed start) and of an MPCC race step at N=60 (after
+    5 steps from the cold start), over ``steps`` steps, with every layer's
+    function wrapped in a synchronised timer (the timers' syncs make the
+    step slower than unwrapped)."""
+    from colaborativempc_tpu_torch.geometry import make_track
     from colaborativempc_tpu_torch.ops import admm
-    from colaborativempc_tpu_torch.planners import lpv, nl
+    from colaborativempc_tpu_torch.planners import lpv, mpcc, nl
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
     from colaborativempc_tpu_torch.runtime import (
-        make_lpv_fleet_rollout, ocd, simulate,
+        make_lpv_fleet_rollout, ocd, racing, simulate,
     )
     from colaborativempc_tpu_torch.scripts import monte_carlo
     out = {}
-    for path in ("lpv", "nl"):
+    for path in ("lpv", "nl", "mpcc"):
         if path == "lpv":
             cfg, track, st = fleet(dev, 256)
             roll = make_lpv_fleet_rollout(track, cfg, steps)
-        else:
+        elif path == "nl":
             _, roll, st = monte_carlo.setup("nl", scenarios=NL_B, agents=3,
                                             N=20, steps=steps, device=dev)
+        else:
+            cfg = MPCCConfig(N=MPCC_N)
+            track = make_track(cfg.map_type, device=dev)
+            st = racing.init_mpcc(track, cfg, device=dev)
+            st, _ = racing.make_mpcc_rollout(track, cfg, 5)(st)
+            roll = racing.make_mpcc_rollout(track, cfg, steps)
         roll(st)  # warm
         timer = LayerTimer()
         timer.wrap(admm, "admm_epoch_inputs", "refactorisation")
         timer.wrap(admm, "admm_epoch_batched", "epoch_kernel")
-        planner = lpv if path == "lpv" else nl
+        planner = {"lpv": lpv, "nl": nl, "mpcc": mpcc}[path]
         timer.wrap(planner, "admm_solve", "admm_solve")
         if path == "lpv":
             timer.wrap(lpv, "build_lpv_qp", "qp_assembly")
             timer.wrap(simulate, "lpv_solve", "planner")
-        else:
+        elif path == "nl":
             timer.wrap(nl, "_linearize_horizon", "linearisation")
             timer.wrap(nl, "build_nl_qp", "qp_build")
             timer.wrap(ocd, "nl_solve", "planner")
+        else:
+            timer.wrap(mpcc, "linearize_pacejka", "linearisation")
+            timer.wrap(mpcc, "build_mpcc_qp", "qp_build")
+            timer.wrap(racing, "mpcc_solve", "planner")
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, (_, _, met) = roll(st)
+            res = roll(st)
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
         finally:
@@ -595,7 +640,7 @@ def layer_split(dev, card, steps=3):
             split["qp_assembly"] = ms["qp_assembly"]
             split["planner_rest"] = (ms["planner"] - ms["qp_assembly"]
                                      - ms["admm_solve"])
-        else:
+        else:     # the NL and MPCC SQPs: linearisation inside the build
             split["linearisation"] = ms["linearisation"]
             split["qp_assembly"] = ms["qp_build"] - ms["linearisation"]
             split["planner_rest"] = (ms["planner"] - ms["qp_build"]
@@ -611,7 +656,9 @@ def layer_split(dev, card, steps=3):
             split_ms_per_step=split)
         if path == "nl":
             out[path]["ocd_iterations_per_step"] = float(
-                met.ocd_iterations.amax(dim=0).float().mean())
+                res[1][2].ocd_iterations.amax(dim=0).float().mean())
+        if path == "mpcc":
+            out[path]["N"] = MPCC_N
         print(f"phase 9 {path}: {total / steps:.1f} ms per step with layer "
               f"timers, {out[path]['epochs_per_step']:.1f} epochs per step; "
               + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
@@ -662,6 +709,433 @@ def rollout_iterations_agree(dev):
           "equal there", flush=True)
     return dict(max_dx=dx, max_dx_where_counts_agree=dx_a,
                 solves_differing=int(differ.sum()))
+
+
+MPCC_N, MPCC_WARM, MPCC_STEPS = 60, 10, 80
+BAT_N, BAT_WARM, BAT_STEPS = 20, 10, 160
+
+
+def percentiles(ms):
+    ms = np.asarray(ms)
+    return dict(p50_ms=float(np.percentile(ms, 50)),
+                p95_ms=float(np.percentile(ms, 95)), best_ms=float(ms.min()))
+
+
+def mpcc_race(dev, card):
+    """Phase 10: one MPCC race at the reference's horizon, N=60 (the
+    associative schedule, epoch 15): 10 warm-in steps, then MPCC_STEPS
+    timed steps with the launch counters and the solver's epochs counted."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners import mpcc
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=MPCC_N)
+    if not (cfg.resolved_assoc() and cfg.resolved_epoch_len() == 15):
+        fail("phase 10: the N=60 schedule did not resolve to assoc, epoch 15")
+    track = make_track(cfg.map_type, device=dev)
+    step = racing.make_mpcc_step(track, cfg)
+    st = racing.init_mpcc(track, cfg, device=dev)
+    for _ in range(MPCC_WARM):
+        st, _ = step(st)
+    epochs, restore = count_solver_epochs(mpcc)
+    reset_launches()
+    times, ms, resets, feas = [], [], 0, []
+    try:
+        for _ in range(MPCC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            ms.append(m)
+    finally:
+        restore()
+    launches = read_launches()
+    if not all_finite(list(st) + [t for m in ms for t in m]):
+        fail("phase 10: an MPCC state is not finite")
+    check_epoch_launches("phase 10 (MPCC race)", launches, epochs)
+    resets = sum(int(m.reset.sum()) for m in ms)
+    feas = float(np.mean([float(m.feasible.float().mean()) for m in ms]))
+    out = dict(card=card, N=MPCC_N, steps=MPCC_STEPS, **percentiles(times),
+               final_s=float(st.x[0, 6]), feasible_share=feas, resets=resets,
+               epochs=sum(epochs), launches=launches["epoch"],
+               launches_per_step=launches["epoch"] / MPCC_STEPS,
+               mean_admm_iterations=float(np.mean(
+                   [int(m.iterations[0]) for m in ms])))
+    print(f"phase 10: MPCC race N={MPCC_N}, {MPCC_STEPS} steps after "
+          f"{MPCC_WARM} warm-in: p50 {out['p50_ms']:.1f} ms, p95 "
+          f"{out['p95_ms']:.1f} ms, best {out['best_ms']:.1f} ms; final s "
+          f"{out['final_s']:.3f} m, feasible share {feas:.4f}, resets "
+          f"{resets}, epoch-kernel launches {launches['epoch']} "
+          f"({out['launches_per_step']:.2f} per step) [{card}]", flush=True)
+    return out
+
+
+def mpcc_battery(dev, card):
+    """Phase 11: the 18-race gain battery of scripts/experiment_battery.py
+    at N=20, as ``run_mpcc_battery`` races it, for BAT_STEPS steps after
+    BAT_WARM warm-in steps."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners import mpcc
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig, MPCCGains
+    from colaborativempc_tpu_torch.runtime import battery, racing
+    cfg = MPCCConfig(N=BAT_N)
+    grid = battery.mpcc_gain_grid(MPCCGains(), q_contour=[20.0, 50.0, 120.0],
+                                  q_progress=[0.5, 1.0, 2.0],
+                                  dr_scale=[0.5, 1.0])
+    track = make_track(cfg.map_type, device=dev)
+    L = float(track.track_length[0])
+    gains = MPCCGains(*(
+        torch.tensor(np.asarray([getattr(g, f) for g in grid], np.float32),
+                     device=dev) for f in MPCCGains._fields))
+    step_fn = racing._make_mpcc_step_fn(track, cfg)
+    st = racing.init_mpcc(track, cfg, races=len(grid), device=dev)
+    for _ in range(BAT_WARM):
+        st, _ = step_fn(gains, st)
+    epochs, restore = count_solver_epochs(mpcc)
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = racing._race(lambda s: step_fn(gains, s), st, BAT_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = read_launches()
+    if not all_finite(list(st) + list(met)):
+        fail("phase 11: an MPCC battery state is not finite")
+    check_epoch_launches("phase 11 (MPCC battery)", launches, epochs)
+    laps = int((st.x[:, 6] >= L).sum())
+    out = dict(card=card, races=len(grid), N=BAT_N, steps=BAT_STEPS,
+               race_steps_per_s=len(grid) * BAT_STEPS / secs,
+               ms_per_step=secs / BAT_STEPS * 1e3, laps_completed=laps,
+               feasible_share=float(met.feasible.float().mean()),
+               resets=int(met.reset.sum()), epochs=sum(epochs),
+               launches=launches["epoch"],
+               launches_per_step=launches["epoch"] / BAT_STEPS)
+    print(f"phase 11: MPCC battery {len(grid)} races N={BAT_N} x "
+          f"{BAT_STEPS} steps: {out['race_steps_per_s']:.1f} race-steps/s "
+          f"({out['ms_per_step']:.1f} ms/step), laps completed {laps}/"
+          f"{len(grid)}, feasible share {out['feasible_share']:.4f}, "
+          f"epoch-kernel launches {launches['epoch']} "
+          f"({out['launches_per_step']:.2f} per step) [{card}]", flush=True)
+    return out
+
+
+def held_to_tolerance(what, dx_per, differ):
+    """Plans of a card run and a CPU run held to TOL_ROLLOUT: all of them,
+    or, where some problems ran different ADMM iteration counts on the two
+    paths (an epoch apart at a convergence edge), those whose counts agree.
+    ``dx_per``: max |dx| per batch member; ``differ``: members whose counts
+    differ."""
+    dx = float(dx_per.max())
+    if dx <= TOL_ROLLOUT:
+        return dict(max_dx=dx, max_dx_held=dx,
+                    members_held=list(range(len(dx_per))))
+    agree = [b for b in range(len(dx_per)) if b not in differ]
+    if not differ or not agree:
+        fail(f"{what}: max |dx| {dx} (tol {TOL_ROLLOUT}); iteration counts "
+             f"differ in members {sorted(differ)}")
+    held = float(dx_per[agree].max())
+    if not held <= TOL_ROLLOUT:
+        fail(f"{what}: max |dx| {held} (tol {TOL_ROLLOUT}) in the members "
+             f"{agree} whose iteration counts agree")
+    return dict(max_dx=dx, max_dx_held=held, members_held=agree)
+
+
+def mpcc_kernel_vs_plain(dev):
+    """Phase 12: B=2 races x 5 steps at N=20 on the card and on the CPU."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=BAT_N)
+    x0 = None
+    outs = {}
+    for name in ("cuda", "cpu"):
+        d = torch.device(name)
+        track = make_track(cfg.map_type, device=d)
+        if x0 is None:
+            st = racing.init_mpcc(track, cfg, races=2, device=d)
+            x0 = st.x.cpu().clone()
+            x0[1, 0] += 0.3                       # the second race faster
+        st = racing.init_mpcc(track, cfg, x0=x0, races=2, device=d)
+        fin, m = racing.make_mpcc_rollout(track, cfg, 5)(st)
+        outs[name] = (fin.x.cpu(), fin.x_bar.cpu(), m.reset.cpu(),
+                      m.iterations.cpu())
+    (xg, bg, rg, ig), (xc, bc, rc, ic) = outs["cuda"], outs["cpu"]
+    if not torch.equal(rg, rc):
+        fail(f"phase 12: reset flags differ: {rg.tolist()} vs {rc.tolist()}")
+    differ = set()
+    for b, k in (ig != ic).nonzero().tolist():
+        differ.add(b)
+        print(f"phase 12: race {b} step {k}: ADMM iterations "
+              f"{int(ig[b, k])} on the card, {int(ic[b, k])} on the CPU",
+              flush=True)
+    dx_per = torch.maximum((xg - xc).abs().amax(dim=1),
+                           (bg - bc).abs().flatten(1).amax(dim=1))
+    out = held_to_tolerance("phase 12 (MPCC kernel vs plain)", dx_per,
+                            differ)
+    out["steps_differing"] = int((ig != ic).sum())
+    print(f"phase 12: MPCC B=2 x 5 steps, max |dx| cuda vs cpu "
+          f"{out['max_dx']:.3g} ({out['max_dx'] / TOL_ROLLOUT:.3f} of the "
+          f"tolerance), reset flags equal, ADMM iterations differ in "
+          f"{out['steps_differing']} of {ig.numel()} race-steps", flush=True)
+    return out
+
+
+def mpcc_qps(dev, P, N):
+    """The first SQP iteration's normalised stage QPs of P cold-started
+    races on oval_mt at horizon N, their scaled initial states and the
+    epoch length the MPCC config resolves at N."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N)
+    qp, z0 = racing.cold_start_qps(make_track(cfg.map_type, device=dev), cfg,
+                                   P)
+    return qp, z0, cfg.resolved_epoch_len() or 20
+
+
+def check_mpcc_epoch(dev, P, N, reps):
+    """Phase 13 at one shape: the epoch kernel vs its plain twin on MPCC's
+    own QPs, under the launch plan ``kernel_plan`` chooses."""
+    from colaborativempc_tpu_torch.ops import admm_epoch_inputs, cuda_lqr
+    qp, z0, el = mpcc_qps(dev, P, N)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    if not all(bool(torch.isfinite(x).all()) for x in data[:9]):
+        fail(f"phase 13: non-finite MPCC epoch data at P={P}, N={N}")
+    nz, nc, mr = data.F.shape[-1], data.G.shape[-1], data.lo.shape[-1]
+    w0 = torch.clamp(torch.zeros_like(qp.lo), qp.lo, qp.hi).contiguous()
+    y0 = torch.zeros_like(w0)
+    plan = cuda_lqr.kernel_plan(P, N, nz, nc, mr)
+    kw = dict(epoch_len=el, alpha=ALPHA)
+    got = cuda_lqr.admm_epoch_batched(data, z0, w0, y0, plan=plan, **kw)
+    torch.cuda.synchronize()
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0, **kw)
+    torch.cuda.synchronize()
+    err_zcwy = max_err(got[:4], ref[:4])
+    err_res = max_err(got[4:], ref[4:])
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        fail(f"phase 13: epoch kernel output not finite at P={P}, N={N}")
+    if not (err_zcwy <= TOL_EPOCH and err_res <= TOL_RESID):
+        fail(f"phase 13: epoch kernel vs plain on MPCC QPs P={P} N={N}: "
+             f"z/c/w/y err {err_zcwy} (tol {TOL_EPOCH}), rp/rd err "
+             f"{err_res} (tol {TOL_RESID})")
+    out = dict(max_abs_err=err_zcwy, max_abs_err_resid=err_res,
+               plan=plan._asdict(), epoch_len=el,
+               ms=cuda_ms(lambda: cuda_lqr.admm_epoch_batched(
+                   data, z0, w0, y0, plan=plan, **kw), reps),
+               plain_ms=cuda_ms(lambda: cuda_lqr.admm_epoch_batched_plain(
+                   data, z0, w0, y0, **kw), 1))
+    out["bound_ms"], out["bound_by"] = kernel_bound(P, N, nz, nc, mr, el)
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
+    print(f"phase 13 MPCC P={P} N={N} mr={mr} epoch {el}: epoch kernel "
+          f"{out['ms']:.4f} ms (bound {out['bound_ms']:.3g}, plan "
+          f"{out['plan']}) vs plain {out['plain_ms']:.4f} ms (err "
+          f"{err_zcwy:.3g}, resid err {err_res:.3g})", flush=True)
+    return out
+
+
+TOL_ASSOC = 1e-3   # float32, relative to the solution's scale
+
+
+def assoc_on_card(dev, card):
+    """Phase 14: the associative affine solve against the sequential one
+    on CUDA tensors (a check), then one torch associative epoch beside one
+    refactorisation + kernel epoch (a record)."""
+    from colaborativempc_tpu_torch.ops import (
+        LQRCost, LQRDynamics, StageQP, admm_epoch_assoc, admm_epoch_inputs,
+        build_admm_cost, cuda_lqr, lqr_affine_solve, lqr_affine_solve_assoc,
+        lqr_factorize,
+    )
+    rng = np.random.default_rng(125)
+    pr = random_epoch_problems(rng, P=3, N=125, nz=11, nc=2, mr=6)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+    soft = t(pr["soft"])
+    lpv_like = StageQP(
+        dyn=LQRDynamics(t(pr["F"]), t(pr["G"]), t(pr["d"])),
+        cost=LQRCost(t(pr["Q"]), t(pr["q"]), t(pr["R"]), t(pr["r"]),
+                     t(pr["S"])),
+        D=t(pr["D"]), E=t(pr["E"]), lo=t(pr["lo"]), hi=t(pr["hi"]),
+        soft_lo=soft, soft_hi=soft)
+    mq, mz0, _ = mpcc_qps(dev, 1, MPCC_N)
+    cases = {"mpcc_p1_n60": (mq, mz0, 15),
+             "p3_n125": (lpv_like, t(pr["z0"]), 15)}
+    out = {}
+    for tag, (qp, z0, el) in cases.items():
+        rho_scale = torch.full(qp.lo.shape[::2], 100.0, device=dev)
+        rv = 10.0 * rho_scale[:, None, :] * (
+            torch.isfinite(qp.lo) | torch.isfinite(qp.hi)).float()
+        cost = build_admm_cost(qp, rv)
+        fac = lqr_factorize(qp.dyn, cost)
+        za, ca = lqr_affine_solve_assoc(qp.dyn, fac, cost.q, cost.r, z0)
+        zs, cs = lqr_affine_solve(qp.dyn, fac, cost.q, cost.r, z0)
+        scale = max(1.0, float(zs.abs().max()), float(cs.abs().max()))
+        err = max_err((za, ca), (zs, cs)) / scale
+        if not (all_finite([za, ca]) and err <= TOL_ASSOC):
+            fail(f"phase 14 {tag}: associative vs sequential affine solve "
+                 f"{err} of the solution's scale (tol {TOL_ASSOC})")
+        w0 = torch.clamp(torch.zeros_like(qp.lo), qp.lo, qp.hi).contiguous()
+        y0 = torch.zeros_like(w0)
+        kw = dict(epoch_len=el, alpha=ALPHA)
+
+        def kernel_epoch():
+            data = admm_epoch_inputs(qp, 10.0, rho_scale)
+            return cuda_lqr.admm_epoch_batched(data, z0, w0, y0, **kw)
+        data = admm_epoch_inputs(qp, 10.0, rho_scale)
+        out[tag] = dict(
+            rel_err_assoc_vs_sequential=err,
+            assoc_epoch_ms=cuda_ms(lambda: admm_epoch_assoc(
+                qp, z0, w0, y0, 10.0, rho_scale, **kw), 3),
+            refactorisation_plus_kernel_epoch_ms=cuda_ms(kernel_epoch, 3),
+            kernel_only_ms=cuda_ms(lambda: cuda_lqr.admm_epoch_batched(
+                data, z0, w0, y0, **kw), 5))
+        o = out[tag]
+        print(f"phase 14 {tag}: assoc vs sequential affine solve "
+              f"{err:.3g} of scale (tol {TOL_ASSOC}); one torch assoc epoch "
+              f"{o['assoc_epoch_ms']:.2f} ms vs refactorisation + kernel "
+              f"epoch {o['refactorisation_plus_kernel_epoch_ms']:.2f} ms "
+              f"(kernel alone {o['kernel_only_ms']:.4f} ms) [{card}]",
+              flush=True)
+    return out
+
+
+LPV125_STEPS = 10
+
+
+def lpv_long_horizon(dev, card):
+    """Phase 15: one 3-agent fleet at N=125 on Highway through
+    ``run_lpv_experiment`` with default settings."""
+    from colaborativempc_tpu_torch.config import ExperimentConfig, lpv_gains
+    from colaborativempc_tpu_torch.planners import lpv
+    from colaborativempc_tpu_torch.runtime import (
+        resolve_single_fleet_schedule, run_lpv_experiment,
+    )
+    cfg = ExperimentConfig(n_agents=3, N=125, dt=0.02, map_type="Highway",
+                           gains=lpv_gains(), max_it=LPV125_STEPS)
+    sv = resolve_single_fleet_schedule(cfg).solver
+    if not (sv.assoc and sv.epoch_len == 15 and sv.admm_iters == 1000):
+        fail(f"phase 15: the N=125 schedule resolved to {sv}")
+    epochs, restore = count_solver_epochs(lpv)
+    reset_launches()
+    try:
+        res = run_lpv_experiment(cfg, device=dev)
+    finally:
+        restore()
+    launches = read_launches()
+    if res.steps != LPV125_STEPS or not np.isfinite(res.states).all():
+        fail(f"phase 15: {res.steps} steps, finite states: "
+             f"{bool(np.isfinite(res.states).all())}")
+    check_epoch_launches("phase 15 (LPV N=125)", launches, epochs)
+    ms = res.step_times * 1e3
+    out = dict(card=card, steps=res.steps, **percentiles(ms),
+               first_ms=float(ms[0]), epochs=sum(epochs),
+               launches=launches["epoch"],
+               launches_per_step=launches["epoch"] / res.steps,
+               feasible_share=float(res.feasible.mean()),
+               max_admm_iterations=int(res.iterations.max()))
+    print(f"phase 15: run_lpv_experiment 3 agents N=125, {res.steps} steps: "
+          f"p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms (first "
+          f"{out['first_ms']:.1f} ms), feasible share "
+          f"{out['feasible_share']:.4f}, epoch-kernel launches "
+          f"{launches['epoch']} ({out['launches_per_step']:.1f} per step) "
+          f"[{card}]", flush=True)
+    return out
+
+
+def lane_fleet(device, B):
+    """The dynamic-lane config on Oval2 and its B-fleet start: perturbed
+    speeds, agent 1 of every other fleet moved 1 m inwards (onto the inner
+    lane, its Frenet entries still the outer lane's)."""
+    from colaborativempc_tpu_torch.config import (
+        ExperimentConfig, SolverConfig, lpv_gains,
+    )
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.parallel import batch_fleet_state
+    from colaborativempc_tpu_torch.runtime import init_lpv_fleet
+    cfg = ExperimentConfig(n_agents=3, N=20, dt=0.02, map_type="Oval2",
+                           gains=lpv_gains(), dynamic_lane=True,
+                           solver=SolverConfig(admm_iters=300))
+    track = make_track(cfg.map_type, device=device)
+    st = batch_fleet_state(init_lpv_fleet(track, cfg, device=device), B,
+                           device=device)
+    rng = np.random.default_rng(16)
+    x0, xp = st.x0.clone(), st.x_pred.clone()
+    x0[..., 0] += torch.tensor(rng.normal(size=(B, 3)) * 0.05,
+                               dtype=x0.dtype, device=device)
+    for a in (x0[::2, 1], xp[::2, 1]):
+        a[..., 7] -= torch.sin(a[..., 5])
+        a[..., 8] += torch.cos(a[..., 5])
+    return cfg, track, st._replace(x0=x0, x_pred=xp)
+
+
+LANE_B, LANE_STEPS = 64, 10
+
+
+def dynamic_lanes(dev, card):
+    """Phase 16: the dynamic-lane LPV fleet step, B=64 x 10 steps, then
+    B=2 x 3 steps on the card vs the CPU."""
+    from colaborativempc_tpu_torch.planners import lpv
+    from colaborativempc_tpu_torch.runtime import make_lpv_fleet_step
+    cfg, track, st = lane_fleet(dev, LANE_B)
+    step = make_lpv_fleet_step(track, cfg)
+    epochs, restore = count_solver_epochs(lpv)
+    reset_launches()
+    lanes, ms = [st.lane], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LANE_STEPS):
+            st, m = step(st)
+            lanes.append(st.lane)
+            ms.append(m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = read_launches()
+    if not all_finite(list(st) + [t for m in ms for t in m]):
+        fail("phase 16: a dynamic-lane state is not finite")
+    check_epoch_launches("phase 16 (dynamic lanes)", launches, epochs)
+    lanes = torch.stack(lanes)
+    switches = int((lanes[1:] != lanes[:-1]).sum())
+    if switches == 0:
+        fail("phase 16: no lane switch in the dynamic-lane rollout")
+    outs = {}
+    for name in ("cuda", "cpu"):
+        cfg2, track2, st2 = lane_fleet(torch.device(name), 2)
+        step2 = make_lpv_fleet_step(track2, cfg2)
+        its = []
+        for _ in range(3):
+            st2, m2 = step2(st2)
+            its.append(m2.iterations)
+        outs[name] = (st2.x_pred.cpu(), st2.lane.cpu(),
+                      torch.stack(its, 1).cpu())
+    (xg, lg, ig), (xc, lc, ic) = outs["cuda"], outs["cpu"]
+    if not torch.equal(lg, lc):
+        fail(f"phase 16: lanes differ cuda vs cpu: {lg.tolist()} vs "
+             f"{lc.tolist()}")
+    differ = {b for b, _, _ in (ig != ic).nonzero().tolist()}
+    agree = held_to_tolerance("phase 16 (dynamic lanes cuda vs cpu)",
+                              (xg - xc).abs().flatten(1).amax(dim=1), differ)
+    out = dict(card=card, fleets=LANE_B, steps=LANE_STEPS,
+               ms_per_step=secs / LANE_STEPS * 1e3, lane_switches=switches,
+               agents_on_lane_1=int((st.lane == 1).sum()),
+               feasible_share=float(torch.stack(
+                   [m.feasible for m in ms]).float().mean()),
+               epochs=sum(epochs), launches=launches["epoch"],
+               launches_per_step=launches["epoch"] / LANE_STEPS,
+               cuda_vs_cpu=agree)
+    print(f"phase 16: dynamic lanes Oval2 B={LANE_B} x {LANE_STEPS} steps: "
+          f"{out['ms_per_step']:.1f} ms/step, {switches} lane switches, "
+          f"{out['agents_on_lane_1']} agents on lane 1 at the end, feasible "
+          f"share {out['feasible_share']:.4f}, epoch-kernel launches "
+          f"{launches['epoch']}; B=2 x 3 steps cuda vs cpu max |dx| "
+          f"{agree['max_dx']:.3g}, lanes equal [{card}]", flush=True)
+    return out
 
 
 def main():
@@ -742,6 +1216,14 @@ def main():
     phase7 = nl_end_to_end(dev)
     single = nl_single_fleet(dev, card)
     layers = layer_split(dev, card)
+    race = mpcc_race(dev, card)
+    bat = mpcc_battery(dev, card)
+    phase12 = mpcc_kernel_vs_plain(dev)
+    kmpcc = {"mpcc_p18_n20": check_mpcc_epoch(dev, 18, BAT_N, reps=10),
+             "mpcc_p1_n60": check_mpcc_epoch(dev, 1, MPCC_N, reps=10)}
+    phase14 = assoc_on_card(dev, card)
+    lpv125 = lpv_long_horizon(dev, card)
+    lanes = dynamic_lanes(dev, card)
 
     src = "colaborativempc_tpu_torch/csrc/lqr_kernels.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
@@ -753,11 +1235,19 @@ def main():
     kernels = [
         dict(name="admm_epoch_batched", route="cuda", source=src,
              replaces="colaborativempc_tpu/ops/pallas_lqr.py:88",
-             launches=launches["epoch"] + nl_path["launches"]["epoch"],
+             launches=(launches["epoch"] + nl_path["launches"]["epoch"]
+                       + race["launches"] + bat["launches"]
+                       + lpv125["launches"] + lanes["launches"]),
              launches_lpv=launches["epoch"],
              launches_nl=nl_path["launches"]["epoch"],
+             launches_mpcc=race["launches"] + bat["launches"],
+             launches_lpv_n125=lpv125["launches"],
+             launches_dynamic_lane=lanes["launches"],
              launches_per_step_lpv=launches["epoch"] / STEPS,
              launches_per_step_nl=nl_path["launches"]["epoch"] / NL_STEPS,
+             launches_per_step_mpcc=race["launches_per_step"],
+             launches_per_step_mpcc_battery=bat["launches_per_step"],
+             launches_per_step_lpv_n125=lpv125["launches_per_step"],
              max_abs_err=k20["epoch"]["max_abs_err"],
              max_abs_err_resid=k20["epoch"]["max_abs_err_resid"],
              ms=k20["epoch"]["ms"], plain_ms=k20["epoch"]["plain_ms"],
@@ -767,7 +1257,8 @@ def main():
              library_ms=None, plan=k20["epoch"]["plan"],
              shapes=shapes("epoch", n125=k125, n125_resident=k125_resident,
                            p7=k7,
-                           **{f"nl_{c}": r for c, r in knl.items()})),
+                           **{f"nl_{c}": r for c, r in knl.items()},
+                           **kmpcc)),
         dict(name="lqr_affine_solve_batched", route="cuda", source=src,
              replaces="colaborativempc_tpu/ops/pallas_lqr.py:40",
              launches=launches["affine"] + nl_path["launches"]["affine"],
@@ -789,6 +1280,9 @@ def main():
         k: v for k, v in nl_path.items() if k != "launches"},
         "nl_single_fleet": single, "phase5": phase5, "phase7": phase7,
         "layers": layers}))
+    print(json.dumps({"mpcc_race": race, "mpcc_battery": bat,
+                      "phase12": phase12, "phase14": phase14,
+                      "lpv_n125": lpv125, "dynamic_lanes": lanes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

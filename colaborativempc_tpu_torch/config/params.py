@@ -140,9 +140,9 @@ class SolverConfig(NamedTuple):
     alpha_relax: float = 1.6    # ADMM over-relaxation
     # Riccati/epoch scheduling: refactorisation epoch length (None = the
     # N-dependent default in ops/admm.py admm_solve) and the
-    # parallel-in-horizon associative-scan path, which this port does not
-    # have yet (assoc=True raises NotImplementedError; None/False run the
-    # sequential sweeps).
+    # parallel-in-horizon associative-scan affine solve (None/False: the
+    # sequential sweeps). On the card every epoch is the kernel whatever
+    # assoc says; assoc selects the epoch on CPU tensors only.
     epoch_len: Optional[int] = None
     assoc: Optional[bool] = None
     sqp_iters: int = 3          # SQP outer iterations (1 = RTI mode)

@@ -180,8 +180,9 @@ def _build_lane(rows, y_start: float, open_track: bool):
             np.array(lens), np.array(curvs), s)
 
 
-def make_track(name: str, device="cpu", dtype=torch.float32) -> Track:
-    """Build a named track into a segment table on ``device``."""
+def make_track(name: str, device="cuda", dtype=torch.float32) -> Track:
+    """Build a named track into a segment table on ``device`` (the default
+    ``cuda`` raises without a card)."""
     if name not in _TRACK_DB:
         raise ValueError(f"unknown track {name!r}; available: {TRACK_NAMES}")
     dev = resolve_device(device)

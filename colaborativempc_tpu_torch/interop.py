@@ -17,10 +17,15 @@ import numpy as np
 import torch
 
 from colaborativempc_tpu_torch.config.params import Gains
+from colaborativempc_tpu_torch.dynamics.pacejka import PacejkaParams
 from colaborativempc_tpu_torch.geometry.tracks import Track
 from colaborativempc_tpu_torch.ops.admm import ADMMEpochData, StageQP
 from colaborativempc_tpu_torch.ops.lqr import LQRCost, LQRDynamics
+from colaborativempc_tpu_torch.planners.mpcc import (
+    MPCCBounds, MPCCGains, MPCCNormalization,
+)
 from colaborativempc_tpu_torch.runtime.ocd import OCDFleetState
+from colaborativempc_tpu_torch.runtime.racing import MPCCState
 from colaborativempc_tpu_torch.runtime.simulate import FleetState
 from colaborativempc_tpu_torch.utils.device import resolve_device
 
@@ -84,6 +89,41 @@ def epoch_data_from_numpy(data, device="cpu",
     return _record(ADMMEpochData, data, device, dtype)
 
 
+def _floats(cls, obj):
+    """A record of plain Python floats (model parameters, gains, bounds),
+    as both packages keep them."""
+    return cls(*(float(np.asarray(_get(obj, f))) for f in cls._fields))
+
+
+def pacejka_from_numpy(params) -> PacejkaParams:
+    return _floats(PacejkaParams, params)
+
+
+def mpcc_gains_from_numpy(gains) -> MPCCGains:
+    return _floats(MPCCGains, gains)
+
+
+def mpcc_bounds_from_numpy(bounds) -> MPCCBounds:
+    return _floats(MPCCBounds, bounds)
+
+
+def mpcc_normalization_from_numpy(norm) -> MPCCNormalization:
+    """Scales as float32 CPU tensors, the port's own layout."""
+    return MPCCNormalization(*(
+        torch.tensor(np.asarray(_get(norm, f), np.float32))
+        for f in MPCCNormalization._fields))
+
+
+def mpcc_state_from_numpy(state, device="cpu", dtype=torch.float32,
+                          batched: bool = False) -> MPCCState:
+    """One race's state (``batched=False``, the JAX layout) becomes a batch
+    of one; a state with a leading race axis keeps it."""
+    st = _record(MPCCState, state, device, dtype)
+    if batched:
+        return st
+    return MPCCState(*(t[None] for t in st))
+
+
 def to_numpy(record) -> dict:
     """Any port record (NamedTuple of tensors, possibly nested) as a dict of
     numpy arrays; non-tensor fields are kept as they are."""
@@ -105,3 +145,4 @@ fleet_state_to_numpy = to_numpy
 ocd_state_to_numpy = to_numpy
 stage_qp_to_numpy = to_numpy
 epoch_data_to_numpy = to_numpy
+mpcc_state_to_numpy = to_numpy

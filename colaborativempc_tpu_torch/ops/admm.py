@@ -15,8 +15,10 @@ Problem:
 Soft bounds carry a quadratic violation weight that only enters the
 closed-form prox of the w-step, never the Riccati matrices. Each
 refactorisation epoch runs ``ops/cuda_lqr.py admm_epoch_batched``: the CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors. Between epochs the
-per-row-class rho is rescaled OSQP-style, in torch.
+kernel for CUDA tensors, its plain twin for CPU tensors; on CPU tensors
+``assoc=True`` runs :func:`admm_epoch_assoc` instead (see
+:func:`admm_solve`). Between epochs the per-row-class rho is rescaled
+OSQP-style, in torch.
 
 Per-problem freeze: under the JAX double vmap each problem's
 ``while_loop`` stops on its own convergence while its batch-mates iterate.
@@ -31,9 +33,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from colaborativempc_tpu_torch.ops.cuda_lqr import admm_epoch_batched
+from colaborativempc_tpu_torch.ops.cuda_lqr import (
+    admm_epoch_batched, admm_epoch_batched_plain,
+)
 from colaborativempc_tpu_torch.ops.lqr import (
-    LQRCost, LQRDynamics, lqr_factorize,
+    LQRCost, LQRDynamics, lqr_affine_solve_assoc, lqr_factorize,
 )
 
 
@@ -118,34 +122,86 @@ def _soft(qp: StageQP, weights) -> torch.Tensor:
     return weights.to(qp.lo.dtype)
 
 
+def _epoch_data(qp: StageQP, rho, rho_scale, reg):
+    """What every epoch derives before its iterations: the effective
+    per-row rho ``rv``, the factorisation of the rho-augmented cost and the
+    soft-row prox shrink factors, packed as :class:`ADMMEpochData`; the
+    factors are returned as well for the Cholesky-based affine solves."""
+    dtype, dev = qp.lo.dtype, qp.lo.device
+    P, _, mr = qp.lo.shape
+    rho_scale = torch.as_tensor(rho_scale, dtype=dtype, device=dev)
+    rho_scale = torch.broadcast_to(rho_scale, (P, mr))
+    mask = _active_rows(qp)
+    rv = rho * mask * rho_scale[:, None, :]
+    slo, shi = _soft(qp, qp.soft_lo), _soft(qp, qp.soft_hi)
+    aug_cost = build_admm_cost(qp, rv)
+    fac = lqr_factorize(qp.dyn, aug_cost, reg)
+    rv_safe = torch.where(rv > 0, rv, torch.ones_like(rv))
+    zero = torch.zeros_like(rv)
+    fac_lo = torch.where(torch.isinf(slo), zero, rv_safe / (rv_safe + 2.0 * slo))
+    fac_hi = torch.where(torch.isinf(shi), zero, rv_safe / (rv_safe + 2.0 * shi))
+    nc = qp.dyn.G.shape[-1]
+    eye = torch.eye(nc, dtype=dtype, device=dev).expand(fac.Quu_chol.shape)
+    data = ADMMEpochData(
+        F=qp.dyn.F, G=qp.dyn.G, d=qp.dyn.d,
+        K=fac.K, Quu_inv=torch.cholesky_solve(eye, fac.Quu_chol),
+        Qxu=fac.Qxu, m=fac.m, q=aug_cost.q, r=aug_cost.r,
+        D=qp.D * mask[..., None], E=qp.E * mask[..., None],
+        lo=qp.lo, hi=qp.hi, rv=rv, fac_lo=fac_lo, fac_hi=fac_hi)
+    return data, fac
+
+
 def admm_epoch_inputs(qp: StageQP, rho: float = 10.0,
                       rho_scale=1.0, reg: float = 1e-8) -> ADMMEpochData:
     """Factorise and precompute one epoch's fixed data for the per-row rho
     multipliers ``rho_scale`` (scalar, ``(m,)`` or ``(P, m)``). Every field
     is contiguous, as the kernel takes it."""
-    dtype, dev = qp.lo.dtype, qp.lo.device
-    P, _, mr = qp.lo.shape
-    mask = _active_rows(qp)
-    rho_scale = torch.as_tensor(rho_scale, dtype=dtype, device=dev)
-    rho_scale = torch.broadcast_to(rho_scale, (P, mr))
-    rv = rho * mask * rho_scale[:, None, :]
-    slo, shi = _soft(qp, qp.soft_lo), _soft(qp, qp.soft_hi)
-    aug_cost = build_admm_cost(qp, rv)
-    fac = lqr_factorize(qp.dyn, aug_cost, reg)
-    nc = qp.dyn.G.shape[-1]
-    eye = torch.eye(nc, dtype=dtype, device=dev).expand(fac.Quu_chol.shape)
-    Quu_inv = torch.cholesky_solve(eye, fac.Quu_chol)
-    rv_safe = torch.where(rv > 0, rv, torch.ones_like(rv))
-    zero = torch.zeros_like(rv)
-    fac_lo = torch.where(torch.isinf(slo), zero, rv_safe / (rv_safe + 2.0 * slo))
-    fac_hi = torch.where(torch.isinf(shi), zero, rv_safe / (rv_safe + 2.0 * shi))
-    data = ADMMEpochData(
-        F=qp.dyn.F, G=qp.dyn.G, d=qp.dyn.d,
-        K=fac.K, Quu_inv=Quu_inv, Qxu=fac.Qxu, m=fac.m,
-        q=aug_cost.q, r=aug_cost.r,
-        D=qp.D * mask[..., None], E=qp.E * mask[..., None],
-        lo=qp.lo, hi=qp.hi, rv=rv, fac_lo=fac_lo, fac_hi=fac_hi)
+    data, _ = _epoch_data(qp, rho, rho_scale, reg)
     return ADMMEpochData(*(t.contiguous() for t in data))
+
+
+def admm_epoch_assoc(qp: StageQP, z0: torch.Tensor, w0: torch.Tensor,
+                     y0: torch.Tensor, rho: float = 10.0, rho_scale=1.0,
+                     reg: float = 1e-8, *, epoch_len: int = 25,
+                     alpha: float = 1.6):
+    """One ADMM epoch whose inner affine solves are
+    ``ops/lqr.py lqr_affine_solve_assoc``: the XLA epoch of JAX
+    ``admm_solve`` with ``assoc=True`` (``admm.py:361-405``), Cholesky
+    solves included. It is the kernel's plain twin's iteration with that
+    affine solve in place of the sequential one. Plain torch on any device;
+    returns what ``admm_epoch_batched`` returns: ``z, c, w, y,
+    r_prim (P, mr), r_dual (P, mr)``."""
+    data, fac = _epoch_data(qp, rho, rho_scale, reg)
+
+    def affine(q, r):
+        return lqr_affine_solve_assoc(qp.dyn, fac, q, r, z0)
+
+    return admm_epoch_batched_plain(data, z0, w0, y0, epoch_len=epoch_len,
+                                    alpha=alpha, affine=affine)
+
+
+def scale_stage_qp(qp: StageQP, tz, tc) -> StageQP:
+    """Diagonal change of variables z = diag(tz) z~, c = diag(tc) c~ of a
+    batch of stage QPs (JAX ``scale_stage_qp``, the reference MPCC's
+    T_x/T_u normalisation, ``mpc.cpp:91-132``). ``tz (nz,)`` / ``tc (nc,)``
+    are shared by every problem, or ``(P, nz)`` / ``(P, nc)`` per problem.
+    Constraint values ``D z + E c`` are invariant, so ADMM's (w, y,
+    rho_scale) warm starts and residuals keep their meaning; de-normalise
+    with ``z = z~ * tz``, ``c = c~ * tc``."""
+    dtype, dev = qp.lo.dtype, qp.lo.device
+    nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
+    tz = torch.as_tensor(tz, device=dev).to(dtype).reshape(-1, 1, nz)
+    tc = torch.as_tensor(tc, device=dev).to(dtype).reshape(-1, 1, nc)
+    tzi = 1.0 / tz
+    col_z, row_z = tz[..., None, :], tz[..., :, None]
+    col_c, row_c = tc[..., None, :], tc[..., :, None]
+    dyn = LQRDynamics(F=tzi[..., :, None] * qp.dyn.F * col_z,
+                      G=tzi[..., :, None] * qp.dyn.G * col_c,
+                      d=qp.dyn.d * tzi)
+    cost = LQRCost(Q=row_z * qp.cost.Q * col_z, q=qp.cost.q * tz,
+                   R=row_c * qp.cost.R * col_c, r=qp.cost.r * tc,
+                   S=row_z * qp.cost.S * col_c)
+    return qp._replace(dyn=dyn, cost=cost, D=qp.D * col_z, E=qp.E * col_c)
 
 
 def default_epoch_len(N: int) -> int:
@@ -170,10 +226,17 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
     (``iters // epoch_len``, at least one). A problem stops once every row
     class has primal and dual residual below ``eps`` or its budget is
     spent; its batch-mates go on.
+
+    Which epoch runs: on CUDA tensors every epoch is the kernel
+    (``admm_epoch_batched``), whatever ``assoc`` says — the port's
+    counterpart of JAX's ``use_pallas=True``, under which the Pallas epoch
+    wins over ``assoc`` (``admm.py:310,426``: ``epoch_pallas`` ignores the
+    affine solve). On CPU tensors ``assoc=False`` runs the kernel's plain
+    twin and ``assoc=True`` runs :func:`admm_epoch_assoc`, the JAX XLA
+    epoch with the associative affine solve. ``admm_epoch_assoc`` is plain
+    torch and runs on the card as well, but ``admm_solve`` never selects it
+    there.
     """
-    if assoc:
-        raise NotImplementedError(
-            "the associative-scan ADMM path is not ported yet")
     P, N, m = qp.lo.shape
     dtype, dev = z0.dtype, z0.device
     nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
@@ -203,10 +266,15 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
         active = (it < n_epochs * epoch_len) & not_conv
         if not bool(active.any()):      # the one host sync per epoch
             break
-        data = admm_epoch_inputs(qp, rho, rho_scale, reg)
-        z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
-            data, z0c, w.contiguous(), y.contiguous(),
-            epoch_len=epoch_len, alpha=alpha)
+        if assoc and dev.type == "cpu":
+            z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_assoc(
+                qp, z0c, w, y, rho, rho_scale, reg, epoch_len=epoch_len,
+                alpha=alpha)
+        else:
+            data = admm_epoch_inputs(qp, rho, rho_scale, reg)
+            z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
+                data, z0c, w.contiguous(), y.contiguous(),
+                epoch_len=epoch_len, alpha=alpha)
         # OSQP-style per-class rescale, bounded; the scaled dual follows.
         # Classes already inside tolerance keep their rho.
         ratio = torch.sqrt(rp_e / torch.clamp_min(rd_e, 1e-12))

@@ -128,11 +128,20 @@ def lqr_affine_solve_batched_plain(F, G, d, K, Quu_inv, Qxu, m, q, r, z0):
 
 
 def admm_epoch_batched_plain(data, z0, w0, y0, *, epoch_len: int = 25,
-                             alpha: float = 1.6):
+                             alpha: float = 1.6, affine=None):
     """Plain twin of :func:`admm_epoch_batched`: ``epoch_len`` ADMM
     iterations with the fixed factorisation in ``data`` (an
-    ``ops/admm.py ADMMEpochData`` with leading batch axis P)."""
+    ``ops/admm.py ADMMEpochData`` with leading batch axis P).
+
+    ``affine(q, r) -> (z, c)`` is each iteration's inner affine solve from
+    ``z0``; by default the kernel's sequential pass over ``data``'s factors
+    (``ops/admm.py admm_epoch_assoc`` passes the associative one)."""
     N = data.F.shape[1]
+    if affine is None:
+        def affine(q, r):
+            return lqr_affine_solve_batched_plain(
+                data.F, data.G, data.d, data.K, data.Quu_inv, data.Qxu,
+                data.m, q, r, z0)
     mask = (data.rv > 0).to(data.rv.dtype)
     w, y = w0, y0
     for _ in range(epoch_len):
@@ -140,9 +149,7 @@ def admm_epoch_batched_plain(data, z0, w0, y0, *, epoch_len: int = 25,
         q_pen = torch.sum(data.D * t[..., None], dim=-2)    # (P, N, nz)
         r_pen = torch.sum(data.E * t[..., None], dim=-2)    # (P, N, nc)
         q = torch.cat([data.q[:, :N] + q_pen, data.q[:, N:]], dim=1)
-        z, c = lqr_affine_solve_batched_plain(
-            data.F, data.G, data.d, data.K, data.Quu_inv, data.Qxu, data.m,
-            q, data.r + r_pen, z0)
+        z, c = affine(q, data.r + r_pen)
         v = _mv(data.D, z[:, :N]) + _mv(data.E, c)
         vhat = alpha * v + (1.0 - alpha) * w
         wbar = vhat + y

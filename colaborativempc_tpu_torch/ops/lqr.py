@@ -1,12 +1,13 @@
 """Stage-structured equality-constrained QP (LQR) solves via Riccati sweeps
-(PyTorch port, sequential path).
+(PyTorch port).
 
 Twin of ``colaborativempc_tpu/ops/lqr.py``: the backward Riccati pass over
 the quadratic terms (``lqr_factorize``) runs once per ADMM epoch, and the
-cheap affine backward/forward sweeps (``lqr_affine_solve``) reuse it with
-new linear terms. Every array carries a leading batch axis P (the JAX
-functions are per problem and vmapped); ``lax.scan`` over stages is a
-Python loop of batched ``(P, nz, nz)`` products.
+cheap affine backward/forward sweeps (``lqr_affine_solve``, or the
+associative ``lqr_affine_solve_assoc``) reuse it with new linear terms.
+Every array carries a leading batch axis P (the JAX functions are per
+problem and vmapped); ``lax.scan`` over stages is a Python loop of batched
+``(P, nz, nz)`` products.
 
 The factorisation is plain batched torch, as it was plain XLA in JAX. The
 2x2 ``Quu`` factor uses ``torch.linalg.cholesky_ex`` (no host sync to check
@@ -113,11 +114,73 @@ def lqr_affine_solve(dyn: LQRDynamics, fac: LQRFactors,
     return torch.stack(zs, 1), torch.stack(cs, 1)
 
 
+def _affine_scan(M: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
+                 reverse: bool = False, block: int | None = 8) -> torch.Tensor:
+    """All states of the affine recurrences ``x_{k+1} = M_k x_k + b_k``
+    (``M (P, N, n, n)``, ``b (P, N, n)``, ``x0 (P, n)``), returned as
+    ``(P, N+1, n)`` with x0 first; ``reverse=True`` runs ``x_k = M_k x_{k+1}
+    + b_k`` from ``x_N = x0``, returned with x_N last.
+
+    The blocked hybrid of the JAX ``_affine_scan``: prefix composites of
+    the maps are formed only within blocks of ``block`` stages (log-step
+    Hillis-Steele products, so no composed product spans more than
+    ``block`` maps — the float32 conditioning rule of the JAX docstring),
+    and the state is carried sequentially across blocks, one batched
+    matvec per block. N is padded with identity maps to a whole number of
+    blocks. ``block=None`` composes over the whole horizon.
+    """
+    if reverse:
+        M, b = M.flip(1), b.flip(1)
+    P, N, n = M.shape[0], M.shape[1], M.shape[-1]
+    if block is None or block >= N:
+        block = N
+    nb = -(-N // block)
+    pad = nb * block - N
+    if pad:
+        eye = torch.eye(n, dtype=M.dtype, device=M.device)
+        M = torch.cat([M, eye.expand(P, pad, n, n)], dim=1)
+        b = torch.cat([b, b.new_zeros((P, pad, n))], dim=1)
+    C = M.reshape(P, nb, block, n, n)
+    d = b.reshape(P, nb, block, n)
+    off = 1
+    while off < block:
+        # composite from the block start: e_j <- e_j o e_{j-off}
+        Cj, dj = C[:, :, off:], d[:, :, off:]
+        C = torch.cat([C[:, :, :off], Cj @ C[:, :, :-off]], dim=2)
+        d = torch.cat([d[:, :, :off], _mv(Cj, d[:, :, :-off]) + dj], dim=2)
+        off *= 2
+    x, xs = x0, [x0[:, None]]
+    for j in range(nb):
+        xb = _mv(C[:, j], x[:, None]) + d[:, j]          # (P, block, n)
+        xs.append(xb)
+        x = xb[:, -1]
+    out = torch.cat(xs, dim=1)[:, :N + 1]
+    return out.flip(1) if reverse else out
+
+
+def lqr_affine_solve_assoc(dyn: LQRDynamics, fac: LQRFactors,
+                           q: torch.Tensor, r: torch.Tensor, z0: torch.Tensor,
+                           block: int | None = 8):
+    """Parallel-in-horizon affine solve (JAX ``lqr_affine_solve_assoc``):
+    the costate recursion ``p_k = Acl_k' p_{k+1} + c_k`` and the closed-loop
+    rollout ``z_{k+1} = Acl_k z_k + G_k kff_k + d_k`` are affine recurrences
+    in the factorised system, each one :func:`_affine_scan`. Same output as
+    :func:`lqr_affine_solve` up to rounding; ``block`` bounds the composed
+    span (8 keeps float32 sound at N=125 under large ADMM penalties)."""
+    AclT = fac.Acl.transpose(-1, -2)
+    Kr = -torch.cholesky_solve(r[..., None], fac.Quu_chol)[..., 0]  # Quu^-1 r
+    c = q[:, :-1] + _mv(AclT, fac.m) + _mv(fac.Qxu, Kr)
+    p = _affine_scan(AclT, c, q[:, -1], reverse=True, block=block)
+    t = p[:, 1:] + fac.m
+    Qu = r + _mv(dyn.G.transpose(-1, -2), t)
+    kff = -torch.cholesky_solve(Qu[..., None], fac.Quu_chol)[..., 0]
+    z = _affine_scan(fac.Acl, _mv(dyn.G, kff) + dyn.d, z0, block=block)
+    return z, _mv(fac.K, z[:, :-1]) + kff
+
+
 def lqr_solve(dyn: LQRDynamics, cost: LQRCost, z0: torch.Tensor,
               reg: float = 1e-8, assoc: bool = False):
     """One-shot equality-constrained solve (factorise + affine + rollout)."""
-    if assoc:
-        raise NotImplementedError(
-            "the associative-scan affine solve is not ported yet")
     fac = lqr_factorize(dyn, cost, reg)
-    return lqr_affine_solve(dyn, fac, cost.q, cost.r, z0)
+    solve = lqr_affine_solve_assoc if assoc else lqr_affine_solve
+    return solve(dyn, fac, cost.q, cost.r, z0)

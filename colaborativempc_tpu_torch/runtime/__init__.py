@@ -9,8 +9,13 @@ from colaborativempc_tpu_torch.runtime.ocd import (
     init_nl_fleet, run_nl_experiment,
 )
 from colaborativempc_tpu_torch.runtime.battery import (
-    BatteryResult, NLBatteryResult, gain_grid, run_lpv_battery,
-    run_nl_battery,
+    BatteryResult, NLBatteryResult, MPCCBatteryResult, gain_grid,
+    mpcc_gain_grid, run_lpv_battery, run_mpcc_battery, run_nl_battery,
+)
+from colaborativempc_tpu_torch.runtime.racing import (
+    MPCCState, MPCCStepMetrics, MPCCResult, init_mpcc, load_mpcc_track,
+    make_mpcc_rollout, make_mpcc_step, run_mpcc_experiment,
+    save_mpcc_result,
 )
 from colaborativempc_tpu_torch.runtime.checkpoint import (
     save_checkpoint, load_checkpoint,

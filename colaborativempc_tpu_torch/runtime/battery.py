@@ -153,3 +153,72 @@ def run_nl_battery(cfg: ExperimentConfig, grid: Sequence[Gains],
         min_dist_exec=hist(m.min_dist_exec), feasible=hist(m.feasible),
         ocd_iterations=hist(m.ocd_iterations),
         progress=states[-1, :, :, 6].mean(axis=-1), n_configs=n_cfg)
+
+
+# ---------------------------------------------------------------------------
+# MPCC racing battery: a gain grid as one batch of closed-loop races
+# ---------------------------------------------------------------------------
+
+def mpcc_gain_grid(base, q_contour=None, q_progress=None, dr_scale=None):
+    """Cartesian grid over the racing trade-off knobs (contouring accuracy
+    vs progress reward vs input smoothness) — the reference tunes these by
+    hand-editing cost.json and re-running the binary (main.cpp)."""
+    q_contour = q_contour if q_contour is not None else [base.q_contour]
+    q_progress = q_progress if q_progress is not None else [base.q_progress]
+    dr_scale = dr_scale if dr_scale is not None else [1.0]
+    out = []
+    for qc, qp, drs in itertools.product(q_contour, q_progress, dr_scale):
+        out.append(base._replace(q_contour=float(qc), q_progress=float(qp),
+                                 dr_delta=base.dr_delta * drs,
+                                 dr_drive=base.dr_drive * drs))
+    return out
+
+
+class MPCCBatteryResult(NamedTuple):
+    s_hist: np.ndarray         # (T, n_cfg) progress per step
+    vx_hist: np.ndarray        # (T, n_cfg)
+    ey_hist: np.ndarray        # (T, n_cfg)
+    feasible_frac: np.ndarray  # (n_cfg,)
+    resets: np.ndarray         # (n_cfg,) cold-start count (beyond the first)
+    progress: np.ndarray       # (n_cfg,) final s
+    lap_time: np.ndarray       # (n_cfg,) first-lap time [s]; nan = no lap
+    n_configs: int
+
+
+def run_mpcc_battery(cfg, grid, steps: int, track=None, dtype=torch.float32,
+                     device="cuda") -> MPCCBatteryResult:
+    """Race every gain combination at once on ``device`` (the default
+    ``cuda`` raises without a card): the grid is the race axis B of one
+    batched closed-loop rollout (warm/cold start, failure reset, RK4 plant —
+    ``runtime/racing.py``), each race with its own gains rounded to float32
+    as in the JAX battery. ``admm_solve``'s per-problem freeze keeps every
+    race's iteration counts those of its standalone run."""
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCGains
+    from colaborativempc_tpu_torch.runtime.racing import (
+        _make_mpcc_step_fn, _race, init_mpcc, load_mpcc_track,
+    )
+    dev = resolve_device(device)
+    if track is None:
+        track = load_mpcc_track(cfg, dtype=dtype, device=dev)
+    n_cfg = len(grid)
+    gains = MPCCGains(*(
+        torch.tensor(np.asarray([getattr(g, f) for g in grid], np.float32))
+        .to(device=dev, dtype=dtype) for f in MPCCGains._fields))
+    step_fn = _make_mpcc_step_fn(track, cfg)
+    state = init_mpcc(track, cfg, races=n_cfg, dtype=dtype, device=dev)
+    final, metrics = _race(lambda st: step_fn(gains, st), state, steps)
+
+    s_hist = metrics.s.cpu().numpy().T           # (T, n_cfg)
+    L = float(track.track_length[0])
+    lap_time = np.full(n_cfg, np.nan)
+    for c in range(n_cfg):
+        hit = np.nonzero(s_hist[:, c] >= L)[0]
+        if hit.size:
+            lap_time[c] = (hit[0] + 1) * cfg.dt
+    return MPCCBatteryResult(
+        s_hist=s_hist, vx_hist=metrics.vx.cpu().numpy().T,
+        ey_hist=metrics.ey.cpu().numpy().T,
+        feasible_frac=metrics.feasible.cpu().numpy().mean(axis=1),
+        resets=metrics.reset.cpu().numpy().sum(axis=1) - 1,
+        progress=final.x[:, 6].cpu().numpy(), lap_time=lap_time,
+        n_configs=n_cfg)

@@ -39,13 +39,15 @@ import torch
 from colaborativempc_tpu_torch.config.params import (
     ExperimentConfig, SysLimits, nl_gains, x0_database,
 )
-from colaborativempc_tpu_torch.geometry import Track, check_end, make_track
+from colaborativempc_tpu_torch.geometry import (
+    Track, check_end, check_lane, make_track,
+)
 from colaborativempc_tpu_torch.parallel.fleet import batch_fleet_state
 from colaborativempc_tpu_torch.planners.nl import NLSolution, nl_solve
 from colaborativempc_tpu_torch.runtime.simulate import (
     _fleet0, _gains_on, _neighbour_index, _per_agent_limits, _per_problem,
     escalate_holds, lateral_wall, resolve_single_fleet_schedule,
-    separation_filter,
+    separation_filter, switch_lanes,
 )
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
 from colaborativempc_tpu_torch.utils.warmstart import initialise_agents
@@ -173,11 +175,6 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
         raise ValueError(
             f"OCDConfig.sweep must be 'jacobi' or 'gauss_seidel', got "
             f"{cfg.ocd.sweep!r}")
-    if cfg.dynamic_lane:
-        raise NotImplementedError("dynamic_lane is not ported yet")
-    if cfg.solver.assoc:
-        raise NotImplementedError(
-            "the associative-scan ADMM path is not ported yet")
     n, N, ocd = cfg.n_agents, cfg.N, cfg.ocd
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
@@ -193,21 +190,32 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
     solve_kw = dict(
         sqp_iters=sv.sqp_iters, sqp_mix=sv.line_search,
         u_trust=(sv.u_trust_delta, sv.u_trust_acc), coupling=cfg.coupling,
-        lane=cfg.lane, admm_iters=sv.admm_budget(), rho=sv.rho,
-        alpha_relax=sv.alpha_relax, eps=sv.eps, epoch_len=sv.epoch_len)
+        admm_iters=sv.admm_budget(), rho=sv.rho, alpha_relax=sv.alpha_relax,
+        eps=sv.eps, epoch_len=sv.epoch_len, assoc=bool(sv.assoc))
     gauss_seidel = ocd.sweep == "gauss_seidel" and n > 1
     dth = float(np.max(np.asarray(cfg.limits.min_dist)))
 
-    def solve(gains, limits, x0, x_bar, u_bar, u_old, lam, neigh, mmask, w,
-              y, rs, pl) -> NLSolution:
+    def solve(gains, limits, lane, x0, x_bar, u_bar, u_old, lam, neigh,
+              mmask, w, y, rs, pl) -> NLSolution:
         return nl_solve(track, gains, limits, cfg.model, N, cfg.dt, x0,
                         x_bar, u_bar, u_old, lam, neigh, mmask, w0=w, y0=y,
-                        rho_scale0=rs, planes0=pl, **solve_kw)
+                        rho_scale0=rs, planes0=pl, lane=lane, **solve_kw)
 
     def prepare(state: OCDFleetState) -> OCDFleetState:
-        lanes = torch.full(state.lane.shape, cfg.lane, dtype=torch.int32,
-                           device=dev)
+        # per-step dynamic lane switch, then the escalation ladder
+        if cfg.dynamic_lane:
+            state = switch_lanes(track, state)
+            lanes = state.lane
+        else:
+            lanes = torch.full(state.lane.shape, cfg.lane, dtype=torch.int32,
+                               device=dev)
         return escalate_holds(track, cfg, state, lanes)
+
+    def agent_lanes(x0):
+        # the JAX iteration re-reads each agent's lane from its pose
+        if cfg.dynamic_lane:
+            return check_lane(track, x0[..., 7], x0[..., 8], x0[..., 5])[4]
+        return cfg.lane
 
     def placeholder_planes(x_pred):
         # single agent: bisector to the far-away placeholder neighbour, so
@@ -221,20 +229,21 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
         b = -torch.sum(a * 0.5 * (pp + far), dim=-1)
         return torch.stack([th, b], dim=-1)[:, :, None]      # (B, 1, 1, N, 2)
 
-    def jacobi(st, x0, u_old, gains, lam, neigh, pl_i):
+    def jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes):
         B = x0.shape[0]
 
         def flat(t):
             return t.reshape((B * n,) + t.shape[2:])
         limits = SysLimits(*(v.repeat(B) for v in limits_pa))
         mm = master_mask.expand((B,) + master_mask.shape)
-        sol = solve(_per_problem(gains, n), limits, flat(x0),
+        lane = flat(lanes) if isinstance(lanes, torch.Tensor) else lanes
+        sol = solve(_per_problem(gains, n), limits, lane, flat(x0),
                     flat(st.x_pred), flat(st.u_pred), flat(u_old), flat(lam),
                     flat(neigh), flat(mm), flat(st.w), flat(st.y),
                     flat(st.rho_scale), flat(pl_i))
         return NLSolution(*(t.reshape((B, n) + t.shape[1:]) for t in sol))
 
-    def gauss_seidel_sweep(st, x0, u_old, gains):
+    def gauss_seidel_sweep(st, x0, u_old, gains, lanes):
         # agents solve in id order, each against the freshest neighbour
         # plans (OCD_ROS_main.py:178-241); a non-finite solve is contained
         # before its row is written, so later agents never read it
@@ -246,6 +255,7 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             lo_ids, hi_ids = nb_ids.clamp(max=i), nb_ids.clamp(min=i)
             sol_i = solve(
                 gains, SysLimits(*(v[i].expand(B) for v in limits_pa)),
+                lanes[:, i] if isinstance(lanes, torch.Tensor) else lanes,
                 x0[:, i], x_all[:, i], st.u_pred[:, i], u_old[:, i],
                 st.lambdas[:, i][:, nb_ids],
                 x_all[:, nb_ids][..., 7:9].transpose(1, 2),
@@ -278,10 +288,11 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             # canonical pair plane (min, max) regardless of role
             pl_i = st.planes[:, torch.minimum(ids[:, None], ns),
                              torch.maximum(ids[:, None], ns)]
+        lanes = agent_lanes(x0)
         if gauss_seidel:
-            sol = gauss_seidel_sweep(st, x0, u_old, gains)
+            sol = gauss_seidel_sweep(st, x0, u_old, gains, lanes)
         else:
-            sol = jacobi(st, x0, u_old, gains, lam, neigh, pl_i)
+            sol = jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes)
         x_new, u_new, w_new, y_new, rs_new, feas, ok = _contain_nonfinite(
             st, sol)
         pl_new = torch.where(ok[..., None, None, None], sol.planes, pl_i)
@@ -509,10 +520,11 @@ def make_nl_ocd_instrumented(track: Track, cfg: ExperimentConfig):
 def init_nl_fleet(track: Track, cfg: ExperimentConfig,
                   x0s: Optional[np.ndarray] = None,
                   lambdas0: Optional[np.ndarray] = None,
-                  device="cpu") -> OCDFleetState:
+                  device="cuda") -> OCDFleetState:
     """Initial ``(n_ag, ...)`` state on ``device`` (which must hold
-    ``track``); ``lambdas0`` warm-starts the duals (the reference's
-    ini_lambdas pickle, misc.py:218-231)."""
+    ``track``; the default ``cuda`` raises without a card); ``lambdas0``
+    warm-starts the duals (the reference's ini_lambdas pickle,
+    misc.py:218-231)."""
     dev = resolve_device(device)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     n, N = cfg.n_agents, cfg.N

@@ -29,7 +29,8 @@ from colaborativempc_tpu_torch.config.params import (
     ExperimentConfig, Gains, SysLimits, lpv_gains, x0_database,
 )
 from colaborativempc_tpu_torch.geometry import (
-    Track, check_end, frenet_to_cartesian, halfwidth, make_track, wrap_to_pi,
+    Track, check_end, frenet_to_cartesian, halfwidth, make_track, relocalize,
+    select_lane, wrap_to_pi,
 )
 from colaborativempc_tpu_torch.planners.lpv import lpv_solve, LPVSolution
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
@@ -324,14 +325,27 @@ def escalate_holds(track: Track, cfg: ExperimentConfig, state, lanes:
                           brake_count=brake_count)
 
 
+def switch_lanes(track: Track, state):
+    """Per-step dynamic lane switch (reference ``set_lane``/``checkLane``):
+    each agent's pose picks its lane, and the Frenet entries of x0 and of
+    the linearisation trajectory are relocalised onto it, the previously
+    selected lane threaded as ``old_lane`` so the lap count in s stays
+    exact across lanes of different lengths. ``state`` is a ``FleetState``
+    or an ``OCDFleetState``; returns it with ``x0``, ``x_pred`` and
+    ``lane`` replaced."""
+    lanes, x0 = select_lane(track, state.x0, prev_lane=state.lane)
+    stages = state.x_pred.shape[:-1]
+    x_pred = relocalize(track, state.x_pred, lanes[..., None].expand(stages),
+                        old_lane=state.lane[..., None].expand(stages))
+    x_pred = torch.cat([x0[..., None, :], x_pred[..., 1:, :]], dim=-2)
+    return state._replace(x0=x0, x_pred=x_pred, lane=lanes)
+
+
 def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
     """The one-control-step function for a batch of fleets:
-    ``state (B, n_ag, ...) -> (new_state, StepMetrics)``."""
-    if cfg.dynamic_lane:
-        raise NotImplementedError("dynamic_lane is not ported yet")
-    if cfg.solver.assoc:
-        raise NotImplementedError(
-            "the associative-scan ADMM path is not ported yet")
+    ``state (B, n_ag, ...) -> (new_state, StepMetrics)``. With
+    ``cfg.dynamic_lane`` every step first re-selects each agent's lane
+    (:func:`switch_lanes`); ``cfg.solver.assoc`` reaches ``admm_solve``."""
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     gains = _gains_on(cfg.gains if cfg.gains is not None else lpv_gains(),
@@ -345,7 +359,12 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
         B = state.x0.shape[0]
         P = B * n
         dtype = state.x0.dtype
-        lanes = torch.full((B, n), cfg.lane, dtype=torch.int32, device=dev)
+        if cfg.dynamic_lane:
+            state = switch_lanes(track, state)
+            lanes = state.lane
+        else:
+            lanes = torch.full((B, n), cfg.lane, dtype=torch.int32,
+                               device=dev)
 
         def flat(t):
             return t.reshape((P,) + t.shape[2:])
@@ -380,7 +399,8 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
             rho_scale0=flat(state.rho_scale),
             admm_iters=cfg.solver.admm_budget(), rho=cfg.solver.rho,
             alpha_relax=cfg.solver.alpha_relax, eps=cfg.solver.eps,
-            lane=flat(lanes), epoch_len=cfg.solver.epoch_len)
+            lane=flat(lanes), epoch_len=cfg.solver.epoch_len,
+            assoc=bool(cfg.solver.assoc))
         sol = LPVSolution(*(unflat(t) for t in sol))
 
         jam_count = torch.where(sol.feasible, torch.zeros_like(state.jam_count),
@@ -465,11 +485,12 @@ def make_lpv_fleet_rollout(track: Track, cfg: ExperimentConfig, steps: int):
 
 def init_lpv_fleet(track: Track, cfg: ExperimentConfig,
                    x0s: Optional[np.ndarray] = None,
-                   device="cpu") -> FleetState:
+                   device="cuda") -> FleetState:
     """Initial ``(n_ag, ...)`` fleet state on ``device`` (which must hold
-    ``track``): warm-start plans from the x0 database rows, whose (X, Y,
-    theta) are recomputed from the track geometry (the reference feeds the
-    corrected row to the planner, LPV_HP_N_main.py:92)."""
+    ``track``; the default ``cuda`` raises without a card): warm-start plans
+    from the x0 database rows, whose (X, Y, theta) are recomputed from the
+    track geometry (the reference feeds the corrected row to the planner,
+    LPV_HP_N_main.py:92)."""
     dev = resolve_device(device)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     if x0s is None:
@@ -512,8 +533,8 @@ def resolve_single_fleet_schedule(cfg: ExperimentConfig) -> ExperimentConfig:
     """Fill unset solver knobs with the single-fleet long-horizon (N >= 48)
     latency schedule of the JAX package: ``epoch_len`` 15, the associative
     Riccati path, ``admm_iters`` 1000. Each knob fills in only when left
-    unset (None), so a pin always wins — ``SolverConfig(assoc=False)`` runs
-    the sequential path, since the associative one is not ported yet."""
+    unset (None), so a pin always wins. On the card every epoch is the
+    kernel whatever ``assoc`` says (``ops/admm.py admm_solve``)."""
     if cfg.N < 48:
         return cfg
     import dataclasses
@@ -545,9 +566,7 @@ def run_lpv_experiment(cfg: ExperimentConfig,
     ``checkpoint_path`` enables an exact mid-run resume
     (``runtime/checkpoint.py``); ``profile_dir`` records a
     ``torch.profiler`` trace of the loop into ``profile_dir/trace.json``.
-    At N >= 48 the schedule resolves ``assoc=True``, which raises
-    ``NotImplementedError`` until the associative path is ported; pin
-    ``SolverConfig(assoc=False)`` to run there.
+    The solver knobs left unset follow ``resolve_single_fleet_schedule``.
     """
     import os
     from colaborativempc_tpu_torch.runtime.checkpoint import (

@@ -37,7 +37,7 @@ def main(argv=None):
                     default="jacobi")
     ap.add_argument("--lane", type=int, default=0)
     ap.add_argument("--dynamic-lane", action="store_true",
-                    help="per-step lane re-selection (not ported yet)")
+                    help="per-step lane re-selection (reference checkLane)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda, which raises without "
                     "a card; --device cpu runs on the CPU)")

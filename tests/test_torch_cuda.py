@@ -262,3 +262,68 @@ def test_cuda_affine_kernel_matches_plain_twin_at_n125(cuda, ring):
     ref = cuda_lqr.lqr_affine_solve_batched_plain(*args)
     close(got[0], ref[0], 5e-5)
     close(got[1], ref[1], 5e-5)
+
+
+def mpcc_qps(dev, P, N):
+    """The first SQP iteration's normalised stage QPs of P cold-started
+    races on oval_mt at horizon N."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N)
+    return racing.cold_start_qps(make_track(cfg.map_type, device=dev), cfg, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,epoch_len", [(1, 60, 15), (18, 20, 20)])
+def test_cuda_epoch_kernel_matches_plain_twin_on_mpcc_qps(cuda, P, N,
+                                                          epoch_len):
+    """MPCC's 7-row QPs at the race's N=60 (one QP: one warp on one SM)
+    and at the battery's 18 races, N=20."""
+    qp, z0 = mpcc_qps(torch.device("cpu"), P, N)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    assert data.lo.shape[-1] == 7
+    w0 = torch.clamp(torch.zeros_like(qp.lo), qp.lo, qp.hi)
+    y0 = torch.zeros_like(w0)
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda),
+                                      epoch_len=epoch_len, alpha=1.6)
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0,
+                                            epoch_len=epoch_len, alpha=1.6)
+    for g, r in zip(got[:4], ref[:4]):
+        close(g, r, 1e-3)
+    for g, r in zip(got[4:], ref[4:]):
+        close(g, r, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_admm_solve_runs_the_kernel_whatever_assoc_says(cuda):
+    """On the card every epoch is the kernel: ``assoc=True`` launches it
+    once per epoch and returns exactly what ``assoc=False`` returns."""
+    qp, z0, _, _ = problems(56, P=3, N=60)
+    qp, z0 = to(qp, cuda), z0.to(cuda)
+    before = cuda_lqr.admm_epoch_batched.launches
+    a = admm_solve(qp, z0, iters=150, epoch_len=15, assoc=True)
+    launches = cuda_lqr.admm_epoch_batched.launches - before
+    assert launches == int(a.iterations.max()) // 15 >= 1
+    b = admm_solve(qp, z0, iters=150, epoch_len=15, assoc=False)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_mpcc_race_matches_cpu(cuda):
+    """Two races for 3 steps from a cold start on the card and on the CPU:
+    states within 1e-3, equal reset flags."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=20)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        track = make_track(cfg.map_type, device=dev)
+        st = racing.init_mpcc(track, cfg, races=2, device=dev)
+        out[dev.type] = racing.make_mpcc_rollout(track, cfg, 3)(st)
+    (fg, mg), (fc, mc) = out["cuda"], out["cpu"]
+    close(fg.x, fc.x, 1e-3)
+    assert torch.equal(mg.reset.cpu(), mc.reset)

@@ -41,8 +41,9 @@ def close(got, ref, atol):
                                atol=atol)
 
 
-def configs(dtype="float64", n_agents=3, N=10, iters=100, **kw):
-    args = dict(n_agents=n_agents, N=N, dt=0.02, map_type="Highway",
+def configs(dtype="float64", n_agents=3, N=10, iters=100,
+            map_type="Highway", **kw):
+    args = dict(n_agents=n_agents, N=N, dt=0.02, map_type=map_type,
                 dtype=dtype, **kw)
     return (jcfg.ExperimentConfig(gains=jcfg.lpv_gains(),
                                   solver=jcfg.SolverConfig(admm_iters=iters),
@@ -200,16 +201,43 @@ def test_safety_layer_matches_jax():
         close(getattr(esc, f), getattr(ref_esc, f), 1e-9)
 
 
-def _rollouts(dtype_name, B=2, steps=3, N=8, iters=100):
-    jc, tc = configs(dtype=dtype_name, N=N, iters=iters)
+def shift_left(x, d=1.0):
+    """Poses moved by ``d`` along the left normal of their headings (the
+    Frenet entries are left for the lane switch to recompute). The lanes of
+    Oval2 are concentric and 1 m apart, so a pose at lateral offset ey on
+    the outer lane lands at the same offset on the inner one."""
+    x = np.array(x, copy=True)
+    x[..., 7] -= d * np.sin(x[..., 5])
+    x[..., 8] += d * np.cos(x[..., 5])
+    return x
+
+
+def _rollouts(dtype_name, B=2, steps=3, N=8, iters=100, **kw):
+    jc, tc = configs(dtype=dtype_name, N=N, iters=iters, **kw)
     with x64_island(dtype_name == "float64"):
         jdt = jnp.float64 if dtype_name == "float64" else jnp.float32
-        jt = j_make_track("Highway", dtype=jdt)
+        jt = j_make_track(jc.map_type, dtype=jdt)
         st = j_batch(jsim.init_lpv_fleet(jt, jc), B)
         rng = np.random.default_rng(0)
         dx = rng.normal(size=st.x0.shape) * 0.02
         st = st._replace(x0=st.x0 + jnp.asarray(dx, st.x0.dtype))
-        ref = jax.vmap(jsim.make_lpv_fleet_rollout(jt, jc, steps))(st)
+        if jc.dynamic_lane:
+            # agent 1 of fleet 0 starts on the inner lane
+            x0, xp = np.asarray(st.x0).copy(), np.asarray(st.x_pred).copy()
+            x0[0, 1], xp[0, 1] = shift_left(x0[0, 1]), shift_left(xp[0, 1])
+            st = st._replace(x0=jnp.asarray(x0, st.x0.dtype),
+                             x_pred=jnp.asarray(xp, st.x0.dtype))
+            # stepped, not scanned: under x64 the JAX lane switch returns
+            # int64 lanes, which the rollout's int32 scan carry refuses
+            step = jax.jit(jax.vmap(jsim.make_lpv_fleet_step(jt, jc)))
+            hist, s_k = [], st
+            for _ in range(steps):
+                s_k, m = step(s_k)
+                hist.append((s_k.x0, s_k.u_old, m))
+            ref = (s_k, tuple(jax.tree.map(lambda *a: jnp.stack(a, 1), *h)
+                              for h in zip(*hist)))
+        else:
+            ref = jax.vmap(jsim.make_lpv_fleet_rollout(jt, jc, steps))(st)
     tdt = F64 if dtype_name == "float64" else F32
     tt = interop.track_from_numpy(jt, dtype=tdt)
     got = tsim.make_lpv_fleet_rollout(tt, tc, steps)(
@@ -237,6 +265,9 @@ def test_fleet_rollout_matches_jax(dtype_name, tol):
 
 
 def test_fleet_entry_points_batch_and_refuse_unported_paths():
+    """Scenario batching copies the fleet; the paths once refused —
+    ``dynamic_lane`` and ``SolverConfig(assoc=True)`` — now build and run a
+    fleet step equal to JAX's (float64, one step)."""
     _, tc = configs(dtype="float32", N=8)
     from colaborativempc_tpu_torch.geometry import make_track
     tt = make_track("Highway", device="cpu")
@@ -246,12 +277,25 @@ def test_fleet_entry_points_batch_and_refuse_unported_paths():
     assert st.x0.data_ptr() != base.x0.data_ptr()
     st.x0[0, 0, 0] += 1.0                      # scenarios are copies
     assert float(st.x0[1, 0, 0]) == float(base.x0[0, 0])
-    with pytest.raises(NotImplementedError):
-        tsim.make_lpv_fleet_step(
-            tt, tc.__class__(**{**tc.__dict__, "dynamic_lane": True}))
-    with pytest.raises(NotImplementedError):
-        tsim.make_lpv_fleet_step(tt, tc.__class__(**{
-            **tc.__dict__, "solver": tcfg.SolverConfig(assoc=True)}))
+    for kw in (dict(dynamic_lane=True),
+               dict(solver_assoc=True)):
+        assoc = kw.pop("solver_assoc", None)
+        jc, tc = configs(N=8, **kw)
+        if assoc:
+            jc = jc.__class__(**{**jc.__dict__, "solver": jcfg.SolverConfig(
+                admm_iters=100, assoc=True)})
+            tc = tc.__class__(**{**tc.__dict__, "solver": tcfg.SolverConfig(
+                admm_iters=100, assoc=True)})
+        with x64_island():
+            jt, jst = jax_fleet(jc, seed=9)
+            ref, jm = jsim.make_lpv_fleet_step(jt, jc)(jst)
+        got, m = tsim.make_lpv_fleet_step(
+            interop.track_from_numpy(jt, dtype=F64), tc)(batch_fleet_state(
+                interop.fleet_state_from_numpy(jst, dtype=F64), 1,
+                device="cpu"))
+        close(got.x_pred[0], ref.x_pred, 1e-6)
+        np.testing.assert_array_equal(m.iterations[0].numpy(),
+                                      np.asarray(jm.iterations))
 
 
 def test_lateral_wall_s_clamp_defect_pinned():
@@ -320,9 +364,26 @@ def test_degraded_escape_finiteness_defect_pinned(monkeypatch):
     st = jsim.init_lpv_fleet(jt, jc)._replace(jam_count=jnp.asarray(jam))
     ref, _ = jsim.make_lpv_fleet_step(jt, jc)(st)
     tt = interop.track_from_numpy(jt, dtype=F32)
-    tst = batch_fleet_state(interop.fleet_state_from_numpy(st, dtype=F32), 1)
+    tst = batch_fleet_state(interop.fleet_state_from_numpy(st, dtype=F32), 1,
+                            device="cpu")
     got, _ = tsim.make_lpv_fleet_step(tt, tc)(tst)
     adopted = np.array([False, True, True])
     for w in (np.asarray(ref.w), got.w[0].numpy()):
         assert np.array_equal(np.isnan(w).all(axis=(1, 2)), adopted)
     close(got.x_pred[0], ref.x_pred, 1e-6)
+
+
+def test_dynamic_lane_rollout_matches_jax():
+    """``dynamic_lane`` on Oval2 (two concentric lanes of different
+    lengths), B=2 x 3 agents x 3 steps in float64: agent 1 of fleet 0
+    starts on the inner lane with the outer lane's Frenet entries and
+    switches onto it in the first step; states, lanes and iteration counts
+    as in JAX."""
+    (fin, (xh, uh, m)), (jfin, (jxh, juh, jm)) = _rollouts(
+        "float64", map_type="Oval2", dynamic_lane=True)
+    close(xh, jxh, 1e-6)
+    close(fin.x_pred, jfin.x_pred, 1e-6)
+    np.testing.assert_array_equal(fin.lane.numpy(), np.asarray(jfin.lane))
+    np.testing.assert_array_equal(m.iterations.numpy(),
+                                  np.asarray(jm.iterations))
+    assert fin.lane.tolist() == [[0, 1, 0], [0, 0, 0]]

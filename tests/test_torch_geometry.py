@@ -119,6 +119,86 @@ def test_per_agent_lane_tensor_matches_jax():
                                            sm=0.9))
 
 
+def oval2_poses(rng, n=48):
+    """Poses on and around both lanes of Oval2 (two concentric lanes 1 m
+    apart, 26.0 m and 19.7 m long), a few far off the track, with Frenet
+    rows that carry up to three laps on a random lane."""
+    jt = jax_track("Oval2")
+    src = rng.integers(0, 2, size=n)
+    L = np.asarray(jt.track_length)[src]
+    s = rng.uniform(0.0, 1.0, size=n) * L
+    ey = rng.uniform(-0.7, 0.7, size=n)
+    with x64_island():
+        X, Y, th = (np.array(a) for a in jax.vmap(
+            lambda a, b, ln: jfrenet.frenet_to_cartesian(jt, a, b, ln))(
+            jnp.asarray(s), jnp.asarray(ey), jnp.asarray(src)))
+    X[:3] += 40.0                                     # off every lane
+    x = np.zeros((n, 9))
+    x[:, 5] = th + rng.normal(size=n) * 0.2
+    x[:, 6] = s + rng.integers(0, 3, size=n) * L
+    x[:, 7], x[:, 8] = X, Y
+    x[:, 3:5] = rng.normal(size=(n, 2))
+    return jt, x, src
+
+
+@pytest.mark.parametrize("lane", [0, 1])
+def test_cartesian_to_frenet_matches_jax(lane):
+    """Every segment scored at once, nearest valid |ey| wins, the
+    (1e4, 1e4, 1e4, False) sentinel off the lane; float64 within 1e-9."""
+    jt, x, _ = oval2_poses(np.random.default_rng(10 + lane))
+    tt = interop.track_from_numpy(jt, dtype=F64)
+    with x64_island():
+        ref = jax.vmap(lambda a, b, c: jfrenet.cartesian_to_frenet(
+            jt, a, b, c, lane=lane))(*(jnp.asarray(x[:, i]) for i in (7, 8, 5)))
+    got = tfrenet.cartesian_to_frenet(
+        tt, *(torch.tensor(x[:, i]) for i in (7, 8, 5)), lane=lane)
+    for g, r in zip(got[:3], ref[:3]):
+        close(g, r)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    assert not bool(got[3][:3].any()) and bool(got[3].any())
+    assert float(got[0][0]) == 1e4
+
+
+def test_lane_selection_and_relocalisation_match_jax():
+    """``check_lane`` (min |ey| over lanes), ``relocalize`` onto a lane
+    tensor with the lap count taken against the old lane's length, and
+    ``select_lane``, elementwise; float64 within 1e-9, lanes equal."""
+    rng = np.random.default_rng(12)
+    jt, x, src = oval2_poses(rng)
+    tt = interop.track_from_numpy(jt, dtype=F64)
+    new = rng.integers(0, 2, size=len(src)).astype(np.int32)
+    with x64_island():
+        a = {i: jnp.asarray(x[:, i]) for i in (5, 7, 8)}
+        ref_cl = jax.vmap(lambda p, q, r: jfrenet.check_lane(jt, p, q, r))(
+            a[7], a[8], a[5])
+        ref_rel = jax.vmap(lambda xx, ln, ol: jfrenet.relocalize(
+            jt, xx, ln, old_lane=ol))(jnp.asarray(x), jnp.asarray(new),
+                                      jnp.asarray(src))
+        ref_same = jax.vmap(lambda xx: jfrenet.relocalize(jt, xx, 1))(
+            jnp.asarray(x))
+        ref_sel = jax.vmap(lambda xx, ol: jfrenet.select_lane(
+            jt, xx, prev_lane=ol))(jnp.asarray(x), jnp.asarray(src))
+    xt = torch.tensor(x)
+    got_cl = tfrenet.check_lane(tt, xt[:, 7], xt[:, 8], xt[:, 5])
+    for g, r in zip(got_cl[:3], ref_cl[:3]):
+        close(g, r)
+    for g, r in zip(got_cl[3:], ref_cl[3:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert got_cl[4].dtype == torch.int32 and set(got_cl[4].tolist()) == {0, 1}
+    close(tfrenet.relocalize(tt, xt, torch.tensor(new),
+                             old_lane=torch.tensor(src)), ref_rel)
+    close(tfrenet.relocalize(tt, xt, 1), ref_same)
+    lanes, xs = tfrenet.select_lane(tt, xt, prev_lane=torch.tensor(src))
+    np.testing.assert_array_equal(lanes.numpy(), np.asarray(ref_sel[0]))
+    close(xs, ref_sel[1])
+    # laps survive a switch between lanes of different lengths
+    kept = got_cl[3].numpy()
+    laps = np.round((xs[:, 6].numpy() - got_cl[0].numpy())
+                    / jt.track_length[lanes.numpy()])
+    np.testing.assert_array_equal(
+        laps[kept], np.floor(x[kept, 6] / jt.track_length[src[kept]]))
+
+
 def test_planes_and_weights_match_jax():
     rng = np.random.default_rng(7)
     P, H, n = 4, 9, 2
@@ -220,7 +300,8 @@ def test_port_imports_without_jax():
         "import colaborativempc_tpu_torch.runtime, "
         "colaborativempc_tpu_torch.parallel, "
         "colaborativempc_tpu_torch.interop, "
-        "colaborativempc_tpu_torch.ops._build\n"
+        "colaborativempc_tpu_torch.ops._build, "
+        "colaborativempc_tpu_torch.scripts.mpcc_main\n"
         "assert not any(m == 'colaborativempc_tpu' or "
         "m.startswith('colaborativempc_tpu.') for m in sys.modules)\n"
         "import torch\n"

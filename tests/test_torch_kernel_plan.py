@@ -1,6 +1,7 @@
 """CPU tests of the CUDA kernels' Python side and of their algebra.
 
-- The port's entry points default to the card and raise without one.
+- The port's entry points and builders default to the card and raise
+  without one.
 - ``ops/cuda_lqr.py kernel_plan``: QPs per block, ring depth and
   shared-memory bytes at the shapes the planners hand the kernels.
 - The closed-loop form of the sweeps (``A_cl = F + G K``,
@@ -27,8 +28,13 @@ from colaborativempc_tpu_torch.ops import (
 from colaborativempc_tpu_torch.ops.cuda_lqr import (
     SMEM_PER_BLOCK, kernel_plan, qp_floats,
 )
-from colaborativempc_tpu_torch.runtime import battery, ocd, simulate
-from colaborativempc_tpu_torch.scripts import monte_carlo, nl_main
+from colaborativempc_tpu_torch.geometry import make_track, spline
+from colaborativempc_tpu_torch.parallel import batch_fleet_state
+from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig, MPCCGains
+from colaborativempc_tpu_torch.runtime import (
+    battery, ocd, racing, simulate,
+)
+from colaborativempc_tpu_torch.scripts import monte_carlo, mpcc_main, nl_main
 
 F64 = torch.float64
 
@@ -52,6 +58,10 @@ ENTRY_POINTS = {
                                 [tcfg.nl_gains()], 1), {}),
     "monte_carlo.setup": (monte_carlo.setup, lambda: ("nl",),
                           dict(scenarios=2, agents=2, N=6, steps=1)),
+    "run_mpcc_experiment": (racing.run_mpcc_experiment,
+                            lambda: (MPCCConfig(N=6, n_sim=1),), {}),
+    "run_mpcc_battery": (battery.run_mpcc_battery,
+                         lambda: (MPCCConfig(N=6), [MPCCGains()], 1), {}),
 }
 
 
@@ -65,10 +75,52 @@ def test_entry_point_defaults_to_cuda_and_raises_without_a_card(
         fn(*args(), **kw)
 
 
+def _cpu_track():
+    return make_track("Highway", device="cpu")
+
+
+def _track_json(tmp_path):
+    path = tmp_path / "track.json"
+    th = np.linspace(0, 2 * np.pi, 60, endpoint=False)
+    path.write_text('{"X": %s, "Y": %s}' % (list(2 * np.cos(th)),
+                                            list(2 * np.sin(th))))
+    return str(path)
+
+
+BUILDERS = {
+    "make_track": lambda tmp: make_track("Highway"),
+    "init_lpv_fleet": lambda tmp: simulate.init_lpv_fleet(
+        _cpu_track(), _cfg(tcfg.lpv_gains())),
+    "init_nl_fleet": lambda tmp: ocd.init_nl_fleet(
+        _cpu_track(), _cfg(tcfg.nl_gains())),
+    "batch_fleet_state": lambda tmp: batch_fleet_state(
+        simulate.init_lpv_fleet(_cpu_track(), _cfg(tcfg.lpv_gains()),
+                                device="cpu"), 2),
+    "load_mpcc_track": lambda tmp: racing.load_mpcc_track(MPCCConfig()),
+    "init_mpcc": lambda tmp: racing.init_mpcc(
+        make_track("oval_mt", device="cpu"), MPCCConfig(N=6)),
+    "fit_centerline": lambda tmp: spline.fit_centerline(
+        2 * np.cos(np.linspace(0, 6, 50)), 2 * np.sin(np.linspace(0, 6, 50))),
+    "track_from_json": lambda tmp: spline.track_from_json(_track_json(tmp)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_builder_defaults_to_cuda_and_raises_without_a_card(
+        name, monkeypatch, tmp_path):
+    """The builders a user starts from place their tensors on the card
+    unless asked for the CPU, and raise without one."""
+    build = BUILDERS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(tmp_path)
+
+
 @pytest.mark.parametrize("script,argv", [
     (monte_carlo, ["--pipeline", "nl", "--scenarios", "2", "--agents", "2",
                    "--N", "6", "--steps", "1"]),
     (nl_main, ["--agents", "2", "--N", "6", "--steps", "1", "--verb", "0"]),
+    (mpcc_main, ["--N", "6", "--steps", "1", "--verb", "0"]),
 ])
 def test_script_main_defaults_to_cuda_and_raises_without_a_card(
         script, argv, monkeypatch, tmp_path):

@@ -34,8 +34,8 @@ def close(got, ref, atol):
 
 
 def configs(n_agents=3, N=6, coupling="eu", sweep="jacobi", ocd=None,
-            dtype="float64", **kw):
-    args = dict(n_agents=n_agents, N=N, dt=0.02, map_type="Highway",
+            dtype="float64", map_type="Highway", **kw):
+    args = dict(n_agents=n_agents, N=N, dt=0.02, map_type=map_type,
                 coupling=coupling, dtype=dtype, **kw)
     o = dict(dict(max_it_ocd=12, sweep=sweep), **(ocd or {}))
     return (jcfg.ExperimentConfig(
@@ -141,7 +141,7 @@ def step_both(jc, tc, seed, steps=2):
     with x64_island():
         jt, st = jax_fleet(jc, seed)
         tst = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64),
-                                1)
+                                1, device="cpu")
         jstep = jocd.make_nl_ocd_step(jt, jc)
         refs = []
         for _ in range(steps):
@@ -205,7 +205,8 @@ def test_gauss_seidel_plane_slot_defect_pinned():
         ref = core[1](ls, st.x0, st.u_old)
     tt = interop.track_from_numpy(jt, dtype=F64)
     tcore = tocd._build_ocd_core(tt, tc)
-    tstate = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64), 1)
+    tstate = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64), 1,
+                               device="cpu")
     tls = tcore.loop_init(tstate)
     got = tcore.iteration(tls, tstate.x0, tstate.u_old)
     close(got.planes[0], ref.planes, 1e-6)
@@ -219,8 +220,9 @@ def test_safety_layer_accepts_an_ocd_state():
     fleet state as they take the LPV one."""
     _, tc = configs(N=6)
     from colaborativempc_tpu_torch.geometry import make_track
-    tt = make_track("Highway", dtype=F64)
-    st = batch_fleet_state(tocd.init_nl_fleet(tt, tc), 2)
+    tt = make_track("Highway", device="cpu", dtype=F64)
+    st = batch_fleet_state(tocd.init_nl_fleet(tt, tc, device="cpu"), 2,
+                           device="cpu")
     counts = torch.tensor([[0, 3, 6], [1, 0, 9]], dtype=torch.int32)
     st = st._replace(hold_count=counts, w=torch.ones_like(st.w))
     esc = tsim.escalate_holds(tt, tc, st, st.lane)
@@ -236,12 +238,43 @@ def test_safety_layer_accepts_an_ocd_state():
 
 
 def test_nl_step_refuses_what_is_not_ported_or_unknown():
+    """An unknown sweep is refused. ``dynamic_lane``, once refused, runs:
+    on Oval2 (two concentric lanes 1 m apart, of different lengths) agent 1
+    starts on the inner lane with the outer lane's Frenet entries, switches
+    onto it in the first step, and two
+    float64 control steps (Jacobi and Gauss-Seidel) equal JAX's, lanes
+    included."""
+    for sweep in ("jacobi", "gauss_seidel"):
+        jc, tc = configs(N=6, sweep=sweep, dynamic_lane=True,
+                         map_type="Oval2")
+        with x64_island():
+            jt = j_make_track("Oval2", dtype=jnp.float64)
+            st = jocd.init_nl_fleet(jt, jc)
+            x0, xp = np.asarray(st.x0).copy(), np.asarray(st.x_pred).copy()
+            for a in (x0, xp):
+                th = a[1, ..., 5]
+                a[1, ..., 7] -= np.sin(th)
+                a[1, ..., 8] += np.cos(th)
+            st = st._replace(x0=jnp.asarray(x0), x_pred=jnp.asarray(xp))
+            tst = batch_fleet_state(interop.ocd_state_from_numpy(
+                st, dtype=F64), 1, device="cpu")
+            jstep = jocd.make_nl_ocd_step(jt, jc)
+            refs = []
+            for _ in range(2):
+                st, m = jstep(st)
+                refs.append(jax.tree.map(np.asarray, (st, m)))
+        tstep = tocd.make_nl_ocd_step(interop.track_from_numpy(jt, dtype=F64),
+                                      tc)
+        for st, m in refs:
+            tst, tm = tstep(tst)
+            assert int(tm.ocd_iterations[0]) == int(m.ocd_iterations)
+            np.testing.assert_array_equal(tst.lane[0].numpy(), st.lane)
+            for f in ("x0", "x_pred", "u_pred", "lambdas"):
+                close(getattr(tst, f)[0], getattr(st, f), 1e-6)
+        assert tst.lane[0].tolist() == [0, 1, 0]
     _, tc = configs(N=6)
     from colaborativempc_tpu_torch.geometry import make_track
-    tt = make_track("Highway")
-    with pytest.raises(NotImplementedError, match="dynamic_lane"):
-        tocd.make_nl_ocd_step(tt, tc.__class__(**{**tc.__dict__,
-                                                  "dynamic_lane": True}))
+    tt = make_track("Highway", device="cpu")
     with pytest.raises(ValueError, match="sweep"):
         tocd.make_nl_ocd_step(tt, tc.__class__(**{
             **tc.__dict__, "ocd": tcfg.OCDConfig(sweep="red_black")}))
@@ -276,8 +309,9 @@ def test_instrumented_step_times_every_iteration():
     time per coordination iteration."""
     _, tc = configs(N=6)
     from colaborativempc_tpu_torch.geometry import make_track
-    tt = make_track("Highway", dtype=F64)
-    st = batch_fleet_state(tocd.init_nl_fleet(tt, tc), 1)
+    tt = make_track("Highway", device="cpu", dtype=F64)
+    st = batch_fleet_state(tocd.init_nl_fleet(tt, tc, device="cpu"), 1,
+                           device="cpu")
     fast, fm = tocd.make_nl_ocd_step(tt, tc)(st)
     seen = []
     inst, im, times = tocd.make_nl_ocd_instrumented(tt, tc)(

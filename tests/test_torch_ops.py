@@ -97,8 +97,12 @@ def test_lqr_factorize_and_affine_solve_match_jax():
     tzs, tcs = tlqr.lqr_solve(tdyn, tcost, t["z0"])
     close(tzs, zs, 1e-8)
     close(tcs, cs, 1e-8)
-    with pytest.raises(NotImplementedError):
-        tlqr.lqr_solve(tdyn, tcost, t["z0"], assoc=True)
+    with x64_island():
+        za, ca = jax.vmap(lambda d_, c_, z0: jlqr.lqr_solve(
+            d_, c_, z0, assoc=True))(dyn, cost, a["z0"])
+    tza, tca = tlqr.lqr_solve(tdyn, tcost, t["z0"], assoc=True)
+    close(tza, za, 1e-8)
+    close(tca, ca, 1e-8)
 
 
 def test_plain_affine_twin_matches_pallas_interpret():

@@ -1,6 +1,6 @@
 """The PyTorch port's host-side runtime against the JAX package: lap
-termination (``check_end``), the single-fleet solver schedule and its
-refusal of the unported associative path, the checkpoint round trip, the
+termination (``check_end``), the single-fleet solver schedule and the
+long-horizon runners on it, the checkpoint round trip, the
 IO file schema, and the two entry-point scripts.
 """
 
@@ -64,27 +64,40 @@ def test_resolve_single_fleet_schedule_matches_jax(N, solver):
 
 
 def test_long_horizon_runners_refuse_the_unported_assoc_path():
-    """At N >= 48 the single-fleet schedule resolves assoc=True, which the
-    port does not have yet: both runners refuse it; pinning assoc=False
-    runs the sequential path at that horizon."""
-    base = dict(n_agents=1, N=48, dt=0.02, map_type="Highway", max_it=1)
-    with pytest.raises(NotImplementedError, match="associative"):
-        tsim.run_lpv_experiment(tcfg.ExperimentConfig(
-            gains=tcfg.lpv_gains(), **base), device="cpu")
-    with pytest.raises(NotImplementedError, match="associative"):
-        tocd.run_nl_experiment(tcfg.ExperimentConfig(
-            gains=tcfg.nl_gains(), **base), device="cpu")
-    res = tsim.run_lpv_experiment(tcfg.ExperimentConfig(
-        gains=tcfg.lpv_gains(),
-        solver=tcfg.SolverConfig(assoc=False, admm_iters=30), **base),
-        device="cpu")
-    assert res.steps == 1 and np.isfinite(res.states).all()
+    """At N >= 48 the single-fleet schedule resolves assoc=True with epoch
+    15, a path the port once refused. Both runners now run it with their
+    default settings (only ``admm_iters`` pinned small, so assoc and the
+    epoch length still resolve) and equal the JAX runners in float64:
+    states within 1e-6, equal ADMM and OCD iteration counts."""
+    from colaborativempc_tpu.runtime import ocd as jocd
+    base = dict(N=48, dt=0.02, map_type="Highway", max_it=2,
+                dtype="float64")
+    ref = jsim.run_lpv_experiment(jcfg.ExperimentConfig(
+        n_agents=2, gains=jcfg.lpv_gains(),
+        solver=jcfg.SolverConfig(admm_iters=60), **base))
+    got = tsim.run_lpv_experiment(tcfg.ExperimentConfig(
+        n_agents=2, gains=tcfg.lpv_gains(),
+        solver=tcfg.SolverConfig(admm_iters=60), **base), device="cpu")
+    assert got.steps == ref.steps == 2
+    np.testing.assert_allclose(got.states, ref.states, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.iterations, ref.iterations)
+    assert (got.iterations % 15 == 0).all() and got.iterations.max() == 60
+    sv = dict(admm_iters=60, sqp_iters=2)
+    ref = jocd.run_nl_experiment(jcfg.ExperimentConfig(
+        n_agents=1, gains=jcfg.nl_gains(), ocd=jcfg.OCDConfig(max_it_ocd=3),
+        solver=jcfg.SolverConfig(**sv), **base))
+    got = tocd.run_nl_experiment(tcfg.ExperimentConfig(
+        n_agents=1, gains=tcfg.nl_gains(), ocd=tcfg.OCDConfig(max_it_ocd=3),
+        solver=tcfg.SolverConfig(**sv), **base), device="cpu")
+    np.testing.assert_allclose(got.states, ref.states, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.ocd_iterations, ref.ocd_iterations)
 
 
 def test_checkpoint_round_trip_keeps_every_field(tmp_path):
     cfg = tcfg.ExperimentConfig(n_agents=3, N=6, coupling="hp_opt")
-    tt = make_track("Highway")
-    st = batch_fleet_state(tocd.init_nl_fleet(tt, cfg), 2)
+    tt = make_track("Highway", device="cpu")
+    st = batch_fleet_state(tocd.init_nl_fleet(tt, cfg, device="cpu"), 2,
+                           device="cpu")
     st = st._replace(lambdas=torch.rand(st.lambdas.shape),
                      jam_count=torch.tensor([[1, 2, 3], [4, 5, 6]],
                                             dtype=torch.int32))
@@ -101,12 +114,12 @@ def test_checkpoint_field_mismatch_raises_a_clear_error(tmp_path):
     """A checkpoint of another record names the fields that differ, where
     the JAX package fails on the leaf count alone."""
     cfg = tcfg.ExperimentConfig(n_agents=2, N=6)
-    tt = make_track("Highway")
-    lpv = tsim.init_lpv_fleet(tt, cfg)
+    tt = make_track("Highway", device="cpu")
+    lpv = tsim.init_lpv_fleet(tt, cfg, device="cpu")
     path = str(tmp_path / "ck.npz")
     tck.save_checkpoint(path, lpv, 3)
     with pytest.raises(ValueError, match=r"missing fields \['lambdas'\]"):
-        tck.load_checkpoint(path, tocd.init_nl_fleet(tt, cfg))
+        tck.load_checkpoint(path, tocd.init_nl_fleet(tt, cfg, device="cpu"))
 
 
 def _fake_run(n_ag=2, N=4, T=3, seed=0):
