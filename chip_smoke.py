@@ -63,6 +63,29 @@ and checks them:
    lane): finite states, launches equal to the epochs, the lane switches
    seen; then B=2 x 3 steps card vs CPU within 1e-3.
 
+Phases 17-20 drive the scripts users start, through their ``main(argv)``
+on the card (default ``--device``), with the launch counters reset before
+each and the solver's epochs counted (launches must equal epochs):
+
+17. ``lpv_main`` at its defaults (3 agents, N=125, dt 0.025, 1000 ADMM
+   iterations) for 8 steps with ``--no-plot``: the csv/pck files written,
+   finite states, p50/p95 per step; ``eval_lpv_model`` on that run, its
+   Euler rollout on the card against the same rollout on the CPU within
+   1e-4, and the other open-loop tools on that run card vs CPU
+   (``rollout_rk4``, ``regression``, ``gbellmf``,
+   ``plane_signed_distance``); ``compare_reference`` against a mock golden
+   run made from it; a tiny run (2 agents, N=8, 4 steps) of ``lpv_main`` on the card and on the
+   CPU writing states within 1e-3;
+18. ``stress_study`` at full width: ``latency --family nl-eu --n 125`` (the
+   NL-OCD step at N=125) and ``perturbed --batched --family lpv --n 125``
+   (8 starts x 10 steps, chunks of 5);
+19. ``experiment_battery --pipeline nl --horizons 20,40`` (12 fleets, 5
+   steps per horizon) and ``--pipeline lpv`` (18 fleets, 10 steps);
+20. ``stress_study gs-tradeoff`` (N=20, 16 fleets, 8 steps): Jacobi against
+   Gauss-Seidel, mean OCD iterations and fleet-steps/s.
+
+The seconds of every phase are printed. No phase imports matplotlib.
+
 Prints a JSON line with each kernel's record, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, on
 any failure or when no CUDA device is available.
@@ -70,9 +93,13 @@ any failure or when no CUDA device is available.
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 
+import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1138,9 +1165,288 @@ def dynamic_lanes(dev, card):
     return out
 
 
+def run_counted(what, fn, *planners):
+    """``fn()`` with the launch counters reset and the planners' solver
+    epochs counted: ``(result, epoch launches, seconds)``; fails unless the
+    epoch kernel launched once per epoch the solves ran, and at least
+    once."""
+    counts, restores = zip(*(count_solver_epochs(p) for p in planners))
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for restore in restores:
+            restore()
+    launches = read_launches()
+    check_epoch_launches(what, launches, [e for c in counts for e in c])
+    return out, launches["epoch"], secs
+
+
+CLI_STEPS, CLI_COMPARE_STEPS, CLI_TINY = 8, 5, (2, 8, 4)
+LPV_FILES = ("csv/{a}/states.dat", "csv/{a}/u.dat", "csv/{a}/plan_dist.dat",
+             "csv/{a}/time.dat", "pck/{a}/states.pkl", "pck/{a}/u.pkl")
+TOL_EVAL_ROLLOUT = 1e-4
+TOL_TOOLS_F64 = 1e-9      # float64 elementwise tools, card vs CPU
+TOL_REGRESSION = 1e-6     # of the estimate's scale: an 11 x 11 inverse
+
+
+def tools_card_vs_cpu(dev, run_dir):
+    """Phase 17: the open-loop tools on a recorded run, on the card against
+    the CPU: ``rollout_rk4`` with 4 substeps (float32) over agent 0's
+    recorded inputs, ``regression`` of (A, B) from its record, ``gbellmf``
+    of its vx, and ``plane_signed_distance`` of the separating planes
+    between the agents' last positions (float64). Fails on a difference
+    above its tolerance or an ego on the wrong side of a plane."""
+    from colaborativempc_tpu_torch.geometry import (
+        compute_hyperplanes, make_track, plane_signed_distance,
+    )
+    from colaborativempc_tpu_torch.runtime.io import load_experiment
+    from colaborativempc_tpu_torch.utils import gbellmf, regression
+    from colaborativempc_tpu_torch.utils.rollout import rollout_rk4
+    s_hist, u_hist = load_experiment(run_dir, 0)
+    xs = np.stack([h[0] for h in s_hist])
+    us = np.stack([h[0] for h in u_hist])
+    xy = load_states(run_dir, 3)[-1, :, 7:9]
+    got = []
+    for d in (dev, torch.device("cpu")):
+        x = torch.tensor(xs, dtype=torch.float64, device=d)
+        u = torch.tensor(us, dtype=torch.float64, device=d)
+        roll = rollout_rk4(make_track("Highway", device=d), x[0].float(),
+                           u.float(), 0.025, substeps=4)
+        A, B, _ = regression(x, u, 1e-3)
+        ego = torch.tensor(xy, dtype=torch.float64, device=d)
+        neigh = torch.stack([ego.roll(-1, 0), ego.roll(-2, 0)], dim=1)
+        dist = plane_signed_distance(compute_hyperplanes(ego, neigh),
+                                     ego[:, None, :])
+        got.append([t.cpu().numpy() for t in (
+            roll, torch.cat([A, B], 1), gbellmf(x[:, 0], 0.5, 2.0, 1.0),
+            dist)])
+    (rg, ab_g, gb_g, dg), (rc, ab_c, gb_c, dc) = got
+    out = dict(rollout_rk4=float(np.abs(rg - rc).max()),
+               regression=float(np.abs(ab_g - ab_c).max()
+                                / max(np.abs(ab_c).max(), 1.0)),
+               gbellmf=float(np.abs(gb_g - gb_c).max()),
+               plane_distance=float(np.abs(dg - dc).max()))
+    if not (np.isfinite(rg).all() and out["rollout_rk4"] <= TOL_EVAL_ROLLOUT
+            and out["regression"] <= TOL_REGRESSION
+            and out["gbellmf"] <= TOL_TOOLS_F64
+            and out["plane_distance"] <= TOL_TOOLS_F64 and (dg < 0).all()):
+        fail(f"phase 17: open-loop tools card vs cpu {out}; ego plane "
+             f"distances {dg.tolist()}")
+    return out
+
+
+def load_states(run_dir, n_agents):
+    return np.stack([np.loadtxt(os.path.join(run_dir, "csv", str(a),
+                                             "states.dat"), ndmin=2)
+                     for a in range(n_agents)], axis=1)
+
+
+def lpv_cli(dev, card):
+    """Phase 17: the LPV flagship CLI at its defaults, the model check and
+    the reference comparison on its output, and a tiny run (``CLI_TINY``:
+    agents, N, steps) on the card against the CPU."""
+    from colaborativempc_tpu_torch.planners import lpv
+    from colaborativempc_tpu_torch.scripts import (
+        compare_reference, eval_lpv_model, lpv_main,
+    )
+    steps = CLI_STEPS
+    out = dict(card=card, steps=steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "lpv")
+        res, launches, secs = run_counted(
+            "phase 17 (lpv_main)", lambda: lpv_main.main(
+                ["--steps", str(steps), "--no-plot", "--verb", "0",
+                 "--out", run_dir]), lpv)
+        missing = [f.format(a=a) for a in range(3) for f in LPV_FILES
+                   if not os.path.exists(os.path.join(run_dir,
+                                                      f.format(a=a)))]
+        if missing or not os.path.exists(os.path.join(run_dir,
+                                                      "settings.csv")):
+            fail(f"phase 17: lpv_main did not write {missing or 'settings'}")
+        written = load_states(run_dir, 3)
+        if (res.steps != steps or written.shape[0] != steps
+                or not (np.isfinite(res.states).all()
+                        and np.isfinite(written).all())):
+            fail(f"phase 17: lpv_main ran {res.steps} steps, wrote "
+                 f"{written.shape[0]}; finite: "
+                 f"{bool(np.isfinite(written).all())}")
+        ms = res.step_times * 1e3
+        out.update(percentiles(ms), first_ms=float(ms[0]), seconds=secs,
+                   launches=launches, launches_per_step=launches / steps,
+                   feasible_share=float(res.feasible.mean()),
+                   max_admm_iterations=int(res.iterations.max()),
+                   matplotlib_importable=(
+                       importlib.util.find_spec("matplotlib") is not None))
+        print(f"phase 17: lpv_main 3 agents N=125 dt 0.025, {steps} "
+              f"steps: p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} "
+              f"ms (first {out['first_ms']:.1f} ms), feasible share "
+              f"{out['feasible_share']:.4f}, epoch-kernel launches "
+              f"{launches} ({out['launches_per_step']:.1f} per step); csv/pck "
+              f"written; matplotlib importable here: "
+              f"{out['matplotlib_importable']} [{card}]", flush=True)
+
+        sim_g, err_g = eval_lpv_model.main([run_dir])
+        sim_c, _ = eval_lpv_model.main([run_dir, "--device", "cpu"])
+        d_eval = float(np.abs(sim_g - sim_c).max())
+        if not (np.isfinite(sim_g).all() and d_eval <= TOL_EVAL_ROLLOUT):
+            fail(f"phase 17: eval_lpv_model rollout card vs cpu {d_eval} "
+                 f"(tol {TOL_EVAL_ROLLOUT})")
+        out["eval_rollout_card_vs_cpu"] = d_eval
+        out["tools_card_vs_cpu"] = tools = tools_card_vs_cpu(dev, run_dir)
+        out["eval_max_err_vs_recorded"] = [float(e) for e in
+                                           err_g.max(axis=0)]
+
+        golden = os.path.join(tmp, "golden")
+        for a in range(3):
+            os.makedirs(os.path.join(golden, "csv", str(a)))
+            shutil.copy(os.path.join(run_dir, "csv", str(a), "states.dat"),
+                        os.path.join(golden, "csv", str(a), "states.dat"))
+        with open(os.path.join(golden, "settings.csv"), "w") as f:
+            f.write("n_agents,3\nN,125\ndt,0.025\nmap_type,Highway\n"
+                    "vx_ref,3.0\nmin_dist,0.25\n")
+        cmp, l_cmp, s_cmp = run_counted(
+            "phase 17 (compare_reference)", lambda: compare_reference.main(
+                ["--ref", golden, "--steps", str(CLI_COMPARE_STEPS),
+                 "--short", "3"]), lpv)
+        dev_short = float(np.max(cmp["short_deviation"]))
+        if not np.isfinite(dev_short):
+            fail("phase 17: compare_reference deviation not finite")
+        out.update(compare_launches=l_cmp, compare_seconds=s_cmp,
+                   compare_short_deviation_max=dev_short)
+
+        a, N, k = CLI_TINY
+        written = {}
+        for name in ("cuda", "cpu"):
+            d = os.path.join(tmp, f"tiny_{name}")
+            r = lpv_main.main(["--agents", str(a), "--N", str(N), "--steps",
+                               str(k), "--no-plot", "--verb", "0", "--out",
+                               d, "--device", name])
+            written[name] = (load_states(d, a), r.iterations)
+        (sg, ig), (sc, ic) = written["cuda"], written["cpu"]
+        for t, j in zip(*np.nonzero(ig != ic)):
+            print(f"phase 17: tiny run step {t} agent {j}: ADMM iterations "
+                  f"{int(ig[t, j])} on the card, {int(ic[t, j])} on the CPU",
+                  flush=True)
+        d_tiny = float(np.abs(sg - sc).max())
+        if not d_tiny <= TOL_ROLLOUT:
+            fail(f"phase 17: tiny lpv_main card vs cpu states {d_tiny} "
+                 f"(tol {TOL_ROLLOUT})")
+        out["tiny_card_vs_cpu"] = d_tiny
+    print(f"phase 17: eval_lpv_model card vs cpu {d_eval:.3g} (tol "
+          f"{TOL_EVAL_ROLLOUT}); compare_reference {CLI_COMPARE_STEPS} steps "
+          f"in {s_cmp:.1f} s ({l_cmp} launches), short-horizon deviation "
+          f"{dev_short:.3g}; tiny lpv_main ({a} agents, N={N}, {k} steps) "
+          f"card vs cpu {d_tiny:.3g} (tol {TOL_ROLLOUT}); open-loop tools "
+          f"card vs cpu: rollout_rk4 {tools['rollout_rk4']:.3g} (tol "
+          f"{TOL_EVAL_ROLLOUT}), regression {tools['regression']:.3g} of "
+          f"scale (tol {TOL_REGRESSION}), gbellmf {tools['gbellmf']:.3g}, "
+          f"plane distances {tools['plane_distance']:.3g} (tol "
+          f"{TOL_TOOLS_F64}) [{card}]",
+          flush=True)
+    return out
+
+
+NL125_STEPS = 2
+PERT_STARTS, PERT_STEPS, PERT_CHUNK = 8, 10, 5
+
+
+def stress_full_width(dev, card):
+    """Phase 18: ``stress_study latency`` of one NL-OCD fleet at N=125 and
+    ``perturbed --batched`` LPV at N=125."""
+    from colaborativempc_tpu_torch.planners import lpv, nl
+    from colaborativempc_tpu_torch.scripts import stress_study
+    n, nl_steps = 125, NL125_STEPS
+    starts, steps, chunk = PERT_STARTS, PERT_STEPS, PERT_CHUNK
+    lat, l_lat, s_lat = run_counted(
+        "phase 18 (latency nl-eu)", lambda: stress_study.main(
+            ["latency", "--family", "nl-eu", "--n", str(n), "--steps",
+             str(nl_steps)]), nl)
+    if lat["steps"] != nl_steps or not np.isfinite(lat["s_final"]).all():
+        fail(f"phase 18: NL latency ran {lat['steps']} steps, s_final "
+             f"{lat['s_final']}")
+    pert, l_pert, s_pert = run_counted(
+        "phase 18 (perturbed --batched lpv)", lambda: stress_study.main(
+            ["perturbed", "--batched", "--family", "lpv", "--n", str(n),
+             "--starts", str(starts), "--steps", str(steps), "--chunk",
+             str(chunk)]), lpv)
+    if pert["steps"] != steps or None in pert["min_dist_exec"]:
+        fail(f"phase 18: perturbed ran {pert['steps']} steps, min_dist_exec "
+             f"{pert['min_dist_exec']}")
+    out = dict(card=card, latency_nl=lat, latency_seconds=s_lat,
+               launches_nl=l_lat, launches_per_step_nl=l_lat / nl_steps,
+               perturbed=pert, perturbed_seconds=s_pert,
+               ms_per_step_perturbed=s_pert / steps * 1e3,
+               launches_perturbed=l_pert,
+               launches_per_step_perturbed=l_pert / steps)
+    print(f"phase 18: NL-OCD eu N={n} latency, {nl_steps} steps: p50 "
+          f"{lat['p50_ms']} ms, p95 {lat['p95_ms']} ms, "
+          f"{out['launches_per_step_nl']:.1f} epoch launches per step; "
+          f"perturbed --batched LPV N={n}, {starts} starts x {steps} steps "
+          f"in {s_pert:.1f} s ({out['ms_per_step_perturbed']:.1f} ms/step), "
+          f"{pert['complete']} complete, "
+          f"{out['launches_per_step_perturbed']:.1f} launches per step "
+          f"[{card}]", flush=True)
+    return out
+
+
+def batteries(dev, card):
+    """Phase 19: ``experiment_battery`` over its NL grid at two horizons and
+    over its LPV grid."""
+    horizons, nl_steps, lpv_steps = "20,40", 5, 10
+    from colaborativempc_tpu_torch.planners import lpv, nl
+    from colaborativempc_tpu_torch.scripts import experiment_battery
+    res_nl, l_nl, s_nl = run_counted(
+        "phase 19 (NL battery)", lambda: experiment_battery.main(
+            ["--pipeline", "nl", "--horizons", horizons, "--steps",
+             str(nl_steps)]), nl)
+    res_lpv, l_lpv, s_lpv = run_counted(
+        "phase 19 (LPV battery)", lambda: experiment_battery.main(
+            ["--pipeline", "lpv", "--steps", str(lpv_steps)]), lpv)
+    runs = list(res_nl.values()) + [res_lpv]
+    if not all(np.isfinite(r.states).all() for r in runs):
+        fail("phase 19: a battery state is not finite")
+    out = dict(card=card, nl_horizons=horizons, nl_steps=nl_steps,
+               nl_configs=res_nl[min(res_nl)].n_configs, nl_seconds=s_nl,
+               launches_nl=l_nl, lpv_steps=lpv_steps,
+               lpv_configs=res_lpv.n_configs, lpv_seconds=s_lpv,
+               launches_lpv=l_lpv,
+               nl_feasible_share={N: float(r.feasible.mean())
+                                  for N, r in res_nl.items()},
+               lpv_feasible_share=float(res_lpv.feasible.mean()))
+    print(f"phase 19: NL battery {out['nl_configs']} configs at N={horizons} "
+          f"x {nl_steps} steps in {s_nl:.1f} s ({l_nl} launches); LPV "
+          f"battery {out['lpv_configs']} configs x {lpv_steps} steps in "
+          f"{s_lpv:.1f} s ({l_lpv} launches) [{card}]", flush=True)
+    return out
+
+
+def gs_tradeoff(dev, card):
+    """Phase 20: ``stress_study gs-tradeoff``: Jacobi against Gauss-Seidel
+    over a batch of fleets sharing one gain set."""
+    n, batch, steps = 20, 16, 8
+    from colaborativempc_tpu_torch.planners import nl
+    from colaborativempc_tpu_torch.scripts import stress_study
+    rows, launches, secs = run_counted(
+        "phase 20 (gs-tradeoff)", lambda: stress_study.main(
+            ["gs-tradeoff", "--n", str(n), "--batch", str(batch), "--steps",
+             str(steps), "--reps", "1"]), nl)
+    out = dict(card=card, rows=rows, seconds=secs, launches=launches)
+    print("phase 20: gs-tradeoff " + "; ".join(
+        f"{r['study'].split('/')[1]}: {r['ocd_iters_mean']} OCD iterations, "
+        f"{r['fleet_steps_per_s']} fleet-steps/s" for r in rows)
+        + f" (B={batch}, N={n}, {launches} launches) [{card}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
+    secs = {}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1155,6 +1461,7 @@ def main():
     # phase 2: build
     info = _build.build()
     _build.load()
+    secs["phase 2"] = time.perf_counter() - t_start
     print(f"phase 2: kernels built in {info['seconds']:.2f} s "
           f"(built={info['built']}) -> {info['path']}", flush=True)
     for line in info["log"].splitlines():
@@ -1162,6 +1469,7 @@ def main():
             print("  ptxas:", line.strip())
 
     # phase 3: kernels vs plain twins
+    t_phase = time.perf_counter()
     k20 = check_kernels(dev, HEADLINE["N"], reps=20)
     k125 = check_kernels(dev, 125, reps=5)
     k125_resident = check_kernels(dev, 125, reps=2, ring=125)
@@ -1209,21 +1517,38 @@ def main():
           f"launches {launches['epoch']} ({launches['epoch'] / STEPS:.2f} "
           f"per step) [{card}]", flush=True)
 
-    # phase 5: end to end, kernel vs plain twins on the CPU
-    phase5 = rollout_iterations_agree(dev)
+    secs["phases 3-4"] = time.perf_counter() - t_phase
+    print(f"phases 3-4 took {secs['phases 3-4']:.1f} s", flush=True)
 
-    nl_path = nl_main_path(dev, card)
-    phase7 = nl_end_to_end(dev)
-    single = nl_single_fleet(dev, card)
-    layers = layer_split(dev, card)
-    race = mpcc_race(dev, card)
-    bat = mpcc_battery(dev, card)
-    phase12 = mpcc_kernel_vs_plain(dev)
-    kmpcc = {"mpcc_p18_n20": check_mpcc_epoch(dev, 18, BAT_N, reps=10),
-             "mpcc_p1_n60": check_mpcc_epoch(dev, 1, MPCC_N, reps=10)}
-    phase14 = assoc_on_card(dev, card)
-    lpv125 = lpv_long_horizon(dev, card)
-    lanes = dynamic_lanes(dev, card)
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[name] = time.perf_counter() - t0
+        print(f"{name} took {secs[name]:.1f} s", flush=True)
+        return out
+
+    # phase 5: end to end, kernel vs plain twins on the CPU
+    phase5 = timed("phase 5", rollout_iterations_agree, dev)
+
+    nl_path = timed("phase 6", nl_main_path, dev, card)
+    phase7 = timed("phase 7", nl_end_to_end, dev)
+    single = timed("phase 8", nl_single_fleet, dev, card)
+    layers = timed("phase 9", layer_split, dev, card)
+    race = timed("phase 10", mpcc_race, dev, card)
+    bat = timed("phase 11", mpcc_battery, dev, card)
+    phase12 = timed("phase 12", mpcc_kernel_vs_plain, dev)
+    kmpcc = timed("phase 13", lambda: {
+        "mpcc_p18_n20": check_mpcc_epoch(dev, 18, BAT_N, reps=10),
+        "mpcc_p1_n60": check_mpcc_epoch(dev, 1, MPCC_N, reps=10)})
+    phase14 = timed("phase 14", assoc_on_card, dev, card)
+    lpv125 = timed("phase 15", lpv_long_horizon, dev, card)
+    lanes = timed("phase 16", dynamic_lanes, dev, card)
+    cli = timed("phase 17", lpv_cli, dev, card)
+    stress = timed("phase 18", stress_full_width, dev, card)
+    bats = timed("phase 19", batteries, dev, card)
+    gs = timed("phase 20", gs_tradeoff, dev, card)
+    secs["total"] = time.perf_counter() - t_start
+    print(f"chip_smoke phases took {secs['total']:.1f} s", flush=True)
 
     src = "colaborativempc_tpu_torch/csrc/lqr_kernels.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
@@ -1237,7 +1562,11 @@ def main():
              replaces="colaborativempc_tpu/ops/pallas_lqr.py:88",
              launches=(launches["epoch"] + nl_path["launches"]["epoch"]
                        + race["launches"] + bat["launches"]
-                       + lpv125["launches"] + lanes["launches"]),
+                       + lpv125["launches"] + lanes["launches"]
+                       + cli["launches"] + cli["compare_launches"]
+                       + stress["launches_nl"] + stress["launches_perturbed"]
+                       + bats["launches_nl"] + bats["launches_lpv"]
+                       + gs["launches"]),
              launches_lpv=launches["epoch"],
              launches_nl=nl_path["launches"]["epoch"],
              launches_mpcc=race["launches"] + bat["launches"],
@@ -1248,6 +1577,14 @@ def main():
              launches_per_step_mpcc=race["launches_per_step"],
              launches_per_step_mpcc_battery=bat["launches_per_step"],
              launches_per_step_lpv_n125=lpv125["launches_per_step"],
+             launches_cli=cli["launches"] + cli["compare_launches"],
+             launches_per_step_lpv_cli=cli["launches_per_step"],
+             launches_per_step_nl_n125=stress["launches_per_step_nl"],
+             launches_per_step_perturbed_lpv_n125=stress[
+                 "launches_per_step_perturbed"],
+             launches_battery_nl=bats["launches_nl"],
+             launches_battery_lpv=bats["launches_lpv"],
+             launches_gs_tradeoff=gs["launches"],
              max_abs_err=k20["epoch"]["max_abs_err"],
              max_abs_err_resid=k20["epoch"]["max_abs_err_resid"],
              ms=k20["epoch"]["ms"], plain_ms=k20["epoch"]["plain_ms"],
@@ -1283,6 +1620,8 @@ def main():
     print(json.dumps({"mpcc_race": race, "mpcc_battery": bat,
                       "phase12": phase12, "phase14": phase14,
                       "lpv_n125": lpv125, "dynamic_lanes": lanes}))
+    print(json.dumps({"lpv_cli": cli, "stress": stress, "batteries": bats,
+                      "gs_tradeoff": gs, "phase_seconds": secs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,3 +103,17 @@ def lpv_discrete_horizon(states: torch.Tensor, inputs: torch.Tensor,
     ``(..., N, 9, 2)`` (reference ``_EstimateABC``, LPV_Planner.py:477-591)."""
     A, B = lpv_matrices(states, inputs, kappas, p)
     return discretize_euler(A, B, dt)
+
+
+def step_euler(x, u, kappa, dt, p: ModelParams):
+    return x + dt * f_continuous(x, u, kappa, p)
+
+
+def step_rk4(x, u, kappa, dt, p: ModelParams):
+    """Classic RK4 with curvature held over the step (plant simulation;
+    native reference analogue integrator.cpp:29-43)."""
+    k1 = f_continuous(x, u, kappa, p)
+    k2 = f_continuous(x + 0.5 * dt * k1, u, kappa, p)
+    k3 = f_continuous(x + 0.5 * dt * k2, u, kappa, p)
+    k4 = f_continuous(x + dt * k3, u, kappa, p)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)

@@ -7,7 +7,7 @@ from colaborativempc_tpu_torch.geometry.frenet import (
     relocalize, select_lane,
 )
 from colaborativempc_tpu_torch.geometry.planes import (
-    compute_hyperplanes, separation_weights,
+    compute_hyperplanes, plane_signed_distance, separation_weights,
 )
 from colaborativempc_tpu_torch.geometry.spline import (
     remove_outliers, fit_centerline, halfwidth_from_boundaries,

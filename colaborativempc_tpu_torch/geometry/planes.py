@@ -26,6 +26,13 @@ def compute_hyperplanes(ego_xy: torch.Tensor,
     return torch.cat([a, b], dim=-1)
 
 
+def plane_signed_distance(planes: torch.Tensor,
+                          xy: torch.Tensor) -> torch.Tensor:
+    """Evaluate ``a . p + b`` for points against planes (broadcasting)."""
+    return (planes[..., 0] * xy[..., 0] + planes[..., 1] * xy[..., 1]
+            + planes[..., 2])
+
+
 def separation_weights(ego_xy: torch.Tensor, neigh_xy: torch.Tensor,
                        min_dist):
     """Distance-based weights of the linear separation reward (reference

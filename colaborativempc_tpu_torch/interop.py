@@ -3,7 +3,9 @@
 Each ``*_from_numpy`` takes an object with the record's field names —
 the JAX package's NamedTuple itself (``np.asarray`` reads its arrays) or a
 dict of numpy arrays — and builds the port's record on ``device``: float
-arrays in ``dtype``, integer and boolean arrays in their own type. Each
+arrays in ``dtype``, integer and boolean arrays in their own type. The
+default device is ``cuda``, which raises without a card: a state carried
+across runs where the port runs unless the caller passes ``device="cpu"``. Each
 ``*_to_numpy`` turns a port record into a dict of numpy arrays (nested
 records into nested dicts), which the ``*_from_numpy`` functions also take.
 This module imports neither JAX nor the JAX package.
@@ -54,11 +56,11 @@ def _record(cls, obj, device, dtype, nested=None):
     return cls(**vals)
 
 
-def track_from_numpy(track, device="cpu", dtype=torch.float32) -> Track:
+def track_from_numpy(track, device="cuda", dtype=torch.float32) -> Track:
     return _record(Track, track, device, dtype)
 
 
-def gains_from_numpy(gains, device="cpu", dtype=torch.float32) -> Gains:
+def gains_from_numpy(gains, device="cuda", dtype=torch.float32) -> Gains:
     """One set of gains, or a batch whose arrays carry a leading batch
     axis. A scalar ``wq`` stays a float; a batch of them becomes a ``(B,)``
     tensor."""
@@ -69,22 +71,22 @@ def gains_from_numpy(gains, device="cpu", dtype=torch.float32) -> Gains:
                  wq=float(wq) if wq.ndim == 0 else _tensor(wq, dev, dtype))
 
 
-def fleet_state_from_numpy(state, device="cpu",
+def fleet_state_from_numpy(state, device="cuda",
                            dtype=torch.float32) -> FleetState:
     return _record(FleetState, state, device, dtype)
 
 
-def ocd_state_from_numpy(state, device="cpu",
+def ocd_state_from_numpy(state, device="cuda",
                          dtype=torch.float32) -> OCDFleetState:
     return _record(OCDFleetState, state, device, dtype)
 
 
-def stage_qp_from_numpy(qp, device="cpu", dtype=torch.float32) -> StageQP:
+def stage_qp_from_numpy(qp, device="cuda", dtype=torch.float32) -> StageQP:
     return _record(StageQP, qp, device, dtype,
                    nested={"dyn": LQRDynamics, "cost": LQRCost})
 
 
-def epoch_data_from_numpy(data, device="cpu",
+def epoch_data_from_numpy(data, device="cuda",
                           dtype=torch.float32) -> ADMMEpochData:
     return _record(ADMMEpochData, data, device, dtype)
 
@@ -114,7 +116,7 @@ def mpcc_normalization_from_numpy(norm) -> MPCCNormalization:
         for f in MPCCNormalization._fields))
 
 
-def mpcc_state_from_numpy(state, device="cpu", dtype=torch.float32,
+def mpcc_state_from_numpy(state, device="cuda", dtype=torch.float32,
                           batched: bool = False) -> MPCCState:
     """One race's state (``batched=False``, the JAX layout) becomes a batch
     of one; a state with a leading race axis keeps it."""

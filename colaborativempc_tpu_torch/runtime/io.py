@@ -1,9 +1,9 @@
 """Experiment IO: metrics accumulation, console progress, on-disk schema
 (PyTorch port; numpy only).
 
-Counterpart of ``colaborativempc_tpu/runtime/io.py`` without live plotting,
-writing the same schema as the JAX package and the reference, so the same
-post-processing reads both:
+Counterpart of ``colaborativempc_tpu/runtime/io.py``, writing the same
+schema as the JAX package and the reference, so the same post-processing
+reads both:
 
 - per-agent tables under ``<path>/csv/<agent_id>/``: ``states.dat``,
   ``u.dat``, ``plan_dist.dat``, ``time.dat``, ``OCD_it.dat`` and
@@ -16,7 +16,8 @@ post-processing reads both:
   (``utilities/misc.py:264-275``).
 
 The experiment runners call ``update`` with one fleet's state and metrics
-as numpy arrays.
+as numpy arrays. ``live_plot_every=k`` refreshes ``<path>/live.png`` every
+k control steps (the reference's online plot, headless).
 """
 
 from __future__ import annotations
@@ -37,11 +38,14 @@ class ExperimentIO:
     ``io`` argument: ``update(it, state, metrics, step_time)`` once per
     control step."""
 
-    def __init__(self, cfg, path: Optional[str] = None):
+    def __init__(self, cfg, path: Optional[str] = None,
+                 live_plot_every: int = 0):
         self.cfg = cfg
         self.path = path if path is not None else cfg.path
         self.verb = cfg.verb
         self.n_agents = cfg.n_agents
+        self.live_plot_every = live_plot_every
+        self._track = None
         self.states = [[] for _ in range(cfg.n_agents)]
         self.inputs = [[] for _ in range(cfg.n_agents)]
         self.look_ahead = [[] for _ in range(cfg.n_agents)]
@@ -81,6 +85,17 @@ class ExperimentIO:
         if self.verb >= 2 and hasattr(metrics, "min_dist_exec"):
             print(f"         min_dist_exec={float(metrics.min_dist_exec):.3f}"
                   f" feasible={np.asarray(metrics.feasible)}")
+        if self.live_plot_every and (it + 1) % self.live_plot_every == 0:
+            self._render_live()
+
+    def _render_live(self):
+        """Plotting is host work: the track is built once on the CPU."""
+        from colaborativempc_tpu_torch.geometry import make_track
+        from colaborativempc_tpu_torch.runtime.plotting import plot_experiment
+        if self._track is None:
+            self._track = make_track(self.cfg.map_type, device="cpu")
+        states = np.stack([np.asarray(s) for s in zip(*self.states)], axis=0)
+        plot_experiment(self._track, states, path=self.path, name="live.png")
 
     def save_to_csv(self):
         def put(d, name, rows):

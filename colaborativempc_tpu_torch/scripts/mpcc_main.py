@@ -1,16 +1,17 @@
 """MPCC closed-loop racing experiment (reference
 ``Matlab-tests/MPCC-master/C++/main.cpp:30-86``); the port of the JAX
-package's ``scripts/mpcc_main.py`` without plotting.
+package's ``scripts/mpcc_main.py``.
 
     python -m colaborativempc_tpu_torch.scripts.mpcc_main
         [--config Params/config.json] [--map oval_mt | --track-json track.json]
         [--N 20] [--steps 400] [--laps 1] [--out data/mpcc] [--no-normalize]
-        [--device cuda]
+        [--plot] [--device cuda]
 
 ``--config`` takes the reference's master ``config.json`` layout or the
-flat JSON schema (``planners/mpcc.py mpcc_config_from_json``). ``--device``
-defaults to ``cuda`` and raises when there is no card; ``--device cpu``
-runs on the CPU.
+flat JSON schema (``planners/mpcc.py mpcc_config_from_json``). ``--plot``
+writes the trajectory figure under the run's path (it needs matplotlib,
+checked before the run). ``--device`` defaults to ``cuda`` and raises when
+there is no card; ``--device cpu`` runs on the CPU.
 """
 
 import argparse
@@ -37,6 +38,7 @@ def main(argv=None):
                     "T_x/T_u normalisation, params.h:31-58)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--save", action="store_true")
+    ap.add_argument("--plot", action="store_true")
     ap.add_argument("--verb", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda, which raises without "
@@ -44,6 +46,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     from colaborativempc_tpu_torch.utils import resolve_device
     device = resolve_device(args.device)
+    from colaborativempc_tpu_torch.runtime import plotting
+    if args.plot:
+        plotting.require_matplotlib("leave out --plot to run without it")
 
     from colaborativempc_tpu_torch.planners.mpcc import (
         MPCCConfig, mpcc_config_from_json,
@@ -80,6 +85,9 @@ def main(argv=None):
 
     track = load_mpcc_track(cfg, device=device)
     res = run_mpcc_experiment(cfg, track=track, device=device)
+
+    if args.plot:
+        plotting.plot_experiment(track, res.states[:, None, :], path=cfg.path)
     warm = res.step_times[3:] if len(res.step_times) > 3 else res.step_times
     lap = f" lap_time={res.lap_time:.2f}s" if res.lap_time else ""
     print(f"steps={res.steps} finished={res.finished} "

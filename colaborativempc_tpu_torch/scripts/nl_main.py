@@ -1,15 +1,18 @@
 """Distributed NL-OCD collaborative-MPC experiment (reference
 ``planner/scripts/NL_EU_N_main.py`` / ``NL_HP_N_main.py`` with
 ``config_files/config_NL.py``); the port of the JAX package's
-``scripts/nl_main.py`` without plotting.
+``scripts/nl_main.py``.
 
     python -m colaborativempc_tpu_torch.scripts.nl_main [--coupling eu|hp|hp_opt]
         [--agents 3] [--N 20] [--steps 1500] [--out data/NL_3agents_eu]
-        [--lambdas data/NL_3agents_eu/pck/ini_lambdas.pkl] [--device cuda]
+        [--lambdas data/NL_3agents_eu/pck/ini_lambdas.pkl] [--no-plot]
+        [--device cuda]
 
-Writes the reference's csv/pck schema under ``--out`` and prints a summary
-line. ``--device`` defaults to ``cuda`` and raises when there is no card;
-``--device cpu`` runs on the CPU.
+Writes the reference's csv/pck schema under ``--out``, the trajectory and
+performance figures (skipped with ``--no-plot``, for a machine without
+matplotlib; without it the script checks for matplotlib before the run)
+and prints a summary line. ``--device`` defaults to ``cuda`` and raises
+when there is no card; ``--device cpu`` runs on the CPU.
 """
 
 import argparse
@@ -38,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--lane", type=int, default=0)
     ap.add_argument("--dynamic-lane", action="store_true",
                     help="per-step lane re-selection (reference checkLane)")
+    ap.add_argument("--no-plot", action="store_true",
+                    help="write no figures (no matplotlib needed)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda, which raises without "
                     "a card; --device cpu runs on the CPU)")
@@ -45,10 +50,14 @@ def main(argv=None):
     out = args.out or f"data/NL_{args.agents}agents_{args.coupling}"
     from colaborativempc_tpu_torch.utils import resolve_device
     device = resolve_device(args.device)
+    from colaborativempc_tpu_torch.runtime import plotting
+    if not args.no_plot:
+        plotting.require_matplotlib("pass --no-plot to run without plots")
 
     from colaborativempc_tpu_torch.config import (
         ExperimentConfig, OCDConfig, SolverConfig, nl_gains,
     )
+    from colaborativempc_tpu_torch.geometry import make_track
     from colaborativempc_tpu_torch.runtime import (
         ExperimentIO, load_lambdas, run_nl_experiment,
     )
@@ -65,6 +74,11 @@ def main(argv=None):
     io = ExperimentIO(cfg)
     res = run_nl_experiment(cfg, lambdas0=lam0, io=io, device=device)
     io.save_all(lambdas=res.lambdas)
+
+    if not args.no_plot:
+        track = make_track(cfg.map_type, device="cpu")
+        plotting.plot_experiment(track, res.states, path=out)
+        plotting.plot_performance(res.states, cfg.dt, path=out)
     warm = res.step_times[3:] if len(res.step_times) > 3 else res.step_times
     print(f"steps={res.steps} finished={res.finished} "
           f"feasible={res.feasible.all()} "

@@ -63,9 +63,9 @@ def test_batched_nl_rollout_reproduces_standalone_fleets():
         states = [jocd.init_nl_fleet(jt, jc, x) for x in x0s]
         refs = [roll(s) for s in states]
         batch = jax.tree.map(lambda *a: jnp.stack(a), *states)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     fin, (xh, _, m) = tocd.make_nl_ocd_rollout(tt, tc, steps)(
-        interop.ocd_state_from_numpy(batch, dtype=F64))
+        interop.ocd_state_from_numpy(batch, dtype=F64, device="cpu"))
     its = m.ocd_iterations.numpy()
     for b, (jfin, (jxh, _, jm)) in enumerate(refs):
         np.testing.assert_array_equal(its[b], np.asarray(jm.ocd_iterations))
@@ -86,7 +86,7 @@ def test_nl_battery_matches_jax():
         jt = j_make_track("Highway", dtype=jnp.float64)
         ref = jbat.run_nl_battery(jc, jbat.gain_grid(jcfg.nl_gains(), **kw),
                                   steps=steps, track=jt)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     grid = tbat.gain_grid(tcfg.nl_gains(), **kw)
     got = tbat.run_nl_battery(tc, grid, steps=steps, track=tt, device="cpu")
     assert got.n_configs == len(grid) == 8
@@ -116,7 +116,7 @@ def test_lpv_battery_matches_jax():
                                    steps=3, track=jt)
     got = tbat.run_lpv_battery(tc, tbat.gain_grid(tcfg.lpv_gains(), **kw),
                                steps=3,
-                               track=interop.track_from_numpy(jt, dtype=F64),
+                               track=interop.track_from_numpy(jt, dtype=F64, device="cpu"),
                                device="cpu")
     np.testing.assert_array_equal(got.feasible, ref.feasible)
     for f in ("states", "min_dist_exec", "progress"):

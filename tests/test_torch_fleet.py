@@ -83,8 +83,8 @@ def test_build_lpv_qp_matches_jax():
         ref = jax.jit(jax.vmap(lambda l, xl, ul, pl, w: jlpv.build_lpv_qp(
             jt, jc.gains, l, jc.model, jc.N, jc.dt, xl, ul, pl, w)))(
                 lim, st.x_pred, st.u_pred, planes, weights)
-    tt = interop.track_from_numpy(jt, dtype=F64)
-    fs = interop.fleet_state_from_numpy(st, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
+    fs = interop.fleet_state_from_numpy(st, dtype=F64, device="cpu")
     tneigh = torch.tensor(np.asarray(neigh))
     tpl = tplanes.compute_hyperplanes(fs.x_pred[:, :tc.N, 7:9],
                                       tneigh[:, :tc.N])
@@ -93,7 +93,7 @@ def test_build_lpv_qp_matches_jax():
         tsim._per_agent_limits(tc, "cpu").min_dist[:, None, None])
     close(tpl, planes, 1e-9)
     close(tw, weights, 1e-9)
-    qp = tlpv.build_lpv_qp(tt, interop.gains_from_numpy(jc.gains, dtype=F64),
+    qp = tlpv.build_lpv_qp(tt, interop.gains_from_numpy(jc.gains, dtype=F64, device="cpu"),
                            tsim._per_agent_limits(tc, "cpu"), tc.model, tc.N,
                            tc.dt, fs.x_pred, fs.u_pred, tpl, tw)
     got, want = interop.stage_qp_to_numpy(qp), ref
@@ -123,8 +123,8 @@ def test_lpv_solve_matches_jax(n_agents):
         ref = jax.jit(jax.vmap(one))(
             lim, st.x0, st.x_pred, st.u_pred, st.u_old, st.w, st.y,
             st.rho_scale, neigh if n_agents > 1 else jnp.zeros(n_agents))
-    tt = interop.track_from_numpy(jt, dtype=F64)
-    fs = interop.fleet_state_from_numpy(st, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
+    fs = interop.fleet_state_from_numpy(st, dtype=F64, device="cpu")
     got = tlpv.lpv_solve(
         tt, tc.gains, tsim._per_agent_limits(tc, "cpu"), tc.model, tc.N,
         tc.dt, fs.x0, fs.x_pred, fs.u_pred, fs.u_old,
@@ -184,7 +184,7 @@ def test_safety_layer_matches_jax():
             w=jnp.ones((3, 4, jc.N, 7)), y=jnp.ones((3, 4, jc.N, 7)))
         ref_esc = jax.jit(lambda s, ln: jsim.escalate_holds(jt, jc, s, ln))(
             st, jnp.asarray(lanes))
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     wall = tsim.lateral_wall(tt, tc, torch.tensor(x_cur),
                              torch.tensor(x_cand), torch.tensor(lanes))
     close(wall[0], ref_wall[0], 1e-9)
@@ -196,7 +196,7 @@ def test_safety_layer_matches_jax():
     assert float(filt[1].min()) < 1.0            # the filter binds
     close(tsim.hold_vx_scale(tc, torch.tensor(counts), F64), ref_vx, 0)
     esc = tsim.escalate_holds(tt, tc, interop.fleet_state_from_numpy(
-        st, dtype=F64), torch.tensor(lanes))
+        st, dtype=F64, device="cpu"), torch.tensor(lanes))
     for f in tsim.FleetState._fields:
         close(getattr(esc, f), getattr(ref_esc, f), 1e-9)
 
@@ -239,9 +239,9 @@ def _rollouts(dtype_name, B=2, steps=3, N=8, iters=100, **kw):
         else:
             ref = jax.vmap(jsim.make_lpv_fleet_rollout(jt, jc, steps))(st)
     tdt = F64 if dtype_name == "float64" else F32
-    tt = interop.track_from_numpy(jt, dtype=tdt)
+    tt = interop.track_from_numpy(jt, dtype=tdt, device="cpu")
     got = tsim.make_lpv_fleet_rollout(tt, tc, steps)(
-        interop.fleet_state_from_numpy(st, dtype=tdt))
+        interop.fleet_state_from_numpy(st, dtype=tdt, device="cpu"))
     return got, ref
 
 
@@ -290,8 +290,8 @@ def test_fleet_entry_points_batch_and_refuse_unported_paths():
             jt, jst = jax_fleet(jc, seed=9)
             ref, jm = jsim.make_lpv_fleet_step(jt, jc)(jst)
         got, m = tsim.make_lpv_fleet_step(
-            interop.track_from_numpy(jt, dtype=F64), tc)(batch_fleet_state(
-                interop.fleet_state_from_numpy(jst, dtype=F64), 1,
+            interop.track_from_numpy(jt, dtype=F64, device="cpu"), tc)(batch_fleet_state(
+                interop.fleet_state_from_numpy(jst, dtype=F64, device="cpu"), 1,
                 device="cpu"))
         close(got.x_pred[0], ref.x_pred, 1e-6)
         np.testing.assert_array_equal(m.iterations[0].numpy(),
@@ -320,7 +320,7 @@ def test_lateral_wall_s_clamp_defect_pinned():
     ref_x, ref_c = jsim.lateral_wall(jt, jc, jnp.asarray(x_cur),
                                      jnp.asarray(x_cand),
                                      jnp.zeros(1, jnp.int32))
-    tt = interop.track_from_numpy(jt, dtype=F32)
+    tt = interop.track_from_numpy(jt, dtype=F32, device="cpu")
     got_x, got_c = tsim.lateral_wall(tt, tc, torch.tensor(x_cur),
                                      torch.tensor(x_cand),
                                      torch.zeros(1, dtype=torch.int32))
@@ -363,8 +363,8 @@ def test_degraded_escape_finiteness_defect_pinned(monkeypatch):
     jam = np.array([0, jc.hold_exec_k, jc.hold_exec_k + 5], np.int32)
     st = jsim.init_lpv_fleet(jt, jc)._replace(jam_count=jnp.asarray(jam))
     ref, _ = jsim.make_lpv_fleet_step(jt, jc)(st)
-    tt = interop.track_from_numpy(jt, dtype=F32)
-    tst = batch_fleet_state(interop.fleet_state_from_numpy(st, dtype=F32), 1,
+    tt = interop.track_from_numpy(jt, dtype=F32, device="cpu")
+    tst = batch_fleet_state(interop.fleet_state_from_numpy(st, dtype=F32, device="cpu"), 1,
                             device="cpu")
     got, _ = tsim.make_lpv_fleet_step(tt, tc)(tst)
     adopted = np.array([False, True, True])

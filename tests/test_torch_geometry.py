@@ -55,7 +55,7 @@ def jax_track(name):
 def test_make_track_matches_jax(name):
     jt = jax_track(name)
     tt = ttracks.make_track(name, device="cpu", dtype=F64)
-    carried = interop.track_from_numpy(jt, dtype=F64)
+    carried = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     for f in ttracks.Track._fields:
         close(getattr(tt, f), getattr(jt, f), atol=0)
         close(getattr(carried, f), getattr(jt, f), atol=0)
@@ -67,7 +67,7 @@ def test_make_track_matches_jax(name):
 @pytest.mark.parametrize("name", TRACKS)
 def test_track_lookups_match_jax(name):
     jt = jax_track(name)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     rng = np.random.default_rng(5)
     for lane in range(jt.n_lanes):
         L = float(jt.track_length[lane])
@@ -99,7 +99,7 @@ def test_per_agent_lane_tensor_matches_jax():
     per-agent lanes); padded +inf s0 rows of the shorter lane are never
     selected."""
     jt = jax_track("Oval2")
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     rng = np.random.default_rng(6)
     lanes = np.array([0, 1, 1, 0, 1])
     s = rng.uniform(-1.0, 60.0, size=(5, 7))
@@ -146,7 +146,7 @@ def test_cartesian_to_frenet_matches_jax(lane):
     """Every segment scored at once, nearest valid |ey| wins, the
     (1e4, 1e4, 1e4, False) sentinel off the lane; float64 within 1e-9."""
     jt, x, _ = oval2_poses(np.random.default_rng(10 + lane))
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     with x64_island():
         ref = jax.vmap(lambda a, b, c: jfrenet.cartesian_to_frenet(
             jt, a, b, c, lane=lane))(*(jnp.asarray(x[:, i]) for i in (7, 8, 5)))
@@ -165,7 +165,7 @@ def test_lane_selection_and_relocalisation_match_jax():
     ``select_lane``, elementwise; float64 within 1e-9, lanes equal."""
     rng = np.random.default_rng(12)
     jt, x, src = oval2_poses(rng)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     new = rng.integers(0, 2, size=len(src)).astype(np.int32)
     with x64_island():
         a = {i: jnp.asarray(x[:, i]) for i in (5, 7, 8)}
@@ -260,7 +260,7 @@ def test_lpv_dynamics_match_jax():
 @pytest.mark.parametrize("name", ["Highway", "oval"])
 def test_warmstart_matches_jax(name):
     jt = jax_track(name)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     rng = np.random.default_rng(9)
     x0s = np.array([[1.3, -0.16, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0],
                     [1.3, -0.16, 0.0, -0.25, 0.0, 0.0, 0.0, 0.0, 1.0],
@@ -291,28 +291,67 @@ def test_cuda_request_without_card_raises():
         ttracks.make_track("Highway", device="cuda")
 
 
-def test_port_imports_without_jax():
-    """The port never imports JAX or the JAX package: with ``jax`` blocked
-    in ``sys.modules`` every port module still imports."""
+SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
+           "lpv_main", "experiment_battery", "stress_study", "eval_lpv_model",
+           "compare_reference", "eval_exp", "paper_figs", "show_maps",
+           "test_planes"]
+# the scripts that compute (and so run on the card): they must import
+# where matplotlib is missing, as on the card's machine
+COMPUTE_SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
+                   "lpv_main", "experiment_battery", "stress_study",
+                   "eval_lpv_model", "compare_reference"]
+
+
+def _import_blocked(blocked, modules, checks=""):
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import colaborativempc_tpu_torch as p\n"
-        "import colaborativempc_tpu_torch.runtime, "
-        "colaborativempc_tpu_torch.parallel, "
-        "colaborativempc_tpu_torch.interop, "
-        "colaborativempc_tpu_torch.ops._build, "
-        "colaborativempc_tpu_torch.scripts.mpcc_main\n"
-        "assert not any(m == 'colaborativempc_tpu' or "
+        "import sys\n"
+        + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
+        + "import colaborativempc_tpu_torch as p\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + "assert not any(m == 'colaborativempc_tpu' or "
         "m.startswith('colaborativempc_tpu.') for m in sys.modules)\n"
-        "import torch\n"
-        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
-        "assert torch.get_float32_matmul_precision() == 'highest'\n"
-        "print('ok')\n")
+        + checks + "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_imports_without_jax():
+    """The port never imports JAX or the JAX package: with ``jax`` blocked
+    in ``sys.modules`` every port module still imports."""
+    _import_blocked(
+        ["jax"],
+        ["colaborativempc_tpu_torch.runtime",
+         "colaborativempc_tpu_torch.runtime.plotting",
+         "colaborativempc_tpu_torch.parallel",
+         "colaborativempc_tpu_torch.interop",
+         "colaborativempc_tpu_torch.ops._build",
+         "colaborativempc_tpu_torch.utils.rollout"]
+        + [f"colaborativempc_tpu_torch.scripts.{s}" for s in SCRIPTS],
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.get_float32_matmul_precision() == 'highest'\n")
+
+
+def test_runtime_and_compute_scripts_import_without_matplotlib():
+    """The card's machine has no matplotlib: the runtime (plotting module
+    included) and every compute script import without it, and asking
+    for plots fails before a run with a message naming ``--no-plot``."""
+    _import_blocked(
+        ["jax", "matplotlib"],
+        ["colaborativempc_tpu_torch.runtime",
+         "colaborativempc_tpu_torch.runtime.plotting"]
+        + [f"colaborativempc_tpu_torch.scripts.{s}" for s in COMPUTE_SCRIPTS],
+        "assert sys.modules['matplotlib'] is None\n"
+        "from colaborativempc_tpu_torch.runtime import plotting\n"
+        "try:\n"
+        "    plotting.require_matplotlib('pass --no-plot')\n"
+        "except RuntimeError as e:\n"
+        "    assert '--no-plot' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('no error without matplotlib')\n")
 
 
 def test_port_sources_never_import_jax():

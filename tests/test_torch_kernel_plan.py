@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from colaborativempc_tpu_torch import config as tcfg
+from colaborativempc_tpu_torch import interop
 from colaborativempc_tpu_torch.ops import (
     LQRCost, LQRDynamics, StageQP, admm_epoch_inputs, cuda_lqr,
 )
@@ -34,7 +35,10 @@ from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig, MPCCGains
 from colaborativempc_tpu_torch.runtime import (
     battery, ocd, racing, simulate,
 )
-from colaborativempc_tpu_torch.scripts import monte_carlo, mpcc_main, nl_main
+from colaborativempc_tpu_torch.scripts import (
+    compare_reference, eval_lpv_model, experiment_battery, lpv_main,
+    monte_carlo, mpcc_main, nl_main, stress_study,
+)
 
 F64 = torch.float64
 
@@ -102,15 +106,38 @@ BUILDERS = {
     "fit_centerline": lambda tmp: spline.fit_centerline(
         2 * np.cos(np.linspace(0, 6, 50)), 2 * np.sin(np.linspace(0, 6, 50))),
     "track_from_json": lambda tmp: spline.track_from_json(_track_json(tmp)),
+    # the interop converters, fed the port's own records as numpy
+    "track_from_numpy": lambda tmp: interop.track_from_numpy(
+        interop.to_numpy(_cpu_track())),
+    "gains_from_numpy": lambda tmp: interop.gains_from_numpy(
+        tcfg.lpv_gains()),
+    "fleet_state_from_numpy": lambda tmp: interop.fleet_state_from_numpy(
+        interop.to_numpy(simulate.init_lpv_fleet(
+            _cpu_track(), _cfg(tcfg.lpv_gains()), device="cpu"))),
+    "ocd_state_from_numpy": lambda tmp: interop.ocd_state_from_numpy(
+        interop.to_numpy(ocd.init_nl_fleet(
+            _cpu_track(), _cfg(tcfg.nl_gains()), device="cpu"))),
+    "stage_qp_from_numpy": lambda tmp: interop.stage_qp_from_numpy(
+        interop.to_numpy(random_qps(0, P=1, N=3)[0])),
+    "epoch_data_from_numpy": lambda tmp: interop.epoch_data_from_numpy(
+        interop.to_numpy(admm_epoch_inputs(random_qps(0, P=1, N=3)[0]))),
+    "mpcc_state_from_numpy": lambda tmp: interop.mpcc_state_from_numpy(
+        interop.to_numpy(racing.init_mpcc(
+            make_track("oval_mt", device="cpu"), MPCCConfig(N=6),
+            device="cpu")), batched=True),
 }
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
 def test_builder_defaults_to_cuda_and_raises_without_a_card(
         name, monkeypatch, tmp_path):
-    """The builders a user starts from place their tensors on the card
+    """The builders a user starts from, and the converters that carry a
+    state across from the JAX package, place their tensors on the card
     unless asked for the CPU, and raise without one."""
     build = BUILDERS[name]
+    if name.endswith("_from_numpy"):
+        fn = getattr(interop, name)
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build(tmp_path)
@@ -119,14 +146,24 @@ def test_builder_defaults_to_cuda_and_raises_without_a_card(
 @pytest.mark.parametrize("script,argv", [
     (monte_carlo, ["--pipeline", "nl", "--scenarios", "2", "--agents", "2",
                    "--N", "6", "--steps", "1"]),
-    (nl_main, ["--agents", "2", "--N", "6", "--steps", "1", "--verb", "0"]),
-    (mpcc_main, ["--N", "6", "--steps", "1", "--verb", "0"]),
+    (nl_main, ["--agents", "2", "--N", "6", "--steps", "1", "--verb", "0",
+               "--out", "{out}"]),
+    (mpcc_main, ["--N", "6", "--steps", "1", "--verb", "0", "--out",
+                 "{out}", "--save"]),
+    (lpv_main, ["--agents", "2", "--N", "6", "--steps", "1", "--verb", "0",
+                "--out", "{out}"]),
+    (experiment_battery, ["--pipeline", "lpv", "--agents", "2", "--N", "6",
+                          "--steps", "1"]),
+    (stress_study, ["latency", "--n", "6", "--steps", "1"]),
+    (eval_lpv_model, ["{out}"]),
+    (compare_reference, ["--ref", "{out}", "--steps", "1"]),
 ])
 def test_script_main_defaults_to_cuda_and_raises_without_a_card(
         script, argv, monkeypatch, tmp_path):
+    """Every compute script runs on the card unless given --device cpu,
+    and raises without one before it writes anything."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    if script is nl_main:
-        argv = argv + ["--out", str(tmp_path / "out")]
+    argv = [a.replace("{out}", str(tmp_path / "out")) for a in argv]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         script.main(argv)
     assert not (tmp_path / "out").exists()

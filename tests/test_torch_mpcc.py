@@ -52,7 +52,7 @@ def jdtype(dtype):
 def tracks(name="oval_mt", dtype=F64):
     with x64_island():
         jt = j_make_track(name, dtype=jdtype(dtype))
-    return jt, interop.track_from_numpy(jt, dtype=dtype)
+    return jt, interop.track_from_numpy(jt, dtype=dtype, device="cpu")
 
 
 def race_configs(**kw):
@@ -183,7 +183,7 @@ def test_mpcc_solve_matches_jax(normalize, assoc):
         tn = None if norm is None else interop.mpcc_normalization_from_numpy(
             norm)
         got = tmpcc.mpcc_solve(
-            interop.track_from_numpy(jt, dtype=dtype),
+            interop.track_from_numpy(jt, dtype=dtype, device="cpu"),
             interop.mpcc_gains_from_numpy(jmpcc.MPCCGains()),
             interop.pacejka_from_numpy(JP), N, dt,
             *(torch.tensor(v, dtype=dtype) for v in (x0, xb, ub, uo)),
@@ -213,9 +213,9 @@ def test_race_from_cold_start_matches_jax():
         st = jax_state(jc, jt, F64)
         jfin, jm = jrace.make_mpcc_rollout(jt, jc, steps)(st)
         jfin, jm = jax.tree.map(np.asarray, (jfin, jm))
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     fin, m = trace.make_mpcc_rollout(tt, tc, steps)(
-        interop.mpcc_state_from_numpy(st, dtype=F64))
+        interop.mpcc_state_from_numpy(st, dtype=F64, device="cpu"))
     for f in ("x", "x_bar", "u_bar", "u_old", "w", "y"):
         close(getattr(fin, f)[0], getattr(jfin, f), 1e-6)
     for f in ("iterations", "feasible", "reset", "sqp_fails"):
@@ -242,11 +242,11 @@ def test_failure_reset_path_matches_jax():
         for _ in range(4):
             st, jm = jstep(st)
             jtrace.append(jax.tree.map(np.asarray, (st, jm)))
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     tstep = trace.make_mpcc_step(tt, tc)
     with x64_island():
         tst = interop.mpcc_state_from_numpy(jax_state(jc, jt, F64),
-                                            dtype=F64)
+                                            dtype=F64, device="cpu")
     for _ in range(3):
         tst, _ = tstep(tst)
     tst = tst._replace(x_bar=tst.x_bar * torch.nan)
@@ -279,7 +279,7 @@ def test_mpcc_battery_matches_jax_and_standalone_races():
     steps = 10
     with x64_island():
         jt = j_make_track("oval_mt", dtype=jnp.float64)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     st0 = interop.to_numpy(trace.init_mpcc(tt, tc, races=4, dtype=F64,
                                            device="cpu"))
     with x64_island():

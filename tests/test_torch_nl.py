@@ -87,7 +87,7 @@ def test_linearize_horizon_matches_jax():
         ref = jax.jit(jax.vmap(lambda x, u, k: jnl._linearize_horizon(
             x, u, k, jc.dt, jc.model)))(jnp.asarray(xb),
                                         jnp.asarray(inp["u_bar"]), kap)
-    tt = interop.track_from_numpy(inp["track"], dtype=F64)
+    tt = interop.track_from_numpy(inp["track"], dtype=F64, device="cpu")
     x, u = torch.tensor(xb), torch.tensor(inp["u_bar"])
     got = tnl._linearize_horizon(x, u, curvature(tt, x[..., 6]), tc.dt,
                                  tc.model)
@@ -114,7 +114,7 @@ def test_build_nl_qp_matches_jax(coupling):
                                    coupling=coupling, planes0=pl)))(
             lim, *(jnp.asarray(inp[k]) for k in
                    ("x_bar", "u_bar", "lam", "neigh", "mmask", "planes")))
-    tt = interop.track_from_numpy(inp["track"], dtype=F64)
+    tt = interop.track_from_numpy(inp["track"], dtype=F64, device="cpu")
     qp = tnl.build_nl_qp(tt, tc.gains, tsim._per_agent_limits(tc, "cpu"),
                          tc.model, tc.N, tc.dt, coupling=coupling,
                          **torch_args(inp, F64))
@@ -146,10 +146,10 @@ def test_build_nl_qp_takes_per_problem_gains():
                                    jc.dt, xb, ub, lam, nb, mm)))(
             gstack, lim, *(jnp.asarray(inp[k]) for k in
                            ("x_bar", "u_bar", "lam", "neigh", "mmask")))
-    tt = interop.track_from_numpy(inp["track"], dtype=F64)
+    tt = interop.track_from_numpy(inp["track"], dtype=F64, device="cpu")
     gains = interop.gains_from_numpy(
         {f: np.stack([np.asarray(getattr(g, f)) for g in grid])
-         for f in ("q", "qs", "r", "dr", "wq")}, dtype=F64)
+         for f in ("q", "qs", "r", "dr", "wq")}, dtype=F64, device="cpu")
     assert tuple(gains.q.shape) == (3, 9)
     args = torch_args(inp, F64)
     args.pop("planes0")
@@ -175,7 +175,7 @@ def _solve_both(jc, tc, inp, tdt, admm_iters=100, sqp_iters=2):
                                else jnp.float32) for k in
                    ("x0", "x_bar", "u_bar", "u_old", "lam", "neigh")),
             jnp.asarray(inp["mmask"]), jnp.asarray(inp["planes"]))
-    tt = interop.track_from_numpy(inp["track"], dtype=tdt)
+    tt = interop.track_from_numpy(inp["track"], dtype=tdt, device="cpu")
     got = tnl.nl_solve(
         tt, tc.gains, tsim._per_agent_limits(tc, "cpu"), tc.model, tc.N,
         tc.dt, torch.tensor(inp["x0"], dtype=tdt),

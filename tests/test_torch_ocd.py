@@ -140,14 +140,14 @@ def jax_fleet(jc, seed):
 def step_both(jc, tc, seed, steps=2):
     with x64_island():
         jt, st = jax_fleet(jc, seed)
-        tst = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64),
+        tst = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64, device="cpu"),
                                 1, device="cpu")
         jstep = jocd.make_nl_ocd_step(jt, jc)
         refs = []
         for _ in range(steps):
             st, m = jstep(st)
             refs.append((st, m))
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     tstep = tocd.make_nl_ocd_step(tt, tc)
     gots = []
     for _ in range(steps):
@@ -203,9 +203,9 @@ def test_gauss_seidel_plane_slot_defect_pinned():
         core = jocd._build_ocd_core(jt, jc)
         ls = core[2](st)
         ref = core[1](ls, st.x0, st.u_old)
-    tt = interop.track_from_numpy(jt, dtype=F64)
+    tt = interop.track_from_numpy(jt, dtype=F64, device="cpu")
     tcore = tocd._build_ocd_core(tt, tc)
-    tstate = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64), 1,
+    tstate = batch_fleet_state(interop.ocd_state_from_numpy(st, dtype=F64, device="cpu"), 1,
                                device="cpu")
     tls = tcore.loop_init(tstate)
     got = tcore.iteration(tls, tstate.x0, tstate.u_old)
@@ -257,13 +257,13 @@ def test_nl_step_refuses_what_is_not_ported_or_unknown():
                 a[1, ..., 8] += np.cos(th)
             st = st._replace(x0=jnp.asarray(x0), x_pred=jnp.asarray(xp))
             tst = batch_fleet_state(interop.ocd_state_from_numpy(
-                st, dtype=F64), 1, device="cpu")
+                st, dtype=F64, device="cpu"), 1, device="cpu")
             jstep = jocd.make_nl_ocd_step(jt, jc)
             refs = []
             for _ in range(2):
                 st, m = jstep(st)
                 refs.append(jax.tree.map(np.asarray, (st, m)))
-        tstep = tocd.make_nl_ocd_step(interop.track_from_numpy(jt, dtype=F64),
+        tstep = tocd.make_nl_ocd_step(interop.track_from_numpy(jt, dtype=F64, device="cpu"),
                                       tc)
         for st, m in refs:
             tst, tm = tstep(tst)

@@ -69,7 +69,7 @@ def port_qp(p, dtype):
         dyn=dict(F=p["F"], G=p["G"], d=p["d"]),
         cost=dict(Q=p["Q"], q=p["q"], R=p["R"], r=p["r"], S=p["S"]),
         D=p["D"], E=p["E"], lo=p["lo"], hi=p["hi"],
-        soft_lo=p["soft"], soft_hi=p["soft"]), dtype=dtype)
+        soft_lo=p["soft"], soft_hi=p["soft"]), dtype=dtype, device="cpu")
 
 
 def test_lqr_factorize_and_affine_solve_match_jax():
@@ -168,7 +168,7 @@ def test_epoch_inputs_match_jax():
     for f in tlqr.LQRCost._fields:
         close(getattr(cost, f), getattr(ref_cost, f), 1e-8)
     back = interop.epoch_data_from_numpy(interop.epoch_data_to_numpy(got),
-                                         dtype=F64)
+                                         dtype=F64, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, got))
 
 
@@ -182,7 +182,7 @@ def test_plain_epoch_twin_matches_pallas_interpret():
     f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
     ref = j_epoch(data, f32(pb["z0"]), f32(w0), f32(y0), epoch_len=EL,
                   alpha=ALPHA, interpret=True)
-    tdata = interop.epoch_data_from_numpy(data, dtype=F32)
+    tdata = interop.epoch_data_from_numpy(data, dtype=F32, device="cpu")
     t32 = lambda a: torch.tensor(a, dtype=F32)  # noqa: E731
     before = cuda_lqr.admm_epoch_batched.launches
     got = cuda_lqr.admm_epoch_batched(tdata, t32(pb["z0"]), t32(w0),

@@ -59,7 +59,7 @@ def vmap2(f):
 def tracks(name="oval_mt", dtype=F64):
     with x64_island():
         jt = j_make_track(name, dtype=jdtype(dtype))
-    return jt, interop.track_from_numpy(jt, dtype=dtype)
+    return jt, interop.track_from_numpy(jt, dtype=dtype, device="cpu")
 
 
 @pytest.mark.parametrize("dtype,tol", [(F64, 1e-9), (F32, 1e-3)])
@@ -164,7 +164,7 @@ def test_project_on_spline_matches_jax(dtype, tol):
     with x64_island():
         jt = jspl.fit_centerline(x, y, halfwidth=0.4, n_segments=600,
                                  dtype=jdtype(dtype))
-    tt = interop.track_from_numpy(jt, dtype=dtype)
+    tt = interop.track_from_numpy(jt, dtype=dtype, device="cpu")
     L = float(jt.track_length[0])
     th = rng.uniform(0, 2 * np.pi, 24)
     r = 2.0 + rng.uniform(-0.3, 0.3, 24)

@@ -42,7 +42,7 @@ def test_check_end_matches_jax(track_name, laps):
     L = float(jt.track_length[0])
     s = np.array([0.0, L - 0.2, L - 0.1, L, L + 0.05, 1.5 * L, 2 * L - 0.1,
                   2 * L + 0.1, 3.2 * L], np.float32)
-    tt = interop.track_from_numpy(jt)
+    tt = interop.track_from_numpy(jt, device="cpu")
     np.testing.assert_array_equal(
         check_end(tt, torch.tensor(s), laps=laps).numpy(),
         np.asarray(j_check_end(jt, jnp.asarray(s), laps=laps)))
