@@ -78,11 +78,33 @@ each and the solver's epochs counted (launches must equal epochs):
    CPU writing states within 1e-3;
 18. ``stress_study`` at full width: ``latency --family nl-eu --n 125`` (the
    NL-OCD step at N=125) and ``perturbed --batched --family lpv --n 125``
-   (8 starts x 10 steps, chunks of 5);
+   (8 starts x 5 steps, one chunk); then the first perturbed step's 24
+   stage QPs solved by ``admm_solve`` with every epoch the kernel and with
+   every epoch the associative one, on the card: each problem's ADMM
+   iterations and the problems left above ``feas_tol`` (a record);
 19. ``experiment_battery --pipeline nl --horizons 20,40`` (12 fleets, 5
    steps per horizon) and ``--pipeline lpv`` (18 fleets, 10 steps);
 20. ``stress_study gs-tradeoff`` (N=20, 16 fleets, 8 steps): Jacobi against
    Gauss-Seidel, mean OCD iterations and fleet-steps/s.
+
+Phase 21 drives the sharded paths (``parallel/``):
+
+21. (a) over NCCL at world size 1, on a (1, 1) mesh: phase 4's LPV
+   rollout through ``make_sharded_lpv_rollout`` and phase 6's NL-OCD
+   Monte-Carlo through ``monte_carlo.setup(mesh=...)``, i.e.
+   ``make_sharded_nl_ocd_rollout``, from the same starts: launches equal
+   to the epochs, final states against phases 4 and 6 (bit for bit
+   expected; held to 1e-3), solves/s and fleet-steps/s of that one run
+   beside phases 4 and 6; (b) real
+   collectives on the one card: ranks that share it over gloo, each a
+   process of its own with a deadline, the LPV headline split (2, 1) for
+   3 steps and 16 NL hp_opt fleets split (1, 3), one agent per rank, for
+   2 steps, each gathered result within 1e-3 of the single-process
+   rollout from the same start, launches equal to each rank's epochs.
+
+Kernel times come from ``cuda_ms``: CUDA events around the calls, with a
+spin kernel queued first so that the host's queueing stays outside the
+window.
 
 The seconds of every phase are printed. No phase imports matplotlib.
 
@@ -160,13 +182,33 @@ def random_epoch_problems(rng, P, N, nz, nc, mr):
                 lo=lo, hi=hi, soft=soft, w0=w0, y0=y0, rho_scale=rho_scale)
 
 
+# clock cycles per second of torch.cuda._sleep's spin, at or above the
+# card's highest SM clock (1.98 GHz on the H100 SXM), so a spin of n cycles
+# lasts at least n / SPIN_CYCLES_PER_S seconds
+SPIN_CYCLES_PER_S = 2.0e9
+SPIN_MAX_S = 0.5
+
+
 def cuda_ms(fn, reps):
-    """Mean milliseconds per call over ``reps`` calls after one warm-up,
-    timed with CUDA events."""
+    """Mean device milliseconds per call over ``reps`` calls after one
+    warm-up, timed with CUDA events. A spin kernel (``torch.cuda._sleep``)
+    queued ahead of the calls keeps the card busy while the host queues
+    them, so the window between the events holds the device's work and not
+    the host's. The spin lasts twice the host's time to queue one call
+    times ``reps`` (at least 5 ms, at most SPIN_MAX_S). A call that queues
+    more launches than the card's queue holds (a plain twin's chain of
+    small ops) waits on the device while it queues, so its reading stays
+    the time of the chain with its host work."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = min(SPIN_MAX_S, max(0.005, 2.0 * host * reps))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -379,26 +421,34 @@ def check_nl_epoch(dev, coupling, reps, **pin):
     return out
 
 
-def count_solver_epochs(planner=None):
-    """Wrap a planner module's ``admm_solve`` (default: the NL planner's) so
-    each call adds the epochs it ran (its slowest problem's iterations over
-    the epoch length) to the returned list; ``restore()`` unwraps it."""
-    from colaborativempc_tpu_torch.ops.admm import default_epoch_len
-    if planner is None:
-        from colaborativempc_tpu_torch.planners import nl as planner
+def watch_solver(planner, record):
+    """Wrap a planner module's ``admm_solve`` so each call appends
+    ``record(qp, z0, kw, solution)`` to the returned list; ``restore()``
+    unwraps it."""
     orig = planner.admm_solve
-    epochs = []
+    out = []
 
-    def counting(qp, *args, **kw):
-        sol = orig(qp, *args, **kw)
-        el = kw.get("epoch_len") or default_epoch_len(qp.lo.shape[1])
-        epochs.append(int(sol.iterations.max()) // el)
+    def watched(qp, z0, **kw):
+        sol = orig(qp, z0, **kw)
+        out.append(record(qp, z0, kw, sol))
         return sol
 
     def restore():
         planner.admm_solve = orig
-    planner.admm_solve = counting
-    return epochs, restore
+    planner.admm_solve = watched
+    return out, restore
+
+
+def count_solver_epochs(planner=None):
+    """Watch a planner module's ``admm_solve`` (default: the NL planner's):
+    each call adds the epochs it ran (its slowest problem's iterations over
+    the epoch length) to the returned list."""
+    from colaborativempc_tpu_torch.ops.admm import default_epoch_len
+    if planner is None:
+        from colaborativempc_tpu_torch.planners import nl as planner
+    return watch_solver(planner, lambda qp, z0, kw, sol: int(
+        sol.iterations.max()) // (kw.get("epoch_len")
+                                  or default_epoch_len(qp.lo.shape[1])))
 
 
 def reset_launches():
@@ -424,7 +474,8 @@ NL_B, NL_STEPS = 64, 20
 
 def nl_main_path(dev, card):
     """Phase 6: the NL-OCD Monte-Carlo, once with the launch counters and
-    the solver's epochs counted, then timed as the best of 2 rollouts."""
+    the solver's epochs counted, then timed as the best of 2 rollouts.
+    Returns the record and the counted run's final state."""
     from colaborativempc_tpu_torch.ops import cuda_lqr
     from colaborativempc_tpu_torch.scripts import monte_carlo
     cfg, rollout, state0 = monte_carlo.setup(
@@ -468,26 +519,14 @@ def nl_main_path(dev, card):
           f"{out['min_dist_exec']:.4f} m, epoch-kernel launches "
           f"{launches['epoch']} over {len(epochs)} solver calls [{card}]",
           flush=True)
-    return out
+    return out, final
 
 
 def record_admm_iterations():
-    """Wrap the NL planner's ``admm_solve`` so each call appends its
-    problems' ADMM iteration counts (on the CPU) to the returned list;
-    ``restore()`` unwraps it."""
+    """Watch the NL planner's ``admm_solve``: each call appends its
+    problems' ADMM iteration counts (on the CPU) to the returned list."""
     from colaborativempc_tpu_torch.planners import nl
-    orig = nl.admm_solve
-    calls = []
-
-    def recording(qp, *args, **kw):
-        sol = orig(qp, *args, **kw)
-        calls.append(sol.iterations.cpu())
-        return sol
-
-    def restore():
-        nl.admm_solve = orig
-    nl.admm_solve = recording
-    return calls, restore
+    return watch_solver(nl, lambda qp, z0, kw, sol: sol.iterations.cpu())
 
 
 def nl_end_to_end(dev):
@@ -1351,12 +1390,66 @@ def lpv_cli(dev, card):
 
 
 NL125_STEPS = 2
-PERT_STARTS, PERT_STEPS, PERT_CHUNK = 8, 10, 5
+PERT_STARTS, PERT_STEPS, PERT_CHUNK = 8, 5, 5
+
+
+def assoc_admm_solve(qp, z0, **kw):
+    """``admm_solve`` with every epoch ``admm_epoch_assoc`` (the JAX XLA
+    epoch with the associative affine solve), on whatever device the
+    tensors are: ``admm_solve``'s own loop, with its refactorisation and
+    kernel pair swapped for the associative epoch for the call."""
+    from colaborativempc_tpu_torch.ops import admm
+    saved = admm.admm_epoch_inputs, admm.admm_epoch_batched
+
+    def inputs(qp, rho, rho_scale, reg):
+        return qp, rho, rho_scale, reg
+
+    def epoch(held, z0, w, y, epoch_len, alpha):
+        qp, rho, rho_scale, reg = held
+        return admm.admm_epoch_assoc(qp, z0, w, y, rho, rho_scale, reg,
+                                     epoch_len=epoch_len, alpha=alpha)
+    admm.admm_epoch_inputs, admm.admm_epoch_batched = inputs, epoch
+    try:
+        return admm.admm_solve(qp, z0, **kw)
+    finally:
+        admm.admm_epoch_inputs, admm.admm_epoch_batched = saved
+
+
+def kernel_vs_assoc(qp, z0, kw, card):
+    """Phase 18's convergence record: the first perturbed N=125 step's
+    stage QPs solved by ``admm_solve`` on the card (every epoch the
+    kernel) and with every epoch the associative one, on the card; each
+    problem's ADMM iterations and the problems left above ``feas_tol``."""
+    from colaborativempc_tpu_torch.ops import admm
+    out = {}
+    for name, solve in (("kernel", admm.admm_solve),
+                        ("assoc", assoc_admm_solve)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve(qp, z0, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            seconds=time.perf_counter() - t0,
+            iterations=sol.iterations.cpu().tolist(),
+            epochs=int(sol.iterations.max()) // kw["epoch_len"],
+            infeasible=int((~sol.feasible).sum()),
+            r_prim_max=float(sol.r_prim.max()))
+    k, a = out["kernel"], out["assoc"]
+    print(f"phase 18: first perturbed N=125 step, {qp.lo.shape[0]} stage QPs "
+          f"(iters {kw['iters']}, epoch {kw['epoch_len']}, eps {kw['eps']}): "
+          f"kernel {k['epochs']} epochs, {k['infeasible']} above feas_tol, "
+          f"iterations {k['iterations']} ({k['seconds']:.1f} s); assoc "
+          f"{a['epochs']} epochs, {a['infeasible']} above feas_tol, "
+          f"iterations {a['iterations']} ({a['seconds']:.1f} s) [{card}]",
+          flush=True)
+    return out
 
 
 def stress_full_width(dev, card):
     """Phase 18: ``stress_study latency`` of one NL-OCD fleet at N=125 and
-    ``perturbed --batched`` LPV at N=125."""
+    ``perturbed --batched`` LPV at N=125 (one chunk of 5 steps), then the
+    kernel against the associative epoch on the first perturbed step's
+    QPs."""
     from colaborativempc_tpu_torch.planners import lpv, nl
     from colaborativempc_tpu_torch.scripts import stress_study
     n, nl_steps = 125, NL125_STEPS
@@ -1368,11 +1461,16 @@ def stress_full_width(dev, card):
     if lat["steps"] != nl_steps or not np.isfinite(lat["s_final"]).all():
         fail(f"phase 18: NL latency ran {lat['steps']} steps, s_final "
              f"{lat['s_final']}")
-    pert, l_pert, s_pert = run_counted(
-        "phase 18 (perturbed --batched lpv)", lambda: stress_study.main(
-            ["perturbed", "--batched", "--family", "lpv", "--n", str(n),
-             "--starts", str(starts), "--steps", str(steps), "--chunk",
-             str(chunk)]), lpv)
+    solves, restore = watch_solver(
+        lpv, lambda qp, z0, kw, sol: (qp, z0, dict(kw)))
+    try:
+        pert, l_pert, s_pert = run_counted(
+            "phase 18 (perturbed --batched lpv)", lambda: stress_study.main(
+                ["perturbed", "--batched", "--family", "lpv", "--n", str(n),
+                 "--starts", str(starts), "--steps", str(steps), "--chunk",
+                 str(chunk)]), lpv)
+    finally:
+        restore()
     if pert["steps"] != steps or None in pert["min_dist_exec"]:
         fail(f"phase 18: perturbed ran {pert['steps']} steps, min_dist_exec "
              f"{pert['min_dist_exec']}")
@@ -1390,6 +1488,7 @@ def stress_full_width(dev, card):
           f"{pert['complete']} complete, "
           f"{out['launches_per_step_perturbed']:.1f} launches per step "
           f"[{card}]", flush=True)
+    out["kernel_vs_assoc"] = kernel_vs_assoc(*solves[0], card)
     return out
 
 
@@ -1442,6 +1541,262 @@ def gs_tradeoff(dev, card):
     return out
 
 
+LPV_B, LPV_STEPS = 256, 20
+GLOO_LPV_STEPS, GLOO_NL_B, GLOO_NL_STEPS = 3, 16, 2
+RANK_DEADLINE_S = 300.0
+
+
+def record_diff(a, b):
+    """Largest |difference| over the floating fields of two records (on
+    any devices), and the number of integer or boolean elements that
+    differ."""
+    dx, n_int = 0.0, 0
+    for x, y in zip(a, b):
+        x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+        if x.is_floating_point():
+            dx = max(dx, float((x.double() - y.double()).abs().max()))
+        else:
+            n_int += int((x != y).sum())
+    return dx, n_int
+
+
+EXCHANGE_REPS = 200
+
+
+def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
+                      phase6_fleet_steps_per_s):
+    """Phase 21 (a): the LPV headline (phase 4's config and start) and the
+    NL-OCD Monte-Carlo (phase 6's) through the sharded rollouts on a
+    (1, 1) mesh over NCCL, each run once: launches equal to the epochs the
+    solves ran, final states against phases 4 and 6 (bit for bit expected,
+    held to TOL_ROLLOUT), and the run's solves/s and fleet-steps/s printed
+    beside the rates of phases 4 and 6. The NL run's time includes the
+    epoch count's host read of each solve's iterations. Also the host
+    milliseconds of one exchange gather of the LPV plans and of one
+    all-reduce read back to the host (the OCD loop's running test), each
+    the mean of EXCHANGE_REPS calls ending in a synchronise."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from colaborativempc_tpu_torch.ops.admm import default_epoch_len
+    from colaborativempc_tpu_torch.parallel import (
+        gather_sharded, initialize_distributed, make_sharded_lpv_rollout,
+        shard_fleet_state,
+    )
+    from colaborativempc_tpu_torch.parallel.multihost import AgentExchange
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    cfg, track, state0 = fleet(dev, LPV_B)
+    tmp = tempfile.mkdtemp()
+    initialize_distributed(dev, init_method=f"file://{tmp}/rendezvous",
+                           rank=0, world_size=1,
+                           timeout=datetime.timedelta(minutes=5))
+    out = {}
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"phase 21 (a): backend {dist.get_backend()}, not nccl")
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("scen", "agent"))
+        roll = make_sharded_lpv_rollout(track, cfg, mesh, LPV_STEPS)
+        local = shard_fleet_state(state0, mesh)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, met = roll(local)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()["epoch"]
+        el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
+        epochs = int((met.iterations.amax(dim=(1, 2)) // el).sum())
+        if launches != epochs or epochs == 0:
+            fail(f"phase 21 (a) LPV: epoch kernel launched {launches} "
+                 f"times, the solves ran {epochs} epochs")
+        dx, n_int = record_diff(gather_sharded(final, mesh), lpv_ref)
+        if not (dx <= TOL_ROLLOUT and n_int == 0):
+            fail(f"phase 21 (a) LPV: final state vs phase 4 max |dx| {dx} "
+                 f"(tol {TOL_ROLLOUT}), {n_int} integer entries differ")
+        rate = LPV_B * cfg.n_agents * LPV_STEPS / secs
+        ex = AgentExchange(mesh)
+        xy = local.x_pred[..., 7:9]
+        flag = torch.ones(NL_B, dtype=torch.bool, device=dev)
+        exchange_ms = {}
+        for name, fn in (("gather_lpv_plans", lambda: ex.gather(xy)),
+                         ("all_reduce_read", lambda: ex.any_fleet(flag))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXCHANGE_REPS):
+                fn()
+            torch.cuda.synchronize()
+            exchange_ms[name] = ((time.perf_counter() - t0) * 1e3
+                                 / EXCHANGE_REPS)
+        out["lpv"] = dict(
+            card=card, fleets=LPV_B, steps=LPV_STEPS, mesh=[1, 1],
+            backend="nccl", seconds=secs, solves_per_s=rate,
+            solves_per_s_phase4=phase4_solves_per_s,
+            exchange_host_ms=exchange_ms, launches=launches, epochs=epochs,
+            max_abs_diff_vs_phase4=dx, bit_identical=dx == 0.0)
+        print(f"phase 21 (a): sharded LPV rollout on a (1, 1) NCCL mesh, "
+              f"B={LPV_B} x {LPV_STEPS} steps: {rate:.1f} solves/s (one "
+              f"run) beside phase 4's {phase4_solves_per_s:.1f}, one "
+              f"exchange gather of the plans "
+              f"{exchange_ms['gather_lpv_plans']:.3f} ms and one all-reduce "
+              f"read {exchange_ms['all_reduce_read']:.3f} ms on the host, "
+              f"epoch-kernel launches {launches} = epochs; final state vs "
+              f"phase 4 max |dx| {dx:.3g} (bit for bit: {dx == 0.0}) "
+              f"[{card}]", flush=True)
+
+        _, roll_nl, local_nl = monte_carlo.setup(
+            "nl", scenarios=NL_B, agents=3, N=20, steps=NL_STEPS, device=dev,
+            mesh=mesh)
+        epochs_nl, restore = count_solver_epochs()
+        reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin_nl, met_nl = roll_nl(local_nl)
+            torch.cuda.synchronize()
+            secs_nl = time.perf_counter() - t0
+        finally:
+            restore()
+        launches_nl = read_launches()
+        check_epoch_launches("phase 21 (a) NL", launches_nl, epochs_nl)
+        dx_nl, n_int_nl = record_diff(gather_sharded(fin_nl, mesh), nl_ref)
+        if not (dx_nl <= TOL_ROLLOUT and n_int_nl == 0):
+            fail(f"phase 21 (a) NL: final state vs phase 6 max |dx| {dx_nl} "
+                 f"(tol {TOL_ROLLOUT}), {n_int_nl} integer entries differ")
+        rate_nl = NL_B * NL_STEPS / secs_nl
+        out["nl"] = dict(
+            card=card, fleets=NL_B, steps=NL_STEPS, mesh=[1, 1],
+            backend="nccl", seconds=secs_nl, fleet_steps_per_s=rate_nl,
+            fleet_steps_per_s_phase6=phase6_fleet_steps_per_s,
+            launches=launches_nl["epoch"], epochs=sum(epochs_nl),
+            mean_ocd_iterations=float(met_nl.ocd_iterations.float().mean()),
+            max_abs_diff_vs_phase6=dx_nl, bit_identical=dx_nl == 0.0)
+        print(f"phase 21 (a): sharded NL-OCD rollout on a (1, 1) NCCL mesh, "
+              f"B={NL_B} x {NL_STEPS} steps: {rate_nl:.2f} fleet-steps/s "
+              f"(one run, epochs counted) beside phase 6's "
+              f"{phase6_fleet_steps_per_s:.2f}, mean OCD iterations "
+              f"{out['nl']['mean_ocd_iterations']:.2f}, epoch-kernel "
+              f"launches {launches_nl['epoch']} = epochs; final state vs "
+              f"phase 6 max |dx| {dx_nl:.3g} (bit for bit: {dx_nl == 0.0}) "
+              f"[{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _gloo_card_rank(rank, world, rdv, case, device, fleets, steps):
+    """One rank of phase 21 (b), sharing card 0 with its siblings over
+    gloo (``device`` is ``cuda``): ``lpv``, the headline config with
+    ``fleets`` fleets on a (2, 1) mesh, or ``nl_hp_opt`` (``fleets``
+    fleets, hp_opt, Jacobi) on a (1, 3) mesh, one agent per rank, for
+    ``steps`` steps. Returns the gathered final state, this rank's epoch
+    launches and its solves' epochs."""
+    import datetime
+    from torch.distributed.device_mesh import init_device_mesh
+    from colaborativempc_tpu_torch.ops.admm import default_epoch_len
+    from colaborativempc_tpu_torch.parallel import (
+        gather_sharded, initialize_distributed, make_sharded_lpv_rollout,
+        shard_fleet_state,
+    )
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    from colaborativempc_tpu_torch.utils import synchronize
+    dev = initialize_distributed(device, init_method=rdv, rank=rank,
+                                 world_size=world, backend="gloo",
+                                 timeout=datetime.timedelta(minutes=4))
+    reset_launches()
+    if case == "lpv":
+        mesh = init_device_mesh(dev.type, (2, 1),
+                                mesh_dim_names=("scen", "agent"))
+        cfg, track, state0 = fleet(dev, fleets)
+        final, met = make_sharded_lpv_rollout(track, cfg, mesh, steps)(
+            shard_fleet_state(state0, mesh))
+        el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
+        epochs = int((met.iterations.amax(dim=(1, 2)) // el).sum())
+    else:
+        mesh = init_device_mesh(dev.type, (1, 3),
+                                mesh_dim_names=("scen", "agent"))
+        _, roll, local = monte_carlo.setup(
+            "nl", scenarios=fleets, agents=3, N=20, steps=steps, device=dev,
+            coupling="hp_opt", mesh=mesh)
+        counted, restore = count_solver_epochs()
+        try:
+            final, met = roll(local)
+        finally:
+            restore()
+        epochs = sum(counted)
+    final = gather_sharded(final, mesh)
+    synchronize(dev)
+    return dict(final=[t.cpu().numpy() for t in final],
+                launches=read_launches()["epoch"], epochs=epochs)
+
+
+def sharded_gloo_on_card(dev, card):
+    """Phase 21 (b): real collectives on the one card: ranks that share
+    card 0 over gloo (each its own process, with a deadline), the LPV
+    headline split (2, 1) and an hp_opt NL batch split (1, 3), both at
+    once, each against the single-process rollout from the same start."""
+    from concurrent.futures import ThreadPoolExecutor
+    from colaborativempc_tpu_torch.parallel.multihost import run_local_ranks
+    from colaborativempc_tpu_torch.runtime import make_lpv_fleet_rollout
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    cfg, track, state0 = fleet(dev, LPV_B)
+    ref_lpv, _ = make_lpv_fleet_rollout(track, cfg, GLOO_LPV_STEPS)(state0)
+    _, roll, st = monte_carlo.setup(
+        "nl", scenarios=GLOO_NL_B, agents=3, N=20, steps=GLOO_NL_STEPS,
+        device=dev, coupling="hp_opt")
+    ref_nl, _ = roll(st)
+    cases = (("lpv", 2, [2, 1], ref_lpv, (LPV_B, GLOO_LPV_STEPS)),
+             ("nl_hp_opt", 3, [1, 3], ref_nl, (GLOO_NL_B, GLOO_NL_STEPS)))
+    out = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        # both cases' ranks run at once, each case its own process group
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(cases)) as pool:
+            runs = {case: pool.submit(
+                run_local_ranks, _gloo_card_rank, world,
+                (f"file://{tmp}/rendezvous_{case}", case, dev.type) + size,
+                timeout=RANK_DEADLINE_S)
+                for case, world, _, _, size in cases}
+        secs = time.perf_counter() - t0
+        for case, world, mesh, ref, size in cases:
+            try:
+                ranks = runs[case].result()
+            except RuntimeError as e:
+                fail(f"phase 21 (b) {case}: {e}")
+            for r, res in enumerate(ranks):
+                if res["launches"] != res["epochs"] or res["epochs"] == 0:
+                    fail(f"phase 21 (b) {case} rank {r}: epoch kernel "
+                         f"launched {res['launches']} times, the solves ran "
+                         f"{res['epochs']} epochs")
+            diffs = [record_diff(res["final"], ref) for res in ranks]
+            dx = max(d for d, _ in diffs)
+            n_int = max(n for _, n in diffs)
+            if not (dx <= TOL_ROLLOUT and n_int == 0):
+                fail(f"phase 21 (b) {case}: gathered final state vs the "
+                     f"single-process rollout max |dx| {dx} (tol "
+                     f"{TOL_ROLLOUT}), {n_int} integer entries differ")
+            out[case] = dict(
+                card=card, ranks=world, mesh=mesh, backend="gloo",
+                fleets=size[0], steps=size[1],
+                seconds_both_cases_with_start=secs,
+                launches=sum(res["launches"] for res in ranks),
+                launches_per_rank=[res["launches"] for res in ranks],
+                max_abs_diff_vs_single_process=dx)
+            print(f"phase 21 (b): {case} on a {tuple(mesh)} gloo mesh, "
+                  f"{world} ranks sharing card 0: final state vs the "
+                  f"single-process rollout max |dx| {dx:.3g} (tol "
+                  f"{TOL_ROLLOUT}), epoch-kernel launches per rank "
+                  f"{out[case]['launches_per_rank']} = epochs; both cases "
+                  f"at once {secs:.1f} s with the ranks' start [{card}]",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1483,7 +1838,7 @@ def main():
                                             ring=HEADLINE["N"])
 
     # phase 4: the main path
-    B, STEPS = 256, 20
+    B, STEPS = LPV_B, LPV_STEPS
     cfg, track, state0 = fleet(dev, B)
     rollout = make_lpv_fleet_rollout(track, cfg, STEPS)
     cuda_lqr.admm_epoch_batched.launches = 0
@@ -1530,7 +1885,7 @@ def main():
     # phase 5: end to end, kernel vs plain twins on the CPU
     phase5 = timed("phase 5", rollout_iterations_agree, dev)
 
-    nl_path = timed("phase 6", nl_main_path, dev, card)
+    nl_path, nl_final = timed("phase 6", nl_main_path, dev, card)
     phase7 = timed("phase 7", nl_end_to_end, dev)
     single = timed("phase 8", nl_single_fleet, dev, card)
     layers = timed("phase 9", layer_split, dev, card)
@@ -1547,6 +1902,9 @@ def main():
     stress = timed("phase 18", stress_full_width, dev, card)
     bats = timed("phase 19", batteries, dev, card)
     gs = timed("phase 20", gs_tradeoff, dev, card)
+    sharded = timed("phase 21 (a)", sharded_world_one, dev, card, final,
+                    nl_final, solves_per_s, nl_path["fleet_steps_per_s"])
+    gloo = timed("phase 21 (b)", sharded_gloo_on_card, dev, card)
     secs["total"] = time.perf_counter() - t_start
     print(f"chip_smoke phases took {secs['total']:.1f} s", flush=True)
 
@@ -1566,7 +1924,9 @@ def main():
                        + cli["launches"] + cli["compare_launches"]
                        + stress["launches_nl"] + stress["launches_perturbed"]
                        + bats["launches_nl"] + bats["launches_lpv"]
-                       + gs["launches"]),
+                       + gs["launches"] + sharded["lpv"]["launches"]
+                       + sharded["nl"]["launches"]
+                       + sum(g["launches"] for g in gloo.values())),
              launches_lpv=launches["epoch"],
              launches_nl=nl_path["launches"]["epoch"],
              launches_mpcc=race["launches"] + bat["launches"],
@@ -1585,6 +1945,10 @@ def main():
              launches_battery_nl=bats["launches_nl"],
              launches_battery_lpv=bats["launches_lpv"],
              launches_gs_tradeoff=gs["launches"],
+             launches_sharded_lpv=sharded["lpv"]["launches"],
+             launches_sharded_nl=sharded["nl"]["launches"],
+             launches_sharded_gloo={k: g["launches_per_rank"]
+                                    for k, g in gloo.items()},
              max_abs_err=k20["epoch"]["max_abs_err"],
              max_abs_err_resid=k20["epoch"]["max_abs_err_resid"],
              ms=k20["epoch"]["ms"], plain_ms=k20["epoch"]["plain_ms"],
@@ -1621,7 +1985,9 @@ def main():
                       "phase12": phase12, "phase14": phase14,
                       "lpv_n125": lpv125, "dynamic_lanes": lanes}))
     print(json.dumps({"lpv_cli": cli, "stress": stress, "batteries": bats,
-                      "gs_tradeoff": gs, "phase_seconds": secs}))
+                      "gs_tradeoff": gs}))
+    print(json.dumps({"sharded_nccl": sharded, "sharded_gloo": gloo,
+                      "phase_seconds": secs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,10 @@ import torch
 
 from colaborativempc_tpu_torch.config.params import ExperimentConfig, Gains
 from colaborativempc_tpu_torch.geometry import Track, make_track
-from colaborativempc_tpu_torch.parallel.fleet import batch_fleet_state
 from colaborativempc_tpu_torch.planners.lpv import lpv_solve
 from colaborativempc_tpu_torch.runtime.simulate import (
-    FleetState, _neighbour_index, _per_problem, init_lpv_fleet,
+    FleetState, _neighbour_index, _per_problem, batch_fleet_state,
+    init_lpv_fleet,
 )
 from colaborativempc_tpu_torch.utils.device import resolve_device
 
@@ -186,13 +186,18 @@ class MPCCBatteryResult(NamedTuple):
 
 
 def run_mpcc_battery(cfg, grid, steps: int, track=None, dtype=torch.float32,
-                     device="cuda") -> MPCCBatteryResult:
+                     device="cuda", mesh=None) -> MPCCBatteryResult:
     """Race every gain combination at once on ``device`` (the default
     ``cuda`` raises without a card): the grid is the race axis B of one
     batched closed-loop rollout (warm/cold start, failure reset, RK4 plant —
     ``runtime/racing.py``), each race with its own gains rounded to float32
     as in the JAX battery. ``admm_solve``'s per-problem freeze keeps every
-    race's iteration counts those of its standalone run."""
+    race's iteration counts those of its standalone run.
+
+    ``mesh``: a ``DeviceMesh`` over every rank of the process group. The
+    races are independent, so each rank races its contiguous slice of the
+    grid (in the mesh's row-major order) and every rank returns the whole
+    result, gathered; the grid must split evenly over the mesh."""
     from colaborativempc_tpu_torch.planners.mpcc import MPCCGains
     from colaborativempc_tpu_torch.runtime.racing import (
         _make_mpcc_step_fn, _race, init_mpcc, load_mpcc_track,
@@ -201,12 +206,26 @@ def run_mpcc_battery(cfg, grid, steps: int, track=None, dtype=torch.float32,
     if track is None:
         track = load_mpcc_track(cfg, dtype=dtype, device=dev)
     n_cfg = len(grid)
+    races = list(grid)
+    if mesh is not None:
+        from colaborativempc_tpu_torch.parallel.multihost import (
+            check_mesh, gather_over_mesh, mesh_position,
+        )
+        check_mesh(mesh)
+        if n_cfg % mesh.size():
+            raise ValueError(f"grid size {n_cfg} must divide the mesh "
+                             f"({mesh.size()} devices)")
+        k = n_cfg // mesh.size()
+        races = races[mesh_position(mesh) * k:(mesh_position(mesh) + 1) * k]
     gains = MPCCGains(*(
-        torch.tensor(np.asarray([getattr(g, f) for g in grid], np.float32))
+        torch.tensor(np.asarray([getattr(g, f) for g in races], np.float32))
         .to(device=dev, dtype=dtype) for f in MPCCGains._fields))
     step_fn = _make_mpcc_step_fn(track, cfg)
-    state = init_mpcc(track, cfg, races=n_cfg, dtype=dtype, device=dev)
+    state = init_mpcc(track, cfg, races=len(races), dtype=dtype, device=dev)
     final, metrics = _race(lambda st: step_fn(gains, st), state, steps)
+    if mesh is not None:
+        final = type(final)(*(gather_over_mesh(t, mesh) for t in final))
+        metrics = type(metrics)(*(gather_over_mesh(t, mesh) for t in metrics))
 
     s_hist = metrics.s.cpu().numpy().T           # (T, n_cfg)
     L = float(track.track_length[0])

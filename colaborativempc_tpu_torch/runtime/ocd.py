@@ -42,12 +42,11 @@ from colaborativempc_tpu_torch.config.params import (
 from colaborativempc_tpu_torch.geometry import (
     Track, check_end, check_lane, make_track,
 )
-from colaborativempc_tpu_torch.parallel.fleet import batch_fleet_state
 from colaborativempc_tpu_torch.planners.nl import NLSolution, nl_solve
 from colaborativempc_tpu_torch.runtime.simulate import (
-    _fleet0, _gains_on, _neighbour_index, _per_agent_limits, _per_problem,
-    escalate_holds, lateral_wall, resolve_single_fleet_schedule,
-    separation_filter, switch_lanes,
+    LocalExchange, _exchange_filter, _fleet0, _gains_on, _neighbour_index,
+    _per_agent_limits, _per_problem, batch_fleet_state, escalate_holds,
+    lateral_wall, resolve_single_fleet_schedule, switch_lanes,
 )
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
 from colaborativempc_tpu_torch.utils.warmstart import initialise_agents
@@ -164,17 +163,27 @@ class _OCDCore(NamedTuple):
     loop_init: object
     running: object
     finalize: object
+    exchange: object
 
 
-def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
+def _build_ocd_core(track: Track, cfg: ExperimentConfig,
+                    ex=None) -> _OCDCore:
     """The pieces of one control step: the pre-solve escalation ladder, one
     coordination iteration, the loop state initialiser, the per-fleet
     "still running" predicate and the finaliser (plan-holding, envelope,
-    separation filter, shift)."""
+    separation filter, shift).
+
+    ``ex`` is the agent exchange (``runtime/simulate.py LocalExchange``
+    when None): a sharded step holds ``(B, A, ...)`` blocks of its fleets
+    and agents, gathers every agent's plans and refined planes through it
+    each iteration, computes the replicated duals from the gathered plans
+    on every shard, and takes a fleet's convergence as the AND of its
+    shards' tests."""
     if cfg.ocd.sweep not in ("jacobi", "gauss_seidel"):
         raise ValueError(
             f"OCDConfig.sweep must be 'jacobi' or 'gauss_seidel', got "
             f"{cfg.ocd.sweep!r}")
+    ex = LocalExchange() if ex is None else ex
     n, N, ocd = cfg.n_agents, cfg.N, cfg.ocd
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
@@ -229,19 +238,19 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
         b = -torch.sum(a * 0.5 * (pp + far), dim=-1)
         return torch.stack([th, b], dim=-1)[:, :, None]      # (B, 1, 1, N, 2)
 
-    def jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes):
-        B = x0.shape[0]
+    def jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes, gids):
+        B, A = x0.shape[:2]
 
         def flat(t):
-            return t.reshape((B * n,) + t.shape[2:])
-        limits = SysLimits(*(v.repeat(B) for v in limits_pa))
-        mm = master_mask.expand((B,) + master_mask.shape)
+            return t.reshape((B * A,) + t.shape[2:])
+        limits = SysLimits(*(v[gids].repeat(B) for v in limits_pa))
+        mm = master_mask[gids].expand((B, A) + master_mask.shape[1:])
         lane = flat(lanes) if isinstance(lanes, torch.Tensor) else lanes
-        sol = solve(_per_problem(gains, n), limits, lane, flat(x0),
+        sol = solve(_per_problem(gains, A), limits, lane, flat(x0),
                     flat(st.x_pred), flat(st.u_pred), flat(u_old), flat(lam),
                     flat(neigh), flat(mm), flat(st.w), flat(st.y),
                     flat(st.rho_scale), flat(pl_i))
-        return NLSolution(*(t.reshape((B, n) + t.shape[1:]) for t in sol))
+        return NLSolution(*(t.reshape((B, A) + t.shape[1:]) for t in sol))
 
     def gauss_seidel_sweep(st, x0, u_old, gains, lanes):
         # agents solve in id order, each against the freshest neighbour
@@ -273,8 +282,9 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
                       gains=None) -> _OCDLoopState:
         if gains is None:
             gains = default_gains
-        B = x0.shape[0]
+        B, A = x0.shape[:2]
         dtype = st.x_pred.dtype
+        gids = ex.gids(A, dev)
         if n == 1:
             # a far-away placeholder neighbour with price 0 keeps the row
             # count of init_nl_fleet
@@ -283,27 +293,31 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             lam = torch.zeros((B, 1, 1, N), dtype=dtype, device=dev)
             pl_i = placeholder_planes(st.x_pred)
         else:
-            neigh = st.x_pred[:, ns][..., 7:9].transpose(2, 3)  # (B,n,N+1,nb,2)
-            lam = st.lambdas[:, ids[:, None], ns]                # (B, n, nb, N)
+            # the plan exchange: every agent's (X, Y) horizon
+            nb = ns[gids]                                        # (A, nb)
+            neigh = ex.gather(st.x_pred[..., 7:9])[:, nb].transpose(2, 3)
+            lam = st.lambdas[:, gids[:, None], nb]           # (B, A, nb, N)
             # canonical pair plane (min, max) regardless of role
-            pl_i = st.planes[:, torch.minimum(ids[:, None], ns),
-                             torch.maximum(ids[:, None], ns)]
+            pl_i = st.planes[:, torch.minimum(gids[:, None], nb),
+                             torch.maximum(gids[:, None], nb)]
         lanes = agent_lanes(x0)
         if gauss_seidel:
             sol = gauss_seidel_sweep(st, x0, u_old, gains, lanes)
         else:
-            sol = jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes)
+            sol = jacobi(st, x0, u_old, gains, lam, neigh, pl_i, lanes, gids)
         x_new, u_new, w_new, y_new, rs_new, feas, ok = _contain_nonfinite(
             st, sol)
         pl_new = torch.where(ok[..., None, None, None], sol.planes, pl_i)
         planes = st.planes
         if n > 1:
-            # masters write their refined planes back to the canonical slots;
-            # slave writes land in unread (i > j) slots
+            # masters write their refined planes back to the canonical slots
+            # of the replicated pair tensor; slave writes land in unread
+            # (i > j) slots
             planes = planes.clone()
-            planes[:, ids[:, None], ns] = pl_new
+            planes[:, ids[:, None], ns] = ex.gather(pl_new)
 
-        p = x_new[..., 1:, 7:9]                              # (B, n, N, 2)
+        # the dual ascent, on every shard from the gathered plans
+        p = ex.gather(x_new[..., 1:, 7:9])                   # (B, n, N, 2)
         if cfg.coupling == "hp_opt":
             # g = dth/2 - (a.p_slave + b) on the refined plane
             # (NL_HP_N_main.py:127-133)
@@ -322,8 +336,9 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
         g = g * upper
         lambdas, alpha = _dual_step(ocd, st, g)
 
-        # convergence test (NL_EU_N_main.py:141-157)
-        conv = (torch.abs(st.x_pred - x_new) < ocd.atol).flatten(1).all(1)
+        # convergence test (NL_EU_N_main.py:141-157), over every shard
+        conv = ex.all_agents(
+            (torch.abs(st.x_pred - x_new) < ocd.atol).flatten(1).all(1))
         conv_count = torch.where(conv, st.conv_count + 1,
                                  torch.zeros_like(st.conv_count))
         finished = (conv_count > ocd.it_conv) | (st.it_ocd >= ocd.max_it_ocd)
@@ -339,7 +354,7 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
                                for old, new in zip(st, new_st)))
 
     def loop_init(state: OCDFleetState) -> _OCDLoopState:
-        B = state.x0.shape[0]
+        B, A = state.x0.shape[:2]
 
         def fill(v, dt):
             return torch.full((B,), v, dtype=dt, device=dev)
@@ -348,11 +363,11 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             lambdas=state.lambdas,
             alpha=torch.full_like(state.lambdas, ocd.alpha),
             g_prev=torch.zeros_like(state.lambdas),
-            planes=_bisector_planes(state.x_pred),
+            planes=_bisector_planes(ex.gather(state.x_pred)),
             w=state.w, y=state.y, rho_scale=state.rho_scale,
             it_ocd=fill(0, torch.int64), conv_count=fill(0, torch.int64),
             finished=fill(False, torch.bool),
-            feasible=torch.ones((B, n), dtype=torch.bool, device=dev))
+            feasible=torch.ones((B, A), dtype=torch.bool, device=dev))
 
     def running(st: _OCDLoopState) -> torch.Tensor:
         # at least min_it_ocd iterations, then until finished
@@ -395,7 +410,8 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
         # physical envelope, then the executed-separation filter
         x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
                                           x_fin[:, :, 1, :], state.lane)
-        x0_exec, exec_beta = separation_filter(cfg, state.x0, x0_cand)
+        x0_exec, exec_beta, pe = _exchange_filter(
+            cfg, ex, ex.gids(state.x0.shape[1], dev), state.x0, x0_cand)
         brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
                                   torch.zeros_like(state.brake_count))
         # control-step shift (NL_EU_N_main.py:170-172)
@@ -408,11 +424,10 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             brake_count=brake_count, jam_count=jam_count)
 
         eye = torch.eye(n, dtype=x_fin.dtype, device=dev) * 1e9
-        p = x_fin[:, :, 1:, 7:9]
+        p = ex.gather(x_fin[:, :, 1:, 7:9])
         diff = p[:, :, None] - p[:, None]
         dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
         dist = dist + eye[:, :, None]
-        pe = x0_exec[..., 7:9]
         de = torch.sqrt(torch.sum((pe[:, :, None] - pe[:, None]) ** 2, dim=-1)
                         + 1e-12) + eye
         metrics = OCDStepMetrics(
@@ -423,20 +438,21 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig) -> _OCDCore:
             exec_beta=exec_beta, wall_clip=wall_clip)
         return new_state, metrics
 
-    return _OCDCore(prepare, ocd_iteration, loop_init, running, finalize)
+    return _OCDCore(prepare, ocd_iteration, loop_init, running, finalize, ex)
 
 
 def _coordinate(core: _OCDCore, state: OCDFleetState, gains=None,
                 timed: bool = False, on_iteration=None):
     """One control step: the coordination loop until every fleet stopped,
-    with one host check per iteration. ``timed`` synchronises after each
-    iteration and records its wall time (``on_iteration(it_ocd, seconds,
-    max |dx|)`` is then called per iteration). Returns ``(new_state,
-    metrics, iteration_times)``."""
+    with one host check per iteration (over the agent exchange, so every
+    shard of a fleet runs the same iterations). ``timed`` synchronises
+    after each iteration and records its wall time (``on_iteration(it_ocd,
+    seconds, max |dx|)`` is then called per iteration). Returns
+    ``(new_state, metrics, iteration_times)``."""
     state = core.prepare(state)
     st = core.loop_init(state)
     times = []
-    while bool(core.running(st).any()):
+    while core.exchange.any_fleet(core.running(st)):
         t0 = time.perf_counter()
         st = core.iteration(st, state.x0, state.u_old, gains)
         if timed:

@@ -42,7 +42,7 @@ from colaborativempc_tpu_torch.utils.warmstart import (
 class FleetState(NamedTuple):
     """Per-agent planning state carried across control steps; every field
     has leading ``(B, n_ag)`` axes (``init_lpv_fleet`` gives ``(n_ag,)``,
-    ``parallel/fleet.py batch_fleet_state`` adds B)."""
+    :func:`batch_fleet_state` adds B)."""
     x0: torch.Tensor          # (.., 9) current states
     x_pred: torch.Tensor      # (.., N+1, 9) last predictions (linearisation)
     u_pred: torch.Tensor      # (.., N, 2)
@@ -55,6 +55,16 @@ class FleetState(NamedTuple):
     brake_count: torch.Tensor  # (..,) int32 consecutive filter brakings
     jam_count: torch.Tensor   # (..,) int32 consecutive infeasible solves,
     #                           never reset by the ladder (hold_exec_k)
+
+
+def batch_fleet_state(state, n_scen: int, device="cuda"):
+    """Tile a single-fleet ``(n_ag, ...)`` state — a ``FleetState`` or an
+    ``OCDFleetState`` — into a scenario batch ``(n_scen, n_ag, ...)`` on
+    ``device`` (each scenario its own copy; the default ``cuda`` raises
+    without a card)."""
+    dev = resolve_device(device)
+    return type(state)(*(
+        x.to(dev)[None].expand((n_scen,) + x.shape).clone() for x in state))
 
 
 class StepMetrics(NamedTuple):
@@ -74,6 +84,46 @@ def _neighbour_index(n_agents: int) -> np.ndarray:
     """ns[i] = all agent ids except i (reference main scripts' ``ns``)."""
     return np.array([[j for j in range(n_agents) if j != i]
                      for i in range(n_agents)], dtype=np.int64)
+
+
+class LocalExchange:
+    """The plan exchange of a step whose batch holds every agent of each
+    fleet: the world-size-1 case of ``parallel/multihost.py AgentExchange``,
+    which a sharded step uses in its place. Its ``gather`` returns the
+    tensor itself and the local agents are the global ids ``0..A-1``."""
+
+    def gids(self, n_local: int, device) -> torch.Tensor:
+        """Global ids of this shard's ``n_local`` agents."""
+        return torch.arange(n_local, device=device)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``(B, A_local, ...)`` -> ``(B, n_agents, ...)``."""
+        return t
+
+    def all_agents(self, flag: torch.Tensor) -> torch.Tensor:
+        """Per-fleet ``(B,)`` flag, true where it holds on every shard."""
+        return flag
+
+    def any_fleet(self, flag: torch.Tensor) -> bool:
+        """Whether ``flag`` holds for any fleet on any shard of the agent
+        axis (one host sync)."""
+        return bool(flag.any())
+
+
+def _exchange_filter(cfg: ExperimentConfig, ex, gids: torch.Tensor,
+                     x_cur: torch.Tensor, x_cand: torch.Tensor):
+    """The executed-separation filter over the agent exchange: the betas
+    need every agent's anchor and candidate, so both are gathered, and the
+    projection is applied to this shard's agents. Returns ``(x_exec,
+    beta)`` of the local agents and the executed (X, Y) of every agent,
+    ``(B, n_agents, 2)``."""
+    if cfg.exec_sep_frac is None:
+        return (x_cand, torch.ones_like(x_cand[..., 0]),
+                ex.gather(x_cand[..., 7:9]))
+    x_all, beta_all = separation_filter(cfg, ex.gather(x_cur),
+                                        ex.gather(x_cand))
+    beta = beta_all[:, gids]
+    return _apply_exec_beta(x_cur, x_cand, beta), beta, x_all[..., 7:9]
 
 
 def _pairwise_min_dist(agents_xy: torch.Tensor) -> torch.Tensor:
@@ -346,6 +396,15 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
     ``state (B, n_ag, ...) -> (new_state, StepMetrics)``. With
     ``cfg.dynamic_lane`` every step first re-selects each agent's lane
     (:func:`switch_lanes`); ``cfg.solver.assoc`` reaches ``admm_solve``."""
+    return _lpv_step(track, cfg, LocalExchange())
+
+
+def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
+    """The LPV fleet step over the agent exchange ``ex``: the state holds
+    ``(B, A, ...)`` blocks of this shard's fleets and agents, every agent
+    reads every agent's (X, Y) plan and hold flag through ``ex.gather``,
+    and per-agent limits follow the global agent ids. A
+    :class:`LocalExchange` makes it the single-process step."""
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     gains = _gains_on(cfg.gains if cfg.gains is not None else lpv_gains(),
@@ -356,38 +415,41 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
     limits_pa = _per_agent_limits(cfg, dev)
 
     def step(state: FleetState):
-        B = state.x0.shape[0]
-        P = B * n
+        B, A = state.x0.shape[:2]
+        P = B * A
         dtype = state.x0.dtype
+        gids = ex.gids(A, dev)
         if cfg.dynamic_lane:
             state = switch_lanes(track, state)
             lanes = state.lane
         else:
-            lanes = torch.full((B, n), cfg.lane, dtype=torch.int32,
+            lanes = torch.full((B, A), cfg.lane, dtype=torch.int32,
                                device=dev)
 
         def flat(t):
             return t.reshape((P,) + t.shape[2:])
 
         def unflat(t):
-            return t.reshape((B, n) + t.shape[1:])
+            return t.reshape((B, A) + t.shape[1:])
 
         # recovery feasibility pass: pre-escalation hold-or-brake counts
         vxs = hold_vx_scale(
             cfg, torch.maximum(state.hold_count, state.brake_count), dtype)
+        lim = SysLimits(*(v[gids] for v in limits_pa))
         limits_step = SysLimits(*(
-            flat(torch.broadcast_to(v, (B, n))) for v in
-            limits_pa._replace(vx_ref=limits_pa.vx_ref * vxs)))
+            flat(torch.broadcast_to(v, (B, A))) for v in
+            lim._replace(vx_ref=lim.vx_ref * vxs)))
 
         state = escalate_holds(track, cfg, state, lanes)
 
         # the "communication": everyone reads everyone's (X, Y) plan
-        xy = state.x_pred[..., 7:9]                       # (B, n, N+1, 2)
         if multi:
-            neigh = flat(xy[:, ns].permute(0, 1, 3, 2, 4))  # (P, N+1, nb, 2)
+            xy = ex.gather(state.x_pred[..., 7:9])        # (B, n, N+1, 2)
+            nb = ns[gids]                                 # (A, n - 1)
+            neigh = flat(xy[:, nb].permute(0, 1, 3, 2, 4))  # (P, N+1, nb, 2)
             boost_sc = cfg.hold_sep_boost if cfg.hold_on_infeasible else 0.0
-            hold_f = (state.hold_count > 0).to(dtype) * boost_sc
-            neigh_boost = flat(hold_f[:, ns])
+            hold_f = ex.gather((state.hold_count > 0).to(dtype) * boost_sc)
+            neigh_boost = flat(hold_f[:, nb])
         else:
             neigh, neigh_boost = None, None
 
@@ -440,7 +502,8 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
         # physical envelope, then the executed-separation filter
         x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
                                           x_pred[:, :, 1, :], lanes)
-        x0_exec, exec_beta = separation_filter(cfg, state.x0, x0_cand)
+        x0_exec, exec_beta, exec_xy = _exchange_filter(cfg, ex, gids,
+                                                       state.x0, x0_cand)
         brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
                                   torch.zeros_like(state.brake_count))
         new_state = FleetState(
@@ -448,14 +511,14 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
             u_old=u_pred[:, :, 0, :], w=w, y=y, rho_scale=rho_scale,
             lane=lanes, hold_count=hold_count, brake_count=brake_count,
             jam_count=jam_count)
-        exec_xy = x0_exec[..., 7:9]
         dd = exec_xy[..., :, None, :] - exec_xy[..., None, :, :]
         dexec = torch.sqrt(torch.sum(dd * dd, dim=-1) + 1e-12)
         dexec = dexec + torch.eye(n, dtype=dexec.dtype, device=dev) * 1e9
         metrics = StepMetrics(
             feasible=sol.feasible, iterations=sol.iterations,
             r_prim=sol.r_prim,
-            min_dist=_pairwise_min_dist(x_pred[..., 7:9].transpose(1, 2)),
+            min_dist=_pairwise_min_dist(
+                ex.gather(x_pred[..., 7:9]).transpose(1, 2)),
             min_dist_exec=torch.amin(dexec, dim=(-2, -1)),
             slack_max=torch.amax(torch.abs(sol.s_pred), dim=(-2, -1)),
             exec_beta=exec_beta, wall_clip=wall_clip)
@@ -572,7 +635,6 @@ def run_lpv_experiment(cfg: ExperimentConfig,
     from colaborativempc_tpu_torch.runtime.checkpoint import (
         load_checkpoint, save_checkpoint,
     )
-    from colaborativempc_tpu_torch.parallel.fleet import batch_fleet_state
     cfg = resolve_single_fleet_schedule(cfg)
     dev = resolve_device(device)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64

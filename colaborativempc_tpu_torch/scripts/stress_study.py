@@ -345,7 +345,10 @@ def main(argv=None):
                        help="disable the recovery escalation ladder")
         p.add_argument("--no-filter", action="store_true",
                        help="disable the executed-separation safety "
-                            "filter (exec_sep_frac=None)")
+                            "filter (exec_sep_frac=None); as in the JAX "
+                            "script, the track-limits wall (exec_ey_wall) "
+                            "and the degraded-execution escape "
+                            "(hold_exec_k) stay armed")
         p.add_argument("--no-vxpass", action="store_true",
                        help="disable the hold-recovery vx_ref "
                             "feasibility pass (hold_vx_frac=None)")

@@ -30,6 +30,10 @@ from colaborativempc_tpu_torch.ops import admm as tadmm
 from colaborativempc_tpu_torch.ops import cuda_lqr
 from colaborativempc_tpu_torch.ops import lqr as tlqr
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F32, F64 = torch.float32, torch.float64
 
 

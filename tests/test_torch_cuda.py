@@ -22,6 +22,10 @@ from colaborativempc_tpu_torch.ops import (
     admm_solve, cuda_lqr,
 )
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F32 = torch.float32
 
 

@@ -27,6 +27,10 @@ from colaborativempc_tpu_torch.runtime import battery as tbat
 from colaborativempc_tpu_torch.runtime import ocd as tocd
 from colaborativempc_tpu_torch.runtime import simulate as tsim
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F64 = torch.float64
 
 

@@ -35,6 +35,10 @@ from colaborativempc_tpu_torch.geometry import tracks as ttracks
 from colaborativempc_tpu_torch.utils import warmstart as twarm
 from colaborativempc_tpu_torch.utils.device import resolve_device
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 ATOL = 1e-9
 F64 = torch.float64
 REPO = Path(__file__).resolve().parent.parent
@@ -326,6 +330,9 @@ def test_port_imports_without_jax():
         ["colaborativempc_tpu_torch.runtime",
          "colaborativempc_tpu_torch.runtime.plotting",
          "colaborativempc_tpu_torch.parallel",
+         "colaborativempc_tpu_torch.parallel.multihost",
+         "colaborativempc_tpu_torch.parallel.fleet",
+         "colaborativempc_tpu_torch.parallel.ocd",
          "colaborativempc_tpu_torch.interop",
          "colaborativempc_tpu_torch.ops._build",
          "colaborativempc_tpu_torch.utils.rollout"]

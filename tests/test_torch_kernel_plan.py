@@ -30,7 +30,9 @@ from colaborativempc_tpu_torch.ops.cuda_lqr import (
     SMEM_PER_BLOCK, kernel_plan, qp_floats,
 )
 from colaborativempc_tpu_torch.geometry import make_track, spline
-from colaborativempc_tpu_torch.parallel import batch_fleet_state
+from colaborativempc_tpu_torch.parallel import (
+    batch_fleet_state, initialize_distributed,
+)
 from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig, MPCCGains
 from colaborativempc_tpu_torch.runtime import (
     battery, ocd, racing, simulate,
@@ -39,6 +41,10 @@ from colaborativempc_tpu_torch.scripts import (
     compare_reference, eval_lpv_model, experiment_battery, lpv_main,
     monte_carlo, mpcc_main, nl_main, stress_study,
 )
+
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
 
 F64 = torch.float64
 
@@ -125,6 +131,9 @@ BUILDERS = {
         interop.to_numpy(racing.init_mpcc(
             make_track("oval_mt", device="cpu"), MPCCConfig(N=6),
             device="cpu")), batched=True),
+    # joins no group: the missing card raises first
+    "initialize_distributed": lambda tmp: initialize_distributed(
+        init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1),
 }
 
 

@@ -36,6 +36,10 @@ from colaborativempc_tpu_torch.planners import mpcc as tmpcc
 from colaborativempc_tpu_torch.runtime import battery as tbat
 from colaborativempc_tpu_torch.runtime import racing as trace
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F32, F64 = torch.float32, torch.float64
 JP, TP = jpac.PacejkaParams(), tpac.PacejkaParams()
 

@@ -29,6 +29,10 @@ from colaborativempc_tpu_torch.geometry import curvature
 from colaborativempc_tpu_torch.planners import nl as tnl
 from colaborativempc_tpu_torch.runtime import simulate as tsim
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F32, F64 = torch.float32, torch.float64
 
 

@@ -25,6 +25,10 @@ from colaborativempc_tpu_torch.planners.nl import NLSolution
 from colaborativempc_tpu_torch.runtime import ocd as tocd
 from colaborativempc_tpu_torch.runtime import simulate as tsim
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F64 = torch.float64
 
 

@@ -28,6 +28,10 @@ from colaborativempc_tpu_torch import interop
 from colaborativempc_tpu_torch.dynamics import pacejka as tpac
 from colaborativempc_tpu_torch.geometry import spline as tspl
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F32, F64 = torch.float32, torch.float64
 JP, TP = jpac.PacejkaParams(), tpac.PacejkaParams()
 

@@ -32,6 +32,10 @@ from colaborativempc_tpu_torch.runtime import io as tio
 from colaborativempc_tpu_torch.runtime import ocd as tocd
 from colaborativempc_tpu_torch.runtime import simulate as tsim
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

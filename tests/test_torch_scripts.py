@@ -25,12 +25,17 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from colaborativempc_tpu_torch.config import lpv_gains
 from colaborativempc_tpu_torch.scripts import (
     compare_reference, eval_exp, eval_lpv_model, experiment_battery,
     lpv_main, nl_main, paper_figs, show_maps, test_planes,
 )
+
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
 
 LPV_ARGS = ["--agents", "2", "--N", "8", "--steps", "4", "--dt", "0.025",
             "--admm-iters", "300", "--verb", "0"]

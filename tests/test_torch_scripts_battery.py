@@ -11,8 +11,13 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from colaborativempc_tpu_torch.scripts import experiment_battery
+
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
 
 
 def run_both(argv, monkeypatch, capsys):

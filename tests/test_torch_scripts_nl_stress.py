@@ -10,9 +10,14 @@ tiny arguments (NL eu, N=6).
 import json
 
 import pytest
+import torch
 
 from colaborativempc_tpu_torch.scripts import stress_study
 from test_torch_scripts_stress import REPORT_KEYS, assert_same_run, run_jax
+
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
 
 
 def test_perturbed_nl_host_loop_matches_jax(monkeypatch, capsys):

@@ -16,14 +16,20 @@ against the port's (``--device cpu``) on the same tiny arguments.
   ``feasible`` equal for each sweep.
 """
 
+import argparse
 import importlib
 import json
 import sys
 
 import numpy as np
 import pytest
+import torch
 
 from colaborativempc_tpu_torch.scripts import stress_study
+
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
 
 REPORT_KEYS = {"study", "backend", "steps", "finished", "complete_all",
                "s_final", "bad_steps", "held_steps", "min_dist_exec",
@@ -113,3 +119,21 @@ def test_gs_tradeoff_schema(monkeypatch, capsys):
         assert r["ocd_iters_mean"] >= 2.0 and r["fleet_steps_per_s"] > 0
         assert r["ocd_iters_mean"] == j["ocd_iters_mean"]
         assert r["feasible"] == j["feasible"]
+
+
+@pytest.mark.parametrize("no_filter", [False, True])
+@pytest.mark.parametrize("family", ["lpv", "nl-eu"])
+def test_no_filter_clears_only_the_separation_filter(family, no_filter):
+    """``--no-filter`` clears ``exec_sep_frac`` only, in both packages
+    (JAX ``stress_study.py:55,135``): the track-limits wall
+    (``exec_ey_wall``) and the degraded-execution escape (``hold_exec_k``)
+    stay armed. A reference defect, carried over and pinned here."""
+    jmod = importlib.import_module("colaborativempc_tpu.scripts.stress_study")
+    ref = jmod._mk_cfg(family, 8, 3, sep_filter=not no_filter)
+    got = stress_study._variant_cfg(argparse.Namespace(
+        family=family, n=8, steps=3, variant="auto", no_filter=no_filter,
+        no_vxpass=False))
+    for f in ("exec_sep_frac", "exec_ey_wall", "hold_exec_k"):
+        assert getattr(got, f) == getattr(ref, f), f
+    assert (got.exec_sep_frac is None) == no_filter
+    assert got.exec_ey_wall is not None and got.hold_exec_k is not None

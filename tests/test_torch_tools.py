@@ -36,6 +36,10 @@ from colaborativempc_tpu_torch.runtime import plotting as tplotting
 from colaborativempc_tpu_torch.utils import gbellmf, regression
 from colaborativempc_tpu_torch.utils import rollout as trollout
 
+# a small fixed thread count: the suite runs several worker processes on
+# one host
+torch.set_num_threads(2)
+
 F64, F32 = torch.float64, torch.float32
 TOL = {"float64": 1e-9, "float32": 1e-5}
 P, JP = ModelParams(), JModelParams()
