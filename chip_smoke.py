@@ -19,9 +19,23 @@ and checks them:
 3b. the epoch kernel against its twin on the NL planner's own QPs (256
    fleets x 3 agents, N=20): eu (nc=2, mr=6) and hp_opt (nc=6, mr=10), the
    latter under its plan and with the horizon pinned resident;
+3c. the epoch-data kernel (``csrc/epoch_data.cu``: the rho-augmented cost,
+   its Riccati factorisation and the prox factors, ``admm_epoch_inputs`` on
+   the card) against its plain version on the card, field by field, each
+   within 1e-4 of the larger of 1 and the field's max |value|: on phase
+   3's QPs (the headline, N=125, P=7 with unbounded rows added), phase
+   3b's NL QPs and phase 13's MPCC QPs (P=18/N=20, P=1/N=60, the single
+   QP compared as a batch of two), with the kernel's time, the plain
+   version's, the bound, the plan and the entries whose bits differ (none
+   expected: the kernel follows the order of the card's batched library
+   routines that the plain version calls, and the torch and CUDA versions
+   are printed beside the check); both also read against the plain
+   version in float64 on the card. Phases 3, 3b and 13 feed the epoch
+   kernel the plain version's data, as before;
 4. the LPV path: launch counts reset, one 20-step rollout, every state
-   finite, the epoch kernel launched once per ADMM epoch the solves ran;
-   then solves/s as the best of 3 rollouts;
+   finite, the epoch kernel and the epoch-data kernel each launched once
+   per ADMM epoch the solves ran; then solves/s as the best of 3
+   rollouts;
 5. end to end, kernel vs plain: the same config at B=4 for 5 steps on the
    card and on the CPU (plain twins) agree; each problem's ADMM iteration
    counts on both paths are printed where they differ;
@@ -52,9 +66,10 @@ and checks them:
    cold-started races, normalised): P=18/N=20/mr=7 and P=1/N=60/mr=7;
 14. the associative path on the card: ``lqr_affine_solve_assoc`` against
    ``lqr_affine_solve`` at N=60 and N=125 in float32 (within 1e-3 of the
-   solution's scale); then the time of one torch associative epoch beside
-   one refactorisation + kernel epoch at P=1/N=60/mr=7 and P=3/N=125/mr=6
-   (a record for the precedence rule, not a check);
+   solution's scale); then the time of one torch associative epoch (its
+   factorisation the plain version's) beside one epoch-data kernel +
+   epoch kernel epoch at P=1/N=60/mr=7 and P=3/N=125/mr=6 (a record for
+   the precedence rule, not a check);
 15. single-fleet LPV at N=125 with default settings (``run_lpv_experiment``,
    Highway, 3 agents, 10 steps: assoc, epoch 15, 1000 iterations): finite
    states, launches equal to the epochs, p50/p95 latency;
@@ -65,7 +80,8 @@ and checks them:
 
 Phases 17-20 drive the scripts users start, through their ``main(argv)``
 on the card (default ``--device``), with the launch counters reset before
-each and the solver's epochs counted (launches must equal epochs):
+each and the solver's epochs counted (the launches of the epoch kernel and
+of the epoch-data kernel must each equal the epochs):
 
 17. ``lpv_main`` at its defaults (3 agents, N=125, dt 0.025, 1000 ADMM
    iterations) for 8 steps with ``--no-plot``: the csv/pck files written,
@@ -79,9 +95,10 @@ each and the solver's epochs counted (launches must equal epochs):
 18. ``stress_study`` at full width: ``latency --family nl-eu --n 125`` (the
    NL-OCD step at N=125) and ``perturbed --batched --family lpv --n 125``
    (8 starts x 5 steps, one chunk); then the first perturbed step's 24
-   stage QPs solved by ``admm_solve`` with every epoch the kernel and with
-   every epoch the associative one, on the card: each problem's ADMM
-   iterations and the problems left above ``feas_tol`` (a record);
+   stage QPs solved by ``admm_solve`` with every epoch the kernels and
+   with every epoch the associative one (the plain factorisation), on the
+   card: each problem's ADMM iterations and the problems left above
+   ``feas_tol`` (a record);
 19. ``experiment_battery --pipeline nl --horizons 20,40`` (12 fleets, 5
    steps per horizon) and ``--pipeline lpv`` (18 fleets, 10 steps);
 20. ``stress_study gs-tradeoff`` (N=20, 16 fleets, 8 steps): Jacobi against
@@ -106,6 +123,9 @@ Kernel times come from ``cuda_ms``: CUDA events around the calls, with a
 spin kernel queued first so that the host's queueing stays outside the
 window.
 
+Wherever a phase holds the epoch kernel's launches to the epochs the
+solves ran, it holds the epoch-data kernel's launches to them too.
+
 The seconds of every phase are printed. No phase imports matplotlib.
 
 Prints a JSON line with each kernel's record, then as its last line
@@ -115,6 +135,7 @@ any failure or when no CUDA device is available.
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -249,8 +270,9 @@ def check_kernels(dev, N, reps, P=HEADLINE["P"], **pin):
     launch plan ``kernel_plan`` chooses, or with ``pin`` (ring,
     qps_per_block) pinned."""
     from colaborativempc_tpu_torch.ops import (
-        LQRCost, LQRDynamics, StageQP, admm_epoch_inputs, cuda_lqr,
+        LQRCost, LQRDynamics, StageQP, cuda_lqr,
     )
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
     shape = dict(HEADLINE, N=N, P=P)
     rng = np.random.default_rng(1000 + N + (P if P != HEADLINE["P"] else 0))
     pr = random_epoch_problems(rng, **shape)
@@ -265,7 +287,9 @@ def check_kernels(dev, N, reps, P=HEADLINE["P"], **pin):
                      t(pr["S"])),
         D=t(pr["D"]), E=t(pr["E"]), lo=t(pr["lo"]), hi=t(pr["hi"]),
         soft_lo=soft, soft_hi=soft)
-    data = admm_epoch_inputs(qp, rho=10.0, rho_scale=t(pr["rho_scale"]))
+    # the epoch kernel's inputs from the plain version, as in earlier runs
+    rho_scale = t(pr["rho_scale"])
+    data = admm_epoch_inputs_plain(qp, rho=10.0, rho_scale=rho_scale)
     z0, w0, y0 = t(pr["z0"]), t(pr["w0"]), t(pr["y0"])
     if not all(bool(torch.isfinite(x).all()) for x in data[:9]):
         fail(f"non-finite epoch data at N={N}")
@@ -322,6 +346,112 @@ def check_kernels(dev, N, reps, P=HEADLINE["P"], **pin):
           f"{out['epoch']['bound_ms']:.3g}, plan {out['epoch']['plan']}) vs "
           f"plain {out['epoch']['plain_ms']:.4f} ms (err {err_zcwy:.3g}, "
           f"resid err {err_res:.3g})", flush=True)
+    out["qp"] = (qp, rho_scale)
+    return out
+
+
+TOL_EPOCH_DATA = 1e-4     # of max(1, the field's max |value|), float32
+
+
+def epoch_data_bound(P, N, nz, nc, mr):
+    """The least time (ms) the card could take for one epoch-data launch,
+    and what sets it: ``cuda_lqr.epoch_data_traffic``'s bytes (every input
+    read once, every output written once) over the HBM rate, or its FP32
+    operations over the FP32 rate."""
+    from colaborativempc_tpu_torch.ops import cuda_lqr
+    nbytes, flops = cuda_lqr.epoch_data_traffic(P, N, nz, nc, mr)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def map_qp(qp, fn):
+    """A StageQP with ``fn`` applied to every tensor (None stays None)."""
+    return type(qp)(*(type(x)(*map(fn, x)) if isinstance(x, tuple) else
+                      None if x is None else fn(x) for x in qp))
+
+
+def check_epoch_data(dev, tag, qp, rho_scale, reps):
+    """Phase 3c at one shape: ``admm_epoch_inputs`` on the card (one launch
+    of the epoch-data kernel) against its plain version on the same CUDA
+    tensors, field by field: NaN nowhere, each field within TOL_EPOCH_DATA
+    of max(1, its max |value|). A single QP is compared as a batch of two
+    (the QP twice, the first kept): the card's libraries take other
+    routines for one matrix than for a batch, and the kernel's arithmetic
+    per QP does not depend on the batch. Both are also read against the
+    plain version in float64 on the card, as a share of each field's scale:
+    where the kernel's share is no larger than the float32 plain version's,
+    a failure of the check reads as the libraries' order of operations
+    having changed (a new torch or CUDA build), not as a kernel fault.
+    Times both at the QP's own batch (the plain version is the path the
+    card ran before the kernel)."""
+    from colaborativempc_tpu_torch.ops import ADMMEpochData, cuda_lqr
+    from colaborativempc_tpu_torch.ops.admm import (
+        admm_epoch_inputs, admm_epoch_inputs_plain,
+    )
+    P, N, mr = qp.lo.shape
+    nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
+    rs = torch.broadcast_to(torch.as_tensor(
+        rho_scale, dtype=torch.float32, device=dev), (P, mr))
+    cqp, crs = (map_qp(qp, lambda t: torch.cat([t, t])), torch.cat([rs, rs])) \
+        if P == 1 else (qp, rs)
+    before = cuda_lqr.epoch_data_batched.launches
+    got = admm_epoch_inputs(cqp, 10.0, crs)
+    torch.cuda.synchronize()
+    if cuda_lqr.epoch_data_batched.launches != before + 1:
+        fail(f"phase 3c {tag}: admm_epoch_inputs did not launch the "
+             "epoch-data kernel once")
+    ref = admm_epoch_inputs_plain(cqp, 10.0, crs)
+    ref64 = admm_epoch_inputs_plain(map_qp(qp, torch.Tensor.double), 10.0,
+                                    rs.double())
+    torch.cuda.synchronize()
+    got, ref = (ADMMEpochData(*(t[:P] for t in x)) for x in (got, ref))
+    rel, err, differing = 0.0, 0.0, 0
+    rel64 = {"kernel": 0.0, "plain": 0.0}
+    for f, g, r, r64 in zip(ADMMEpochData._fields, got, ref, ref64):
+        differing += int((g != r).sum()) - int((g.isnan() & r.isnan()).sum())
+        if not (bool(torch.isfinite(g).all()) or f in ("lo", "hi")):
+            fail(f"phase 3c {tag}: field {f} of the kernel not finite")
+        fin = torch.isfinite(r)
+        if not torch.equal(fin, torch.isfinite(g)):
+            fail(f"phase 3c {tag}: field {f}: finite entries differ")
+        if not bool(fin.any()):
+            continue
+        e = float((g[fin] - r[fin]).abs().max())
+        scale = max(1.0, float(r[fin].abs().max()))
+        s64 = max(1.0, float(r64[fin].abs().max()))
+        for name, x in (("kernel", g), ("plain", r)):
+            rel64[name] = max(rel64[name], float(
+                (x[fin].double() - r64[fin]).abs().max()) / s64)
+        if not e <= TOL_EPOCH_DATA * scale:
+            fail(f"phase 3c {tag}: field {f} max |err| {e} against "
+                 f"{TOL_EPOCH_DATA} x {scale}; against float64 (share of "
+                 f"scale) the kernel {rel64['kernel']:.3g}, the float32 "
+                 f"plain version {rel64['plain']:.3g} (torch "
+                 f"{torch.__version__}, CUDA {torch.version.cuda})")
+        err, rel = max(err, e), max(rel, e / scale)
+    plan = cuda_lqr.epoch_data_plan(
+        P, N, nz, nc, mr,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = dict(P=P, N=N, nz=nz, nc=nc, mr=mr, max_abs_err=err,
+               max_rel_err=rel, entries_differing=differing,
+               compared_as_batch=cqp.lo.shape[0],
+               max_rel_err_vs_f64=rel64["kernel"],
+               plain_max_rel_err_vs_f64=rel64["plain"],
+               plan=plan._asdict(),
+               ms=cuda_ms(lambda: admm_epoch_inputs(qp, 10.0, rs), reps),
+               plain_ms=cuda_ms(lambda: admm_epoch_inputs_plain(
+                   qp, 10.0, rs), 2))
+    out["bound_ms"], out["bound_by"] = epoch_data_bound(P, N, nz, nc, mr)
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
+    print(f"phase 3c {tag} P={P} N={N} nc={nc} mr={mr}: epoch-data kernel "
+          f"{out['ms']:.4f} ms (bound {out['bound_ms']:.3g} by "
+          f"{out['bound_by']}, share {out['roofline_share']:.3f}, plan "
+          f"{out['plan']}) vs plain {out['plain_ms']:.3f} ms (max |err| "
+          f"{err:.3g}, {rel:.3g} of scale, tol {TOL_EPOCH_DATA}; "
+          f"{differing} entries differ in their bits; compared at batch "
+          f"{cqp.lo.shape[0]}; vs float64 {rel64['kernel']:.3g} of scale, "
+          f"the float32 plain version {rel64['plain']:.3g})", flush=True)
     return out
 
 
@@ -356,7 +486,8 @@ def check_nl_epoch(dev, coupling, reps, **pin):
     sweep hands them to the solver, under its launch plan or with ``pin``
     pinned."""
     from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.ops import admm_epoch_inputs, cuda_lqr
+    from colaborativempc_tpu_torch.ops import cuda_lqr
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
     from colaborativempc_tpu_torch.planners import build_nl_qp
     from colaborativempc_tpu_torch.runtime.ocd import _bisector_planes
     from colaborativempc_tpu_torch.runtime.simulate import _neighbour_index
@@ -382,7 +513,7 @@ def check_nl_epoch(dev, coupling, reps, **pin):
                      flat(st.u_pred), flat(lam),
                      flat(x_bar[:, ns][..., 7:9].transpose(2, 3)), flat(mm),
                      coupling=coupling, planes0=flat(planes))
-    data = admm_epoch_inputs(qp, rho=10.0)
+    data = admm_epoch_inputs_plain(qp, rho=10.0)
     z0 = torch.cat([flat(st.x0), flat(st.u_old)], dim=-1).contiguous()
     w0 = torch.clamp(torch.zeros_like(qp.lo), qp.lo, qp.hi).contiguous()
     y0 = torch.zeros_like(w0)
@@ -418,6 +549,7 @@ def check_nl_epoch(dev, coupling, reps, **pin):
           f"(bound {out['bound_ms']:.3g}, plan {out['plan']}) vs plain "
           f"{out['plain_ms']:.4f} ms (err {err_zcwy:.3g}, resid err "
           f"{err_res:.3g})", flush=True)
+    out["qp"] = (qp, 1.0)
     return out
 
 
@@ -455,18 +587,32 @@ def reset_launches():
     from colaborativempc_tpu_torch.ops import cuda_lqr
     cuda_lqr.admm_epoch_batched.launches = 0
     cuda_lqr.lqr_affine_solve_batched.launches = 0
+    cuda_lqr.epoch_data_batched.launches = 0
 
 
 def read_launches():
     from colaborativempc_tpu_torch.ops import cuda_lqr
     return {"epoch": cuda_lqr.admm_epoch_batched.launches,
-            "affine": cuda_lqr.lqr_affine_solve_batched.launches}
+            "affine": cuda_lqr.lqr_affine_solve_batched.launches,
+            "epoch_data": cuda_lqr.epoch_data_batched.launches}
+
+
+# epoch-data kernel launches of each checked run, by the run's name
+EPOCH_DATA_LAUNCHES = {}
 
 
 def check_epoch_launches(what, launches, epochs):
-    if launches["epoch"] != sum(epochs) or not epochs or sum(epochs) == 0:
+    """The epoch kernel and the epoch-data kernel each launched once per
+    epoch the solves ran, and at least once; records the epoch-data
+    launches under ``what``."""
+    n = sum(epochs) if not isinstance(epochs, int) else epochs
+    if launches["epoch"] != n or n == 0:
         fail(f"{what}: epoch kernel launched {launches['epoch']} times, the "
-             f"solves ran {sum(epochs)} epochs over {len(epochs)} calls")
+             f"solves ran {n} epochs")
+    if launches["epoch_data"] != n:
+        fail(f"{what}: epoch-data kernel launched {launches['epoch_data']} "
+             f"times, the solves ran {n} epochs")
+    EPOCH_DATA_LAUNCHES[what] = launches["epoch_data"]
 
 
 NL_B, NL_STEPS = 64, 20
@@ -476,25 +622,20 @@ def nl_main_path(dev, card):
     """Phase 6: the NL-OCD Monte-Carlo, once with the launch counters and
     the solver's epochs counted, then timed as the best of 2 rollouts.
     Returns the record and the counted run's final state."""
-    from colaborativempc_tpu_torch.ops import cuda_lqr
     from colaborativempc_tpu_torch.scripts import monte_carlo
     cfg, rollout, state0 = monte_carlo.setup(
         "nl", scenarios=NL_B, agents=3, N=20, steps=NL_STEPS, device=dev)
     epochs, restore = count_solver_epochs()
-    cuda_lqr.admm_epoch_batched.launches = 0
-    cuda_lqr.lqr_affine_solve_batched.launches = 0
+    reset_launches()
     try:
         final, (xh, uh, met) = rollout(state0)
         torch.cuda.synchronize()
     finally:
         restore()
-    launches = {"epoch": cuda_lqr.admm_epoch_batched.launches,
-                "affine": cuda_lqr.lqr_affine_solve_batched.launches}
+    launches = read_launches()
     if not all_finite(list(final) + [xh, uh] + list(met)):
         fail("NL path: a state is not finite")
-    if launches["epoch"] != sum(epochs) or not epochs or sum(epochs) == 0:
-        fail(f"NL path: epoch kernel launched {launches['epoch']} times, the "
-             f"solves ran {sum(epochs)} epochs over {len(epochs)} calls")
+    check_epoch_launches("phase 6 (NL path)", launches, epochs)
     best = float("inf")
     for _ in range(2):
         torch.cuda.synchronize()
@@ -517,7 +658,8 @@ def nl_main_path(dev, card):
           f"iterations {out['mean_ocd_iterations']:.2f}, feasible share "
           f"{out['feasible_share']:.4f}, min_dist_exec "
           f"{out['min_dist_exec']:.4f} m, epoch-kernel launches "
-          f"{launches['epoch']} over {len(epochs)} solver calls [{card}]",
+          f"{launches['epoch']} over {len(epochs)} solver calls, epoch-data "
+          f"kernel launches {launches['epoch_data']} [{card}]",
           flush=True)
     return out, final
 
@@ -950,6 +1092,7 @@ def mpcc_kernel_vs_plain(dev):
     return out
 
 
+@functools.cache
 def mpcc_qps(dev, P, N):
     """The first SQP iteration's normalised stage QPs of P cold-started
     races on oval_mt at horizon N, their scaled initial states and the
@@ -966,9 +1109,10 @@ def mpcc_qps(dev, P, N):
 def check_mpcc_epoch(dev, P, N, reps):
     """Phase 13 at one shape: the epoch kernel vs its plain twin on MPCC's
     own QPs, under the launch plan ``kernel_plan`` chooses."""
-    from colaborativempc_tpu_torch.ops import admm_epoch_inputs, cuda_lqr
+    from colaborativempc_tpu_torch.ops import cuda_lqr
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
     qp, z0, el = mpcc_qps(dev, P, N)
-    data = admm_epoch_inputs(qp, rho=10.0)
+    data = admm_epoch_inputs_plain(qp, rho=10.0)
     if not all(bool(torch.isfinite(x).all()) for x in data[:9]):
         fail(f"phase 13: non-finite MPCC epoch data at P={P}, N={N}")
     nz, nc, mr = data.F.shape[-1], data.G.shape[-1], data.lo.shape[-1]
@@ -1008,8 +1152,10 @@ TOL_ASSOC = 1e-3   # float32, relative to the solution's scale
 
 def assoc_on_card(dev, card):
     """Phase 14: the associative affine solve against the sequential one
-    on CUDA tensors (a check), then one torch associative epoch beside one
-    refactorisation + kernel epoch (a record)."""
+    on CUDA tensors (a check), then one torch associative epoch (its
+    factorisation the plain version's, which the associative solve needs)
+    beside one refactorisation + kernel epoch, the refactorisation the
+    epoch-data kernel (a record)."""
     from colaborativempc_tpu_torch.ops import (
         LQRCost, LQRDynamics, StageQP, admm_epoch_assoc, admm_epoch_inputs,
         build_admm_cost, cuda_lqr, lqr_affine_solve, lqr_affine_solve_assoc,
@@ -1062,8 +1208,9 @@ def assoc_on_card(dev, card):
         o = out[tag]
         print(f"phase 14 {tag}: assoc vs sequential affine solve "
               f"{err:.3g} of scale (tol {TOL_ASSOC}); one torch assoc epoch "
-              f"{o['assoc_epoch_ms']:.2f} ms vs refactorisation + kernel "
-              f"epoch {o['refactorisation_plus_kernel_epoch_ms']:.2f} ms "
+              f"(plain factorisation) {o['assoc_epoch_ms']:.2f} ms vs "
+              f"epoch-data kernel + epoch kernel "
+              f"{o['refactorisation_plus_kernel_epoch_ms']:.2f} ms "
               f"(kernel alone {o['kernel_only_ms']:.4f} ms) [{card}]",
               flush=True)
     return out
@@ -1418,8 +1565,10 @@ def assoc_admm_solve(qp, z0, **kw):
 def kernel_vs_assoc(qp, z0, kw, card):
     """Phase 18's convergence record: the first perturbed N=125 step's
     stage QPs solved by ``admm_solve`` on the card (every epoch the
-    kernel) and with every epoch the associative one, on the card; each
-    problem's ADMM iterations and the problems left above ``feas_tol``."""
+    epoch-data kernel and the epoch kernel) and with every epoch the
+    associative one (its factorisation the plain version's), on the card;
+    each problem's ADMM iterations and the problems left above
+    ``feas_tol``."""
     from colaborativempc_tpu_torch.ops import admm
     out = {}
     for name, solve in (("kernel", admm.admm_solve),
@@ -1437,9 +1586,10 @@ def kernel_vs_assoc(qp, z0, kw, card):
     k, a = out["kernel"], out["assoc"]
     print(f"phase 18: first perturbed N=125 step, {qp.lo.shape[0]} stage QPs "
           f"(iters {kw['iters']}, epoch {kw['epoch_len']}, eps {kw['eps']}): "
-          f"kernel {k['epochs']} epochs, {k['infeasible']} above feas_tol, "
+          f"kernels {k['epochs']} epochs, {k['infeasible']} above feas_tol, "
           f"iterations {k['iterations']} ({k['seconds']:.1f} s); assoc "
-          f"{a['epochs']} epochs, {a['infeasible']} above feas_tol, "
+          f"(plain factorisation) {a['epochs']} epochs, "
+          f"{a['infeasible']} above feas_tol, "
           f"iterations {a['iterations']} ({a['seconds']:.1f} s) [{card}]",
           flush=True)
     return out
@@ -1604,12 +1754,10 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         final, met = roll(local)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = read_launches()["epoch"]
         el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
         epochs = int((met.iterations.amax(dim=(1, 2)) // el).sum())
-        if launches != epochs or epochs == 0:
-            fail(f"phase 21 (a) LPV: epoch kernel launched {launches} "
-                 f"times, the solves ran {epochs} epochs")
+        check_epoch_launches("phase 21 (a) LPV", read_launches(), epochs)
+        launches = read_launches()["epoch"]
         dx, n_int = record_diff(gather_sharded(final, mesh), lpv_ref)
         if not (dx <= TOL_ROLLOUT and n_int == 0):
             fail(f"phase 21 (a) LPV: final state vs phase 4 max |dx| {dx} "
@@ -1641,7 +1789,8 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
               f"exchange gather of the plans "
               f"{exchange_ms['gather_lpv_plans']:.3f} ms and one all-reduce "
               f"read {exchange_ms['all_reduce_read']:.3f} ms on the host, "
-              f"epoch-kernel launches {launches} = epochs; final state vs "
+              f"epoch-kernel and epoch-data launches {launches} = epochs; "
+              f"final state vs "
               f"phase 4 max |dx| {dx:.3g} (bit for bit: {dx == 0.0}) "
               f"[{card}]", flush=True)
 
@@ -1676,8 +1825,9 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
               f"B={NL_B} x {NL_STEPS} steps: {rate_nl:.2f} fleet-steps/s "
               f"(one run, epochs counted) beside phase 6's "
               f"{phase6_fleet_steps_per_s:.2f}, mean OCD iterations "
-              f"{out['nl']['mean_ocd_iterations']:.2f}, epoch-kernel "
-              f"launches {launches_nl['epoch']} = epochs; final state vs "
+              f"{out['nl']['mean_ocd_iterations']:.2f}, epoch-kernel and "
+              f"epoch-data launches {launches_nl['epoch']} = epochs; final "
+              f"state vs "
               f"phase 6 max |dx| {dx_nl:.3g} (bit for bit: {dx_nl == 0.0}) "
               f"[{card}]", flush=True)
     finally:
@@ -1728,8 +1878,10 @@ def _gloo_card_rank(rank, world, rdv, case, device, fleets, steps):
         epochs = sum(counted)
     final = gather_sharded(final, mesh)
     synchronize(dev)
+    launches = read_launches()
     return dict(final=[t.cpu().numpy() for t in final],
-                launches=read_launches()["epoch"], epochs=epochs)
+                launches=launches["epoch"],
+                launches_epoch_data=launches["epoch_data"], epochs=epochs)
 
 
 def sharded_gloo_on_card(dev, card):
@@ -1767,10 +1919,11 @@ def sharded_gloo_on_card(dev, card):
             except RuntimeError as e:
                 fail(f"phase 21 (b) {case}: {e}")
             for r, res in enumerate(ranks):
-                if res["launches"] != res["epochs"] or res["epochs"] == 0:
-                    fail(f"phase 21 (b) {case} rank {r}: epoch kernel "
-                         f"launched {res['launches']} times, the solves ran "
-                         f"{res['epochs']} epochs")
+                check_epoch_launches(
+                    f"phase 21 (b) {case} rank {r}",
+                    dict(epoch=res["launches"],
+                         epoch_data=res["launches_epoch_data"]),
+                    res["epochs"])
             diffs = [record_diff(res["final"], ref) for res in ranks]
             dx = max(d for d, _ in diffs)
             n_int = max(n for _, n in diffs)
@@ -1788,8 +1941,9 @@ def sharded_gloo_on_card(dev, card):
             print(f"phase 21 (b): {case} on a {tuple(mesh)} gloo mesh, "
                   f"{world} ranks sharing card 0: final state vs the "
                   f"single-process rollout max |dx| {dx:.3g} (tol "
-                  f"{TOL_ROLLOUT}), epoch-kernel launches per rank "
-                  f"{out[case]['launches_per_rank']} = epochs; both cases "
+                  f"{TOL_ROLLOUT}), epoch-kernel and epoch-data launches "
+                  f"per rank {out[case]['launches_per_rank']} = epochs; "
+                  f"both cases "
                   f"at once {secs:.1f} s with the ranks' start [{card}]",
                   flush=True)
     finally:
@@ -1809,7 +1963,7 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    from colaborativempc_tpu_torch.ops import _build, cuda_lqr
+    from colaborativempc_tpu_torch.ops import _build
     from colaborativempc_tpu_torch.ops.admm import default_epoch_len
     from colaborativempc_tpu_torch.runtime import make_lpv_fleet_rollout
 
@@ -1820,7 +1974,8 @@ def main():
     print(f"phase 2: kernels built in {info['seconds']:.2f} s "
           f"(built={info['built']}) -> {info['path']}", flush=True)
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if ("registers" in line or "spill" in line or "smem" in line
+                or line.startswith("==")):
             print("  ptxas:", line.strip())
 
     # phase 3: kernels vs plain twins
@@ -1836,25 +1991,40 @@ def main():
     knl = {c: check_nl_epoch(dev, c, reps=10) for c in ("eu", "hp_opt")}
     knl["hp_opt_resident"] = check_nl_epoch(dev, "hp_opt", reps=10,
                                             ring=HEADLINE["N"])
+    # phase 3c: the epoch-data kernel vs its plain version
+    print(f"phase 3c: torch {torch.__version__}, CUDA {torch.version.cuda} "
+          "(the plain version's order of operations is the card libraries' "
+          "of this build)", flush=True)
+    qp7, rs7 = k7["qp"]
+    inactive = torch.zeros_like(qp7.lo, dtype=torch.bool)
+    inactive[:, ::3, 2] = True         # row 2 unbounded at every 3rd stage
+    qp7 = qp7._replace(lo=qp7.lo.masked_fill(inactive, -torch.inf),
+                       hi=qp7.hi.masked_fill(inactive, torch.inf))
+    kdata = {"headline": check_epoch_data(dev, "headline", *k20["qp"], 20),
+             "n125": check_epoch_data(dev, "n125", *k125["qp"], 5),
+             "p7_inactive_rows": check_epoch_data(dev, "p7 inactive rows",
+                                                  qp7, rs7, 10)}
+    for c in ("eu", "hp_opt"):
+        kdata[f"nl_{c}"] = check_epoch_data(dev, f"nl {c}", *knl[c]["qp"],
+                                            10)
+    for P, N in ((18, BAT_N), (1, MPCC_N)):
+        kdata[f"mpcc_p{P}_n{N}"] = check_epoch_data(
+            dev, f"mpcc P={P} N={N}", mpcc_qps(dev, P, N)[0], 1.0, 10)
 
     # phase 4: the main path
     B, STEPS = LPV_B, LPV_STEPS
     cfg, track, state0 = fleet(dev, B)
     rollout = make_lpv_fleet_rollout(track, cfg, STEPS)
-    cuda_lqr.admm_epoch_batched.launches = 0
-    cuda_lqr.lqr_affine_solve_batched.launches = 0
+    reset_launches()
     final, (xh, uh, met) = rollout(state0)
     torch.cuda.synchronize()
-    launches = {"epoch": cuda_lqr.admm_epoch_batched.launches,
-                "affine": cuda_lqr.lqr_affine_solve_batched.launches}
+    launches = read_launches()
     if not all_finite(list(final) + [xh, uh]):
         fail("main path: a state is not finite")
     el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
     # per step the solve runs as many epochs as its slowest problem
     expected = int((met.iterations.amax(dim=(0, 2)) // el).sum())
-    if launches["epoch"] != expected or expected == 0:
-        fail(f"main path: epoch kernel launched {launches['epoch']} times, "
-             f"the solves ran {expected} epochs")
+    check_epoch_launches("phase 4 (LPV main path)", launches, expected)
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1870,7 +2040,8 @@ def main():
           f"best of 3), feasible share {feas:.4f}, mean ADMM iterations "
           f"{mean_it:.2f}, min_dist_exec {min_exec:.4f} m, epoch-kernel "
           f"launches {launches['epoch']} ({launches['epoch'] / STEPS:.2f} "
-          f"per step) [{card}]", flush=True)
+          f"per step), epoch-data kernel launches {launches['epoch_data']} "
+          f"[{card}]", flush=True)
 
     secs["phases 3-4"] = time.perf_counter() - t_phase
     print(f"phases 3-4 took {secs['phases 3-4']:.1f} s", flush=True)
@@ -1972,6 +2143,31 @@ def main():
              library_ms=None, plan=k20["affine"]["plan"],
              shapes=shapes("affine", n125=k125,
                            n125_resident=k125_resident, p7=k7)),
+        dict(name="epoch_data_batched", route="cuda",
+             source="colaborativempc_tpu_torch/csrc/epoch_data.cu",
+             replaces=("colaborativempc_tpu/ops/admm.py:159 "
+                       "(admm_epoch_inputs: XLA, not Pallas)"),
+             launches=sum(EPOCH_DATA_LAUNCHES.values()),
+             launches_by_run=dict(EPOCH_DATA_LAUNCHES),
+             launches_per_step_lpv=launches["epoch_data"] / STEPS,
+             launches_per_step_nl=nl_path["launches"]["epoch_data"]
+             / NL_STEPS,
+             max_abs_err=kdata["headline"]["max_abs_err"],
+             max_rel_err=kdata["headline"]["max_rel_err"],
+             ms=kdata["headline"]["ms"],
+             plain_ms=kdata["headline"]["plain_ms"],
+             bound_ms=kdata["headline"]["bound_ms"],
+             bound_by=kdata["headline"]["bound_by"],
+             roofline_share=kdata["headline"]["roofline_share"],
+             max_rel_err_vs_f64=kdata["headline"]["max_rel_err_vs_f64"],
+             plain_max_rel_err_vs_f64=kdata["headline"][
+                 "plain_max_rel_err_vs_f64"],
+             library_ms=None, plan=kdata["headline"]["plan"],
+             torch_version=torch.__version__, cuda_version=torch.version.cuda,
+             shapes={tag: {k: r[k] for k in keys + (
+                 "max_rel_err", "max_rel_err_vs_f64",
+                 "plain_max_rel_err_vs_f64", "compared_as_batch")}
+                     for tag, r in kdata.items() if tag != "headline"}),
     ]
     print(json.dumps({"main_path": {
         "card": card, "solves_per_s": solves_per_s, "ms_per_step": best * 1e3,

@@ -1,10 +1,14 @@
-"""Build and load the hand-written CUDA kernels (``csrc/lqr_kernels.cu``).
+"""Build and load the hand-written CUDA kernels (every ``csrc/*.cu``:
+``lqr_kernels.cu``, the ADMM epoch and the affine solve; ``epoch_data.cu``,
+the epoch's fixed data).
 
-``nvcc`` compiles the source into a shared library with a plain C interface,
-loaded with ``ctypes`` — no PyTorch headers, so the build takes seconds.
-The library goes under ``colaborativempc_tpu_torch/_build/``, named by a hash
-of the source and the flags, so a changed source is rebuilt and an unchanged
-one is reused. Nothing is built at import: the first CUDA launch builds.
+``nvcc`` compiles each source into an object, all sources at once (one
+process each), and links the objects into one shared library with a plain
+C interface, loaded with ``ctypes`` — no PyTorch headers, so the build
+takes seconds. Every source is compiled with the same flags. The library
+goes under ``colaborativempc_tpu_torch/_build/``, named by a hash of the
+sources and the flags, so a changed source is rebuilt and an unchanged one
+is reused. Nothing is built at import: the first CUDA launch builds.
 """
 
 from __future__ import annotations
@@ -19,12 +23,12 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lqr_kernels.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 # Full FP32 on CUDA cores: no --use_fast_math (the ADMM prox relies on inf
 # comparisons, the Riccati chain is rounding-sensitive).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,13 +50,14 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lqr_kernels_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"cmpc_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile the kernels unless the library for this source exists.
+    """Compile the kernels unless the library for these sources exists.
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` holds nvcc's
     output (register and shared-memory use from ``-Xptxas -v``)."""
     out = library_path()
@@ -61,15 +66,35 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(out), "seconds": 0.0, "built": False, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [f"== {src.name}\n" + proc.communicate()[0]
+                for src, proc in zip(SOURCES, procs)]
+        failed = [src.name for src, proc in zip(SOURCES, procs)
+                  if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append("== link\n" + link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed = ["link"]
+        log = "".join(logs)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return {"path": str(out), "seconds": seconds, "built": True, "log": log}
@@ -84,4 +109,7 @@ def load() -> ctypes.CDLL:
     lib.cmpc_admm_epoch.restype = _I
     lib.cmpc_lqr_affine.argtypes = [_P] * 12 + [_I] * 7 + [_P]
     lib.cmpc_lqr_affine.restype = _I
+    lib.cmpc_epoch_data.argtypes = ([_P] * 22 + [_I] * 5
+                                    + [ctypes.c_float] * 2 + [_I] * 2 + [_P])
+    lib.cmpc_epoch_data.restype = _I
     return lib

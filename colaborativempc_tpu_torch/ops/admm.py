@@ -14,9 +14,16 @@ Problem:
 
 Soft bounds carry a quadratic violation weight that only enters the
 closed-form prox of the w-step, never the Riccati matrices. Each
-refactorisation epoch runs ``ops/cuda_lqr.py admm_epoch_batched``: the CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors; on CPU tensors
-``assoc=True`` runs :func:`admm_epoch_assoc` instead (see
+refactorisation epoch first derives its fixed data
+(:func:`admm_epoch_inputs`: the rho-augmented cost, its Riccati
+factorisation and the prox factors). On CUDA tensors that is one launch of
+the CUDA kernel ``ops/cuda_lqr.py epoch_data_batched``
+(``csrc/epoch_data.cu``); on CPU tensors its plain version
+:func:`admm_epoch_inputs_plain`, batched torch around ``ops/lqr.py
+lqr_factorize``, as it was plain XLA in JAX. Then the epoch runs
+``ops/cuda_lqr.py admm_epoch_batched``: the CUDA kernel for CUDA tensors,
+its plain twin for CPU tensors; on CPU tensors ``assoc=True`` runs
+:func:`admm_epoch_assoc` instead, which keeps the plain factorisation (see
 :func:`admm_solve`). Between epochs the per-row-class rho is rescaled
 OSQP-style, in torch.
 
@@ -34,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from colaborativempc_tpu_torch.ops.cuda_lqr import (
-    admm_epoch_batched, admm_epoch_batched_plain,
+    admm_epoch_batched, admm_epoch_batched_plain, epoch_data_batched,
 )
 from colaborativempc_tpu_torch.ops.lqr import (
     LQRCost, LQRDynamics, lqr_affine_solve_assoc, lqr_factorize,
@@ -95,8 +102,11 @@ def build_admm_cost(qp: StageQP, rho) -> LQRCost:
 class ADMMEpochData(NamedTuple):
     """Everything one ADMM epoch needs besides the (w, y) state — the
     factorisation and constraint data fixed across the epoch's iterations,
-    with a leading batch axis P. Produced by :func:`admm_epoch_inputs`,
-    consumed by ``ops/cuda_lqr.py admm_epoch_batched`` (kernel and twin).
+    with a leading batch axis P. Produced by :func:`admm_epoch_inputs`: on
+    the card by the CUDA kernel ``ops/cuda_lqr.py epoch_data_batched``
+    (``csrc/epoch_data.cu``), on the CPU by its plain version
+    :func:`admm_epoch_inputs_plain`. Consumed by ``ops/cuda_lqr.py
+    admm_epoch_batched`` (kernel and twin).
     """
     F: torch.Tensor        # (P, N, nz, nz) dynamics
     G: torch.Tensor        # (P, N, nz, nc)
@@ -151,13 +161,29 @@ def _epoch_data(qp: StageQP, rho, rho_scale, reg):
     return data, fac
 
 
+def admm_epoch_inputs_plain(qp: StageQP, rho: float = 10.0,
+                            rho_scale=1.0, reg: float = 1e-8
+                            ) -> ADMMEpochData:
+    """Plain version of :func:`admm_epoch_inputs` on any device: batched
+    torch around ``ops/lqr.py lqr_factorize``. Every field is contiguous,
+    as the epoch kernel takes it."""
+    data, _ = _epoch_data(qp, rho, rho_scale, reg)
+    return ADMMEpochData(*(t.contiguous() for t in data))
+
+
 def admm_epoch_inputs(qp: StageQP, rho: float = 10.0,
                       rho_scale=1.0, reg: float = 1e-8) -> ADMMEpochData:
     """Factorise and precompute one epoch's fixed data for the per-row rho
-    multipliers ``rho_scale`` (scalar, ``(m,)`` or ``(P, m)``). Every field
-    is contiguous, as the kernel takes it."""
-    data, _ = _epoch_data(qp, rho, rho_scale, reg)
-    return ADMMEpochData(*(t.contiguous() for t in data))
+    multipliers ``rho_scale`` (scalar, ``(m,)`` or ``(P, m)``).
+
+    On CPU tensors: :func:`admm_epoch_inputs_plain`. On CUDA tensors: one
+    launch of ``ops/cuda_lqr.py epoch_data_batched``, which raises on a
+    tensor it cannot take (dtype, shape, layout); there is no fallback to
+    the plain version. Every field is contiguous, as the epoch kernel takes
+    it."""
+    if qp.lo.device.type == "cpu":
+        return admm_epoch_inputs_plain(qp, rho, rho_scale, reg)
+    return ADMMEpochData(*epoch_data_batched(qp, rho, rho_scale, reg))
 
 
 def admm_epoch_assoc(qp: StageQP, z0: torch.Tensor, w0: torch.Tensor,
@@ -168,8 +194,9 @@ def admm_epoch_assoc(qp: StageQP, z0: torch.Tensor, w0: torch.Tensor,
     ``ops/lqr.py lqr_affine_solve_assoc``: the XLA epoch of JAX
     ``admm_solve`` with ``assoc=True`` (``admm.py:361-405``), Cholesky
     solves included. It is the kernel's plain twin's iteration with that
-    affine solve in place of the sequential one. Plain torch on any device;
-    returns what ``admm_epoch_batched`` returns: ``z, c, w, y,
+    affine solve in place of the sequential one. Plain torch on any device,
+    with the plain factorisation (the affine solves need its Cholesky
+    factors); returns what ``admm_epoch_batched`` returns: ``z, c, w, y,
     r_prim (P, mr), r_dual (P, mr)``."""
     data, fac = _epoch_data(qp, rho, rho_scale, reg)
 

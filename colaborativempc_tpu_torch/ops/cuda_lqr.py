@@ -1,24 +1,30 @@
-"""Hand-written CUDA kernels for the batched LQR affine pass and the whole
-ADMM epoch, each beside its plain PyTorch twin.
+"""Hand-written CUDA kernels for the batched LQR affine pass, the whole
+ADMM epoch and the epoch's fixed data, the first two beside their plain
+PyTorch twins.
 
 Counterpart of ``colaborativempc_tpu/ops/pallas_lqr.py``. The kernels live
-in ``csrc/lqr_kernels.cu`` (design notes there) and are built by
-``ops/_build.py`` at the first CUDA launch.
+in ``csrc/lqr_kernels.cu`` and ``csrc/epoch_data.cu`` (design notes there)
+and are built by ``ops/_build.py`` at the first CUDA launch.
 
 A wrapper launches its kernel for CUDA tensors and runs its ``*_plain`` twin
 for CPU tensors; a CUDA tensor it cannot take (wrong dtype, shape, layout or
 device) raises — there is no fallback from the CUDA path to the plain one.
-Each wrapper counts its kernel launches in a plain integer attribute
-(``admm_epoch_batched.launches``, ``lqr_affine_solve_batched.launches``),
-incremented only where the kernel is launched.
+:func:`epoch_data_batched` takes CUDA tensors only: its plain version is
+``ops/admm.py admm_epoch_inputs_plain``, and ``ops/admm.py
+admm_epoch_inputs`` picks one of the two by device. Each wrapper counts its
+kernel launches in a plain integer attribute
+(``admm_epoch_batched.launches``, ``lqr_affine_solve_batched.launches``,
+``epoch_data_batched.launches``), incremented only where the kernel is
+launched.
 
 Layout: row-major with the batch of problems first, ``(P, N, ...)``;
-``Quu_inv`` is the explicit inverse of the 2x2 ``Quu`` (as in the Pallas
-kernels).
+``Quu_inv`` is the explicit inverse of the nc x nc ``Quu`` (as in the
+Pallas kernels).
 
-:func:`kernel_plan` chooses each launch's QPs per block, ring depth and
-shared-memory bytes from the shapes and the card's SM count; it is plain
-Python, so the CPU tests reach it.
+:func:`kernel_plan` chooses each epoch or affine launch's QPs per block,
+ring depth and shared-memory bytes from the shapes and the card's SM count;
+:func:`epoch_data_plan` the epoch-data launch's threads and shared memory.
+Both are plain Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -305,3 +311,144 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
 
 
 admm_epoch_batched.launches = 0
+
+
+# --- the epoch's fixed data (csrc/epoch_data.cu) -----------------------------
+
+MAX_THREADS_EPOCH_DATA = 256
+
+
+class EpochDataPlan(NamedTuple):
+    """One epoch-data launch's geometry: one block of ``threads`` per QP
+    (one thread per entry of an nz x nz matrix, up to 256, each striding
+    over the rest), ``smem_bytes`` of dynamic shared memory per block,
+    ``blocks_per_sm`` resident at once, and ``waves``, the rounds of
+    blocks the card runs one after another."""
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int
+    waves: int
+
+
+def epoch_data_floats(nz: int, nc: int, mr: int) -> int:
+    """Floats of one block's shared memory (``data_block_floats`` of
+    ``csrc/epoch_data.cu``): two slots of one stage's inputs, P, P F, Qxx,
+    P G, Qxu, Quu, its factor and the reciprocals of its diagonal, the
+    gains and the per-row work."""
+    stage = 2 * nz * nz + 2 * nz * nc + nc * nc + nz + mr * (nz + nc + 4)
+    return (2 * stage + 3 * nz * nz + 2 * nz * nc + 2 * nc * nc + nc
+            + nc * nz + mr * (2 + 2 * nz + 2 * nc))
+
+
+def epoch_data_plan(P: int, N: int, nz: int, nc: int, mr: int,
+                    sms: int = H100_SMS) -> EpochDataPlan:
+    """The launch plan of :func:`epoch_data_batched` for P QPs of horizon N:
+    the threads of a block are the nz x nz entries rounded up to whole
+    warps (at least the nz gain columns and nc inverse columns the solve
+    step gives a thread each), at most 256; the shared memory does not
+    depend on N (stages stream through two slots). Raises on dimensions
+    the kernel does not take (nz, nc, mr in 1..32, P, N >= 1)."""
+    if not (P >= 1 and N >= 1 and 1 <= nz <= 32 and 1 <= nc <= 32
+            and 1 <= mr <= 32):
+        raise ValueError(f"P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}: the "
+                         "epoch-data kernel takes P, N >= 1 and nz, nc, mr "
+                         "in 1..32")
+    threads = min(MAX_THREADS_EPOCH_DATA,
+                  -(-max(nz * nz, nz + nc) // 32) * 32)
+    smem = 4 * epoch_data_floats(nz, nc, mr)
+    per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // (threads // 32),
+                 SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+    return EpochDataPlan(threads, smem, per_sm, -(-P // (sms * per_sm)))
+
+
+def epoch_data_traffic(P: int, N: int, nz: int, nc: int, mr: int):
+    """Bytes and FP32 operations of one epoch-data launch, the least the
+    function needs. Bytes: each input the kernel reads (F, G, d, Q over N+1
+    stages, R, S, D, E, lo, hi, both soft weights, rho_scale) once and each
+    output it writes (K, Quu_inv, Qxu, m, the masked D and E, rv, fac_lo,
+    fac_hi) once, in float32; q, r and the QP's own F, G, d, lo, hi pass
+    through unread. Operations per stage, a multiply-add counted as 2: the
+    augmentation D'diag(rv)D, D'diag(rv)E, E'diag(rv)E with the rows'
+    masking and weighting; P F, F'(P F), P G, F'(P G), G'(P G), P d and
+    the additions of the terms; the symmetrised Quu, its Cholesky and the
+    solves of the nz gain columns and nc inverse columns; P = sym(Qxx +
+    Qxu K); the rows' rv and prox factors."""
+    per_stage_in = (2 * nz * nz + 2 * nz * nc + nc * nc + nz
+                    + mr * (nz + nc + 4))
+    inputs = N * per_stage_in + nz * nz + mr
+    outputs = N * (2 * nz * nc + nc * nc + nz + mr * (nz + nc + 3))
+    nbytes = 4.0 * P * (inputs + outputs)
+    per_stage = (2 * mr * (nz * nz + nz * nc + nc * nc)
+                 + 2 * mr * (nz + nc)
+                 + 4 * nz ** 3 + 4 * nz * nz * nc + 2 * nz * nc * nc
+                 + 2 * nz * nz
+                 + 2 * (nz * nz + nz * nc + nc * nc)
+                 + 2 * nc * nc + nc ** 3 // 3 + 2 * nc * nc * (nz + nc)
+                 + 2 * nz * nz * nc + 3 * nz * nz
+                 + 10 * mr)
+    return nbytes, float(P) * N * per_stage
+
+
+def epoch_data_batched(qp, rho: float = 10.0, rho_scale=1.0,
+                       reg: float = 1e-8):
+    """The fixed data of one ADMM epoch for a batch of stage QPs on the
+    card, in one launch of ``cmpc_epoch_data``.
+
+    Args:
+      qp: an ``ops/admm.py StageQP`` of contiguous float32 CUDA tensors
+        with a leading batch axis P (soft weights may be None: hard rows).
+      rho: the base penalty (a number); ``rho_scale``: per-row multipliers,
+        a scalar, ``(mr,)`` or ``(P, mr)``; ``reg``: the regularisation of
+        ``Quu``.
+    Returns:
+      the fields of ``ops/admm.py ADMMEpochData`` in its order: the QP's
+      own F, G, d, q, r, lo, hi (the same tensors) and the kernel's K,
+      Quu_inv, Qxu, m, masked D and E, rv, fac_lo, fac_hi.
+    """
+    dev = _cuda_device(qp.lo)
+    F, G, d = qp.dyn.F, qp.dyn.G, qp.dyn.d
+    P, N, mr = qp.lo.shape
+    nz, nc = F.shape[-1], G.shape[-1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = epoch_data_plan(P, N, nz, nc, mr, sms=sms)
+    row = (P, N, mr)
+    args = dict(F=F, G=G, d=d, Q=qp.cost.Q, R=qp.cost.R, S=qp.cost.S,
+                D=qp.D, E=qp.E, lo=qp.lo, hi=qp.hi, soft_lo=qp.soft_lo,
+                soft_hi=qp.soft_hi)
+    shapes = dict(F=(P, N, nz, nz), G=(P, N, nz, nc), d=(P, N, nz),
+                  Q=(P, N + 1, nz, nz), R=(P, N, nc, nc), S=(P, N, nz, nc),
+                  D=(P, N, mr, nz), E=(P, N, mr, nc), lo=row, hi=row,
+                  soft_lo=row, soft_hi=row)
+    for k, shape in shapes.items():
+        if args[k] is not None:
+            _check(k, args[k], shape, dev)
+    _check("q", qp.cost.q, (P, N + 1, nz), dev)
+    _check("r", qp.cost.r, (P, N, nc), dev)
+    rs = torch.broadcast_to(torch.as_tensor(rho_scale, dtype=torch.float32,
+                                            device=dev), (P, mr)).contiguous()
+    from colaborativempc_tpu_torch.ops import _build
+    lib = _build.load()
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    K, Qi, Qxu, m = out(P, N, nc, nz), out(P, N, nc, nc), out(P, N, nz, nc), \
+        out(P, N, nz)
+    Dm, Em, rv, flo, fhi = (out(P, N, mr, nz), out(P, N, mr, nc), out(*row),
+                            out(*row), out(*row))
+    null = ctypes.c_void_p(None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cmpc_epoch_data(
+            *[null if args[k] is None else _ptr(args[k]) for k in shapes],
+            _ptr(rs), _ptr(K), _ptr(Qi), _ptr(Qxu), _ptr(m), _ptr(Dm),
+            _ptr(Em), _ptr(rv), _ptr(flo), _ptr(fhi), P, N, nz, nc, mr,
+            ctypes.c_float(rho), ctypes.c_float(reg), plan.threads,
+            plan.smem_bytes, ctypes.c_void_p(stream))
+    _raise_on(err, "epoch_data_batched")
+    epoch_data_batched.launches += 1
+    return (F, G, d, K, Qi, Qxu, m, qp.cost.q, qp.cost.r, Dm, Em, qp.lo,
+            qp.hi, rv, flo, fhi)
+
+
+epoch_data_batched.launches = 0

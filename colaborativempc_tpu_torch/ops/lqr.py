@@ -9,9 +9,15 @@ Every array carries a leading batch axis P (the JAX functions are per
 problem and vmapped); ``lax.scan`` over stages is a Python loop of batched
 ``(P, nz, nz)`` products.
 
-The factorisation is plain batched torch, as it was plain XLA in JAX. The
-2x2 ``Quu`` factor uses ``torch.linalg.cholesky_ex`` (no host sync to check
-for errors, unlike ``torch.linalg.cholesky``) and ``torch.cholesky_solve``.
+``lqr_factorize`` is plain batched torch, as it was plain XLA in JAX. On
+the card the ADMM epoch does not call it: its factorisation is the CUDA
+kernel ``ops/cuda_lqr.py epoch_data_batched`` (``csrc/epoch_data.cu``),
+and ``lqr_factorize`` is that kernel's plain version's (``ops/admm.py
+admm_epoch_inputs_plain``), run on CPU tensors and by the associative
+epoch. The nc x nc ``Quu`` factor uses ``torch.linalg.cholesky_ex`` (no
+host sync to check for errors, unlike ``torch.linalg.cholesky``) and
+``torch.cholesky_solve``; a ``Quu`` that is not positive definite gives a
+NaN factor, as JAX's ``cholesky`` does.
 
 Problem (z = state, c = control):
 
@@ -67,6 +73,9 @@ def lqr_factorize(dyn: LQRDynamics, cost: LQRCost,
     N = dyn.F.shape[1]
     nc = dyn.G.shape[-1]
     eye = torch.eye(nc, dtype=dyn.F.dtype, device=dyn.F.device)
+    # JAX's cholesky of a matrix that is not positive definite: NaN below
+    # the diagonal, 0 above (cholesky_ex leaves a partial factor instead)
+    failed = torch.full_like(eye, torch.nan).tril()
     P = cost.Q[:, N]
     Ks, Ls, Qxus, ms = [None] * N, [None] * N, [None] * N, [None] * N
     for k in range(N - 1, -1, -1):
@@ -78,7 +87,8 @@ def lqr_factorize(dyn: LQRDynamics, cost: LQRCost,
         Quu = cost.R[:, k] + G.transpose(-1, -2) @ PG
         Qxu = cost.S[:, k] + FT @ PG
         Quu = _sym(Quu) + reg * eye
-        L, _ = torch.linalg.cholesky_ex(Quu)
+        L, info = torch.linalg.cholesky_ex(Quu)
+        L = torch.where((info != 0)[:, None, None], failed, L)
         K = -torch.cholesky_solve(Qxu.transpose(-1, -2), L)
         ms[k] = _mv(P, dyn.d[:, k])
         P = _sym(Qxx + Qxu @ K)

@@ -1,8 +1,9 @@
 """How far rounding alone moves the NL-OCD closed loop: the B=2 x 3-step
-rollout of ``chip_smoke.py`` phase 7 on the card, once with the epoch
-kernel and once with the epoch's plain twin on the card's tensors (the
-algebra of the CPU path, only the card's rounding), each against the CPU
-path.
+rollout of ``chip_smoke.py`` phase 7 on the card, with each epoch's two
+steps, its fixed data (``admm_epoch_inputs``) and its iterations
+(``admm_epoch_batched``), each either the CUDA kernel or the plain version
+on the card's tensors (the algebra of the CPU path, only the card's
+rounding), in the four combinations, each against the CPU path.
 
     python -m colaborativempc_tpu_torch.scripts.rounding_control
 
@@ -31,18 +32,26 @@ def main(argv=None):
     from colaborativempc_tpu_torch.ops import admm, cuda_lqr
     from colaborativempc_tpu_torch.utils import resolve_device
     dev = resolve_device("cuda")
-    kernel = admm.admm_epoch_batched
+    inputs, epoch = admm.admm_epoch_inputs, admm.admm_epoch_batched
+    variants = (
+        ("both kernels", inputs, epoch),
+        ("epoch-data kernel, plain epoch on the card", inputs,
+         cuda_lqr.admm_epoch_batched_plain),
+        ("plain epoch data on the card, epoch kernel",
+         admm.admm_epoch_inputs_plain, epoch),
+        ("both plain on the card", admm.admm_epoch_inputs_plain,
+         cuda_lqr.admm_epoch_batched_plain))
     for coupling, sweep in (("eu", "jacobi"), ("hp_opt", "gauss_seidel")):
         x_cpu, its_cpu = rollout(coupling, sweep, torch.device("cpu"),
                                  args.steps)
-        for name, epoch in (("kernel", kernel),
-                            ("plain twin on the card",
-                             cuda_lqr.admm_epoch_batched_plain)):
-            admm.admm_epoch_batched = epoch
+        for name, inputs_fn, epoch_fn in variants:
+            admm.admm_epoch_inputs = inputs_fn
+            admm.admm_epoch_batched = epoch_fn
             try:
                 x, its = rollout(coupling, sweep, dev, args.steps)
             finally:
-                admm.admm_epoch_batched = kernel
+                admm.admm_epoch_inputs, admm.admm_epoch_batched = (inputs,
+                                                                   epoch)
             print(f"{coupling}/{sweep}, {name}: max |dx_pred| vs the CPU "
                   f"path {float((x - x_cpu).abs().max()):.4g}, OCD "
                   f"iterations equal: {bool(torch.equal(its, its_cpu))} "

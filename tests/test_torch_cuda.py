@@ -10,7 +10,11 @@ installed:
 
 Tolerances are those the JAX package holds its Pallas kernels to
 (tests/test_ops.py): 5e-5 for the affine solve; 1e-3 on z/c/w/y and 1e-4
-on the residuals for the epoch; 1e-3 on a rollout's plans.
+on the residuals for the epoch; 1e-3 on a rollout's plans. The epoch-data
+kernel (``csrc/epoch_data.cu``) holds each field of its output within 1e-4
+of the plain version's, relative to the larger of 1 and the field's max
+|value| (float32 rounding over an N-stage Riccati chain, as
+``chip_smoke.py`` phase 3c).
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ from colaborativempc_tpu_torch.ops import (
     ADMMEpochData, LQRCost, LQRDynamics, StageQP, admm_epoch_inputs,
     admm_solve, cuda_lqr,
 )
+from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
 
 # a small fixed thread count: the suite runs several worker processes on
 # one host
@@ -140,11 +145,15 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_cuda_admm_solve_runs_one_launch_per_epoch(cuda):
+    """One launch of the epoch kernel and one of the epoch-data kernel per
+    epoch."""
     qp, z0, _, _ = problems(54, P=16, N=20)
     before = cuda_lqr.admm_epoch_batched.launches
+    before_data = cuda_lqr.epoch_data_batched.launches
     sol = admm_solve(to(qp, cuda), z0.to(cuda), iters=300, epoch_len=20)
     launches = cuda_lqr.admm_epoch_batched.launches - before
     assert launches == int(sol.iterations.max()) // 20 >= 1
+    assert cuda_lqr.epoch_data_batched.launches - before_data == launches
     ref = admm_solve(qp, z0, iters=300, epoch_len=20)
     np.testing.assert_array_equal(sol.feasible.cpu().numpy(),
                                   ref.feasible.numpy())
@@ -307,9 +316,11 @@ def test_cuda_admm_solve_runs_the_kernel_whatever_assoc_says(cuda):
     qp, z0, _, _ = problems(56, P=3, N=60)
     qp, z0 = to(qp, cuda), z0.to(cuda)
     before = cuda_lqr.admm_epoch_batched.launches
+    before_data = cuda_lqr.epoch_data_batched.launches
     a = admm_solve(qp, z0, iters=150, epoch_len=15, assoc=True)
     launches = cuda_lqr.admm_epoch_batched.launches - before
     assert launches == int(a.iterations.max()) // 15 >= 1
+    assert cuda_lqr.epoch_data_batched.launches - before_data == launches
     b = admm_solve(qp, z0, iters=150, epoch_len=15, assoc=False)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -331,3 +342,83 @@ def test_cuda_mpcc_race_matches_cpu(cuda):
     (fg, mg), (fc, mc) = out["cuda"], out["cpu"]
     close(fg.x, fc.x, 1e-3)
     assert torch.equal(mg.reset.cpu(), mc.reset)
+
+
+def close_to_scale(got, ref, tol):
+    """Each field within ``tol`` of the reference, relative to the larger
+    of 1 and the reference field's max |finite value|; NaN and infinite
+    entries (unbounded rows' lo, hi) exactly where the reference has
+    them."""
+    for f, g, r in zip(ADMMEpochData._fields, got, ref):
+        g, r = g.double().cpu(), r.double().cpu()
+        fin = torch.isfinite(r)
+        assert torch.equal(fin, torch.isfinite(g)), f
+        assert torch.equal(g[~fin].nan_to_num(), r[~fin].nan_to_num()), f
+        if bool(fin.any()):
+            scale = max(1.0, float(r[fin].abs().max()))
+            err = float((g[fin] - r[fin]).abs().max())
+            assert err <= tol * scale, (f, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,nc,mr,soft", [
+    (37, 20, 2, 6, True),     # the LPV / NL eu rows
+    (5, 125, 2, 6, True),     # the long horizon
+    (9, 20, 6, 10, True),     # NL hp_opt: a 6x6 Cholesky
+    (3, 60, 2, 7, False),     # MPCC's rows, no soft weights (hard rows)
+])
+def test_cuda_epoch_data_kernel_matches_plain_version(cuda, P, N, nc, mr,
+                                                      soft):
+    """``admm_epoch_inputs`` on the card (one launch of the epoch-data
+    kernel) against its plain version on the same CUDA tensors, with a
+    per-problem rho_scale, unbounded, one-sided and soft rows."""
+    qp, _, _, _ = problems(70 + N + nc, P=P, N=N, nc=nc, mr=mr)
+    qp = to(qp, cuda)
+    if not soft:
+        qp = qp._replace(soft_lo=None, soft_hi=None)
+    scale = torch.linspace(0.5, 2.0, P * mr, device=cuda).reshape(P, mr)
+    before = cuda_lqr.epoch_data_batched.launches
+    got = admm_epoch_inputs(qp, 10.0, scale)
+    torch.cuda.synchronize()
+    assert cuda_lqr.epoch_data_batched.launches == before + 1
+    ref = admm_epoch_inputs_plain(qp, 10.0, scale)
+    assert all(t.is_contiguous() and t.is_cuda for t in got)
+    assert bool((got.rv == 0).any())
+    close_to_scale(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_data_kernel_gives_nan_where_quu_is_indefinite(cuda):
+    """A stage whose Quu is not positive definite: NaN at the same places
+    as the plain version (that stage's K and Quu_inv, every earlier
+    stage's data), the same values elsewhere."""
+    qp, _, _, _ = problems(71, P=4, N=12)
+    R = qp.cost.R.clone()
+    R[:, 5] = -100.0 * torch.eye(2)
+    qp = to(qp._replace(cost=qp.cost._replace(R=R)), cuda)
+    got = admm_epoch_inputs(qp, 10.0)
+    ref = admm_epoch_inputs_plain(qp, 10.0)
+    assert bool(torch.isnan(got.K[:, :6]).all())
+    assert bool(torch.isfinite(got.K[:, 6:]).all())
+    close_to_scale(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_data_refuses_what_the_kernel_does_not_take(cuda):
+    """float64, a transposed (non-contiguous) field, a wrong shape and a
+    field left on the CPU each raise before any launch; nothing falls back
+    to the plain version."""
+    qp, _, _, _ = problems(72, P=5, N=8)
+    qp = to(qp, cuda)
+    before = cuda_lqr.epoch_data_batched.launches
+    with pytest.raises(TypeError, match="float32"):
+        admm_epoch_inputs(to(qp, cuda)._replace(
+            dyn=LQRDynamics(*(t.double() for t in qp.dyn))))
+    with pytest.raises(ValueError, match="not contiguous"):
+        admm_epoch_inputs(qp._replace(
+            dyn=qp.dyn._replace(F=qp.dyn.F.transpose(-1, -2))))
+    with pytest.raises(ValueError, match="shape"):
+        admm_epoch_inputs(qp._replace(D=qp.D[..., :4].contiguous()))
+    with pytest.raises(ValueError, match="expected cuda"):
+        admm_epoch_inputs(qp._replace(hi=qp.hi.cpu()))
+    assert cuda_lqr.epoch_data_batched.launches == before

@@ -3,7 +3,9 @@
 - The port's entry points and builders default to the card and raise
   without one.
 - ``ops/cuda_lqr.py kernel_plan``: QPs per block, ring depth and
-  shared-memory bytes at the shapes the planners hand the kernels.
+  shared-memory bytes at the shapes the planners hand the kernels;
+  ``epoch_data_plan``: the epoch-data kernel's threads, shared memory and
+  waves, and the dimensions it refuses.
 - The closed-loop form of the sweeps (``A_cl = F + G K``,
   ``D_cl = D + E K``, the feedforward off the chain: one matvec per chain
   step), written here in float64 numpy, against the plain twins
@@ -27,7 +29,8 @@ from colaborativempc_tpu_torch.ops import (
     LQRCost, LQRDynamics, StageQP, admm_epoch_inputs, cuda_lqr,
 )
 from colaborativempc_tpu_torch.ops.cuda_lqr import (
-    SMEM_PER_BLOCK, kernel_plan, qp_floats,
+    H100_SMS, SMEM_PER_BLOCK, epoch_data_floats, epoch_data_plan,
+    kernel_plan, qp_floats,
 )
 from colaborativempc_tpu_torch.geometry import make_track, spline
 from colaborativempc_tpu_torch.parallel import (
@@ -231,6 +234,56 @@ def test_kernel_plan_pins_a_ring_and_a_ragged_block():
     assert rag.qps_per_block == 4 and 7 % rag.qps_per_block != 0
     with pytest.raises(ValueError, match="no launch plan fits"):
         kernel_plan(4, 1000, 11, 2, 6, ring=1000)
+
+
+# (P, N, nz, nc, mr) of the epoch-data kernel: the LPV headline, NL hp_opt,
+# the MPCC race and battery, the long horizon, a batch past one wave, and
+# the widest state the kernel takes (more entries than a block's threads).
+DATA_PLAN_SHAPES = {
+    "lpv_headline": (768, 20, 11, 2, 6),
+    "hp_opt": (768, 20, 11, 6, 10),
+    "mpcc_race": (1, 60, 11, 2, 7),
+    "mpcc_battery": (18, 20, 11, 2, 7),
+    "n125": (768, 125, 11, 2, 6),
+    "p4096": (4096, 20, 11, 2, 6),
+    "nz32": (64, 20, 32, 32, 32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DATA_PLAN_SHAPES))
+def test_epoch_data_plan_threads_smem_and_waves(name):
+    """One block per QP: the nz x nz entries rounded up to whole warps, at
+    most 256 threads, never fewer than the nz + nc columns of the solve
+    step; shared memory of two stage slots and the work, whatever N and P;
+    the waves from the blocks resident per SM."""
+    P, N, nz, nc, mr = DATA_PLAN_SHAPES[name]
+    plan = epoch_data_plan(P, N, nz, nc, mr)
+    assert plan.threads % 32 == 0 and nz + nc <= plan.threads <= 256
+    assert plan.threads == min(256, -(-max(nz * nz, nz + nc) // 32) * 32)
+    assert plan.smem_bytes == 4 * epoch_data_floats(nz, nc, mr)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert epoch_data_plan(1, 1, nz, nc, mr).smem_bytes == plan.smem_bytes
+    assert 1 <= plan.blocks_per_sm <= 32
+    assert plan.blocks_per_sm * plan.threads // 32 <= 64
+    assert plan.waves == -(-P // (H100_SMS * plan.blocks_per_sm))
+    if name in ("lpv_headline", "hp_opt", "n125", "mpcc_race"):
+        assert plan.threads == 128 and plan.waves == 1
+    if name == "p4096":
+        assert plan.waves == 2
+    if name == "nz32":
+        assert plan.threads == 256
+
+
+@pytest.mark.parametrize("P,N,nz,nc,mr", [(0, 20, 11, 2, 6),
+                                           (8, 0, 11, 2, 6),
+                                           (8, 20, 33, 2, 6),
+                                           (8, 20, 11, 0, 6),
+                                           (8, 20, 11, 2, 0),
+                                           (8, 20, 11, 2, 33)])
+def test_epoch_data_plan_refuses_what_the_kernel_does_not_take(P, N, nz, nc,
+                                                               mr):
+    with pytest.raises(ValueError, match="epoch-data kernel takes"):
+        epoch_data_plan(P, N, nz, nc, mr)
 
 
 # --- the closed-loop algebra in float64 --------------------------------------
