@@ -32,6 +32,17 @@ and checks them:
    are printed beside the check); both also read against the plain
    version in float64 on the card. Phases 3, 3b and 13 feed the epoch
    kernel the plain version's data, as before;
+3d. the SQP build kernels (``csrc/sqp_qp.cu``: ``build_nl_qp`` and
+   ``build_mpcc_qp`` on the card) against their plain versions on the card,
+   field by field, each within 1e-4 of the larger of 1 and the field's max
+   |value|, with the entries whose bits differ (none expected: the kernels
+   follow the plain versions' order of operations, the card's cuBLAS order
+   for the matrix-vector products and torch.func's forward-mode rules) and
+   both read against the plain version in float64: NL eu, hp and hp_opt
+   (192 QPs, N=20), eu at N=125, eu with per-problem lanes on Oval2, eu
+   and hp_opt at the velocity gate's edges with a NaN, MPCC P=1/N=60 (as a
+   batch of two), P=18/N=20 and at the slip floor's edges with a NaN; with
+   each kernel's time, the plain version's and the bound;
 4. the LPV path: launch counts reset, one 20-step rollout, every state
    finite, the epoch kernel and the epoch-data kernel each launched once
    per ADMM epoch the solves ran; then solves/s as the best of 3
@@ -50,7 +61,9 @@ and checks them:
    latency;
 9. the layer split of an LPV step (B=256), of an NL-OCD step (B=64) and
    of an MPCC race step at N=60: milliseconds per control step in each
-   layer, from synchronised host timers around the layers' functions;
+   layer, from synchronised host timers around the layers' functions (the
+   NL and MPCC SQP builds timed whole: on the card each is one launch of
+   its build kernel);
 10. the MPCC single race at the reference's N=60 (oval_mt, dt 0.05, the
    associative schedule with epoch 15): launch counts reset, 10 warm-in
    steps, then 80 timed steps: every state finite, the epoch kernel
@@ -124,7 +137,10 @@ spin kernel queued first so that the host's queueing stays outside the
 window.
 
 Wherever a phase holds the epoch kernel's launches to the epochs the
-solves ran, it holds the epoch-data kernel's launches to them too.
+solves ran, it holds the epoch-data kernel's launches to them too, and
+on the NL and MPCC paths (phases 6-8, 10-12, 18-21) each build kernel's
+launches to the SQP builds the solves ran (one per NL or MPCC solve; none
+of the other family's, and none on the CPU runs of phases 7 and 12).
 
 The seconds of every phase are printed. No phase imports matplotlib.
 
@@ -455,6 +471,236 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
     return out
 
 
+TOL_SQP_QP = 1e-4         # of max(1, the field's max |value|), float32
+
+
+def sqp_qp_bound(nbytes, flops):
+    """The least time (ms) the card could take for one build, and what sets
+    it: ``cuda_sqp``'s bytes over the HBM rate or its FP32 operations over
+    the FP32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nl_build_args(dev, B, n, N, coupling, map_type="Highway", lanes=False,
+                  edges=False, seed=7):
+    """The arguments of ``build_nl_qp`` for B perturbed n-agent fleets at
+    horizon N as the Jacobi sweep hands them to it (phase 3b's
+    construction): per-agent float32 limits, random prices, the bisector
+    planes; ``lanes`` gives every other problem lane 1 (a per-problem lane
+    tensor), ``edges`` puts the velocity gate's edges (vx below and at 0.2)
+    and a NaN into the linearisation point."""
+    from colaborativempc_tpu_torch.config import SysLimits
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.runtime.ocd import _bisector_planes
+    from colaborativempc_tpu_torch.runtime.simulate import (
+        _neighbour_index, _per_agent_limits,
+    )
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    cfg, _, st = monte_carlo.setup("nl", scenarios=B, agents=n, N=N,
+                                   steps=1, device=dev, coupling=coupling,
+                                   map_type=map_type)
+    ns = torch.as_tensor(_neighbour_index(n), device=dev)
+    ids = torch.arange(n, device=dev)
+    rng = np.random.default_rng(seed)
+    lam = torch.tensor(rng.uniform(0.0, 1.0, size=(B, n, n - 1, N)),
+                       dtype=torch.float32, device=dev)
+    x_bar = torch.cat([st.x0[:, :, None], st.x_pred[:, :, 1:]], dim=2)
+    planes = _bisector_planes(x_bar)[:, torch.minimum(ids[:, None], ns),
+                                     torch.maximum(ids[:, None], ns)]
+
+    def flat(t):
+        return t.reshape((B * n,) + t.shape[2:]).contiguous()
+    mm = (ids[:, None] < ns).float().expand(B, n, n - 1)
+    x_bar, u_bar = flat(x_bar), flat(st.u_pred)
+    if edges:
+        x_bar[:, 2:N:4, 0] = 0.1
+        x_bar[:, 3:N:4, 0] = 0.2
+        x_bar[0, 1, 0] = float("nan")
+    P = B * n
+    limits = SysLimits(*(v.repeat(B) for v in _per_agent_limits(cfg, dev)))
+    lane = (torch.arange(P, device=dev) % 2 if lanes else 0)
+    return dict(track=make_track(map_type, device=dev), gains=cfg.gains,
+                limits=limits, model=cfg.model, N=N, dt=cfg.dt,
+                x_bar=x_bar, u_bar=u_bar, lambdas=flat(lam),
+                neigh_xy=flat(x_bar.reshape(B, n, N + 1, 9)[:, ns][..., 7:9]
+                              .transpose(2, 3)),
+                master_mask=flat(mm), coupling=coupling, lane=lane,
+                planes0=flat(planes) if coupling == "hp_opt" else None)
+
+
+def mpcc_build_args(dev, P, N, edges=False, seed=11):
+    """The arguments of ``build_mpcc_qp`` for P races spread over oval_mt
+    at horizon N: the cold guess of ``runtime/racing.py`` with noise on the
+    lateral states and inputs; ``edges`` puts the slip floor's edges (vx at
+    and below 0.3) and a NaN into the linearisation point."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.geometry.frenet import frenet_to_cartesian
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N)
+    track = make_track(cfg.map_type, device=dev)
+    s = torch.arange(P, dtype=torch.float32, device=dev) * (
+        float(track.track_length[0]) / P)
+    px, py, th = frenet_to_cartesian(track, s, 0.0)
+    zero = torch.zeros_like(s)
+    x0 = torch.stack([0.5 + 0.05 * torch.arange(P, device=dev), zero, zero,
+                      zero, zero, th, s, px, py], dim=-1)
+    x_bar, u_bar = racing._cold_guess(track, cfg, x0)
+    rng = np.random.default_rng(seed)
+    x_bar = x_bar + torch.tensor(
+        rng.normal(size=x_bar.shape) * [0.1, 0.05, 0.3, 0.05, 0.05, 0, 0, 0,
+                                        0], dtype=torch.float32, device=dev)
+    u_bar = u_bar + torch.tensor(rng.normal(size=u_bar.shape) * [0.05, 0.1],
+                                 dtype=torch.float32, device=dev)
+    if edges:
+        x_bar[:, 2:N:4, 0] = 0.3
+        x_bar[:, 3:N:4, 0] = 0.1
+        x_bar[0, 1, 0] = float("nan")
+    return dict(track=track, gains=cfg.gains, p=cfg.model, N=N, dt=cfg.dt,
+                x_bar=x_bar.contiguous(), u_bar=u_bar.contiguous(),
+                bounds=cfg.bounds)
+
+
+def qp_fields(qp):
+    """A StageQP's fields by name."""
+    return {"F": qp.dyn.F, "G": qp.dyn.G, "d": qp.dyn.d, "Q": qp.cost.Q,
+            "q": qp.cost.q, "R": qp.cost.R, "r": qp.cost.r, "S": qp.cost.S,
+            "D": qp.D, "E": qp.E, "lo": qp.lo, "hi": qp.hi,
+            "soft_lo": qp.soft_lo, "soft_hi": qp.soft_hi}
+
+
+def compare_qp(what, got, ref, ref64, keep):
+    """Field by field, the first ``keep`` problems: the finite entries
+    alike, each field within TOL_SQP_QP of max(1, its max |value|), the
+    entries whose bits differ (both NaN counts as alike), and the kernel's
+    and the float32 plain version's distance from the float64 plain
+    version as a share of each field's scale."""
+    err = rel = 0.0
+    differing = 0
+    rel64 = {"kernel": 0.0, "plain": 0.0}
+    worst = {}
+    for f, g in qp_fields(got).items():
+        g, r = g[:keep], qp_fields(ref)[f][:keep]
+        r64 = qp_fields(ref64)[f][:keep]
+        diff = (g != r) & ~(g.isnan() & r.isnan())
+        differing += int(diff.sum())
+        fin = torch.isfinite(r)
+        if not torch.equal(fin, torch.isfinite(g)):
+            fail(f"{what}: field {f}: finite entries differ")
+        if not bool(fin.any()):
+            continue
+        e = float((g[fin] - r[fin]).abs().max())
+        scale = max(1.0, float(r[fin].abs().max()))
+        fin64 = fin & torch.isfinite(r64)
+        if bool(fin64.any()):
+            s64 = max(1.0, float(r64[fin64].abs().max()))
+            for name, x in (("kernel", g), ("plain", r)):
+                rel64[name] = max(rel64[name], float(
+                    (x[fin64].double() - r64[fin64]).abs().max()) / s64)
+        if not e <= TOL_SQP_QP * scale:
+            fail(f"{what}: field {f} max |err| {e} against {TOL_SQP_QP} x "
+                 f"{scale}; against float64 (share of scale) the kernel "
+                 f"{rel64['kernel']:.3g}, the float32 plain version "
+                 f"{rel64['plain']:.3g}")
+        if int(diff.sum()):
+            worst[f] = int(diff.sum())
+        err, rel = max(err, e), max(rel, e / scale)
+    return dict(max_abs_err=err, max_rel_err=rel, entries_differing=differing,
+                differing_by_field=worst, max_rel_err_vs_f64=rel64["kernel"],
+                plain_max_rel_err_vs_f64=rel64["plain"])
+
+
+def check_sqp_build(dev, tag, family, args, reps, batch_of_two=False):
+    """Phase 3d at one shape: the NL or MPCC build on the card (one launch
+    of its kernel) against its plain version on the same CUDA tensors,
+    field by field (``compare_qp``), with the kernel's time, the plain
+    version's, the bound and the launch count. A single race is compared
+    as a batch of two (the race twice, the first kept)."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import mpcc, nl
+    if family == "nl":
+        build, plain, wrapper = (nl.build_nl_qp, nl.build_nl_qp_plain,
+                                 cuda_sqp.nl_qp_batched)
+        per_problem = ("x_bar", "u_bar", "lambdas", "neigh_xy",
+                       "master_mask", "planes0")
+    else:
+        build, plain, wrapper = (mpcc.build_mpcc_qp, mpcc.build_mpcc_qp_plain,
+                                 cuda_sqp.mpcc_qp_batched)
+        per_problem = ("x_bar", "u_bar")
+    P, N = args["x_bar"].shape[0], args["N"]
+    cargs = dict(args)
+    if batch_of_two:
+        for k in per_problem:
+            if cargs.get(k) is not None:
+                cargs[k] = torch.cat([cargs[k], cargs[k]]).contiguous()
+    before = wrapper.launches
+    got = build(**cargs)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        fail(f"phase 3d {tag}: the build did not launch its kernel once")
+    ref = plain(**cargs)
+    a64 = {k: (v.double() if isinstance(v, torch.Tensor)
+               and v.is_floating_point() and k in per_problem else v)
+           for k, v in args.items()}
+    ref64 = plain(**a64)
+    torch.cuda.synchronize()
+    out = compare_qp(f"phase 3d {tag}", got, ref, ref64, P)
+    nb = args["neigh_xy"].shape[-2] if family == "nl" else 0
+    track = args["track"]
+    if family == "nl":
+        nc, m = cuda_sqp.nl_shape(nb, args["coupling"])
+        traffic = cuda_sqp.nl_traffic(P, N, nb, args["coupling"],
+                                      *track.s0.shape)
+    else:
+        nc, m = 2, cuda_sqp.MPCC_ROWS
+        traffic = cuda_sqp.mpcc_traffic(P, N, *track.s0.shape)
+    out.update(P=P, N=N, nc=nc, m=m, compared_as_batch=2 * P if batch_of_two
+               else P, matvec_order=cuda_sqp.matvec_order(
+                   cargs["x_bar"].shape[0] * N,
+                   "row" if family == "nl" else "col"),
+               ms=cuda_ms(lambda: build(**args), reps),
+               plain_ms=cuda_ms(lambda: plain(**args), 2))
+    out["bound_ms"], out["bound_by"] = sqp_qp_bound(*traffic)
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
+    print(f"phase 3d {tag} P={P} N={N} nc={nc} m={m}: build kernel "
+          f"{out['ms']:.4f} ms (bound {out['bound_ms']:.3g} by "
+          f"{out['bound_by']}, share {out['roofline_share']:.3f}) vs plain "
+          f"{out['plain_ms']:.3f} ms (max |err| {out['max_abs_err']:.3g}, "
+          f"{out['max_rel_err']:.3g} of scale, tol {TOL_SQP_QP}; "
+          f"{out['entries_differing']} entries differ in their bits "
+          f"{out['differing_by_field']}; compared at batch "
+          f"{out['compared_as_batch']}; vs float64 "
+          f"{out['max_rel_err_vs_f64']:.3g} of scale, the float32 plain "
+          f"version {out['plain_max_rel_err_vs_f64']:.3g})", flush=True)
+    return out
+
+
+def check_sqp_builds(dev):
+    """Phase 3d: both build kernels against their plain versions at the
+    main paths' shapes and at the branch edges."""
+    out = {}
+    for tag, B, n, N, coupling, kw in (
+            ("nl eu", 64, 3, 20, "eu", {}),
+            ("nl hp", 64, 3, 20, "hp", {}),
+            ("nl hp_opt", 64, 3, 20, "hp_opt", {}),
+            ("nl eu N=125", 1, 3, 125, "eu", {}),
+            ("nl eu Oval2 lanes", 16, 3, 20, "eu",
+             dict(map_type="Oval2", lanes=True)),
+            ("nl eu edges", 2, 3, 20, "eu", dict(edges=True)),
+            ("nl hp_opt edges", 2, 3, 20, "hp_opt", dict(edges=True))):
+        out[tag] = check_sqp_build(
+            dev, tag, "nl", nl_build_args(dev, B, n, N, coupling, **kw), 20)
+    for tag, P, N, kw in (("mpcc P=1 N=60", 1, 60, {}),
+                          ("mpcc P=18 N=20", 18, 20, {}),
+                          ("mpcc edges", 2, 20, dict(edges=True))):
+        out[tag] = check_sqp_build(dev, tag, "mpcc",
+                                   mpcc_build_args(dev, P, N, **kw), 20,
+                                   batch_of_two=P == 1)
+    return out
+
+
 def fleet(device, B):
     """Config, track and the perturbed B-scenario start state of bench.py."""
     from colaborativempc_tpu_torch.config import (
@@ -553,12 +799,12 @@ def check_nl_epoch(dev, coupling, reps, **pin):
     return out
 
 
-def watch_solver(planner, record):
+def watch_solver(planner, record, out=None):
     """Wrap a planner module's ``admm_solve`` so each call appends
-    ``record(qp, z0, kw, solution)`` to the returned list; ``restore()``
-    unwraps it."""
+    ``record(qp, z0, kw, solution)`` to the returned list (``out``, or a
+    new one); ``restore()`` unwraps it."""
     orig = planner.admm_solve
-    out = []
+    out = [] if out is None else out
 
     def watched(qp, z0, **kw):
         sol = orig(qp, z0, **kw)
@@ -571,40 +817,71 @@ def watch_solver(planner, record):
     return out, restore
 
 
+class SolverCalls(list):
+    """The epochs of each watched ``admm_solve`` call, and the planner
+    family (``lpv``, ``nl`` or ``mpcc``) that made them: every NL or MPCC
+    solve follows one SQP build."""
+    family = None
+
+
 def count_solver_epochs(planner=None):
     """Watch a planner module's ``admm_solve`` (default: the NL planner's):
     each call adds the epochs it ran (its slowest problem's iterations over
-    the epoch length) to the returned list."""
+    the epoch length) to the returned list (a ``SolverCalls``)."""
     from colaborativempc_tpu_torch.ops.admm import default_epoch_len
     if planner is None:
         from colaborativempc_tpu_torch.planners import nl as planner
+    out = SolverCalls()
+    out.family = planner.__name__.rsplit(".", 1)[-1]
     return watch_solver(planner, lambda qp, z0, kw, sol: int(
         sol.iterations.max()) // (kw.get("epoch_len")
-                                  or default_epoch_len(qp.lo.shape[1])))
+                                  or default_epoch_len(qp.lo.shape[1])), out)
 
 
 def reset_launches():
-    from colaborativempc_tpu_torch.ops import cuda_lqr
+    from colaborativempc_tpu_torch.ops import cuda_lqr, cuda_sqp
     cuda_lqr.admm_epoch_batched.launches = 0
     cuda_lqr.lqr_affine_solve_batched.launches = 0
     cuda_lqr.epoch_data_batched.launches = 0
+    cuda_sqp.nl_qp_batched.launches = 0
+    cuda_sqp.mpcc_qp_batched.launches = 0
 
 
 def read_launches():
-    from colaborativempc_tpu_torch.ops import cuda_lqr
+    from colaborativempc_tpu_torch.ops import cuda_lqr, cuda_sqp
     return {"epoch": cuda_lqr.admm_epoch_batched.launches,
             "affine": cuda_lqr.lqr_affine_solve_batched.launches,
-            "epoch_data": cuda_lqr.epoch_data_batched.launches}
+            "epoch_data": cuda_lqr.epoch_data_batched.launches,
+            "nl_qp": cuda_sqp.nl_qp_batched.launches,
+            "mpcc_qp": cuda_sqp.mpcc_qp_batched.launches}
 
 
 # epoch-data kernel launches of each checked run, by the run's name
 EPOCH_DATA_LAUNCHES = {}
+# build kernel launches of each checked run: {run: {"nl": n, "mpcc": n}}
+BUILD_LAUNCHES = {}
 
 
-def check_epoch_launches(what, launches, epochs):
+def check_build_launches(what, launches, builds):
+    """Each build kernel launched once per SQP build the solves ran:
+    ``builds`` counts the solves by planner family (an NL or MPCC solve
+    follows one build; the families absent ran none). Records the
+    launches under ``what``."""
+    for fam in ("nl", "mpcc"):
+        n = builds.get(fam, 0)
+        if launches[f"{fam}_qp"] != n:
+            fail(f"{what}: the {fam} build kernel launched "
+                 f"{launches[f'{fam}_qp']} times, the {fam} solves ran "
+                 f"{n} builds")
+    BUILD_LAUNCHES[what] = {fam: launches[f"{fam}_qp"]
+                            for fam in ("nl", "mpcc")}
+
+
+def check_epoch_launches(what, launches, epochs, builds=None):
     """The epoch kernel and the epoch-data kernel each launched once per
     epoch the solves ran, and at least once; records the epoch-data
-    launches under ``what``."""
+    launches under ``what``. With ``builds`` (solves by planner family),
+    or ``epochs`` a ``SolverCalls``, also ``check_build_launches``."""
     n = sum(epochs) if not isinstance(epochs, int) else epochs
     if launches["epoch"] != n or n == 0:
         fail(f"{what}: epoch kernel launched {launches['epoch']} times, the "
@@ -613,6 +890,10 @@ def check_epoch_launches(what, launches, epochs):
         fail(f"{what}: epoch-data kernel launched {launches['epoch_data']} "
              f"times, the solves ran {n} epochs")
     EPOCH_DATA_LAUNCHES[what] = launches["epoch_data"]
+    if builds is None and isinstance(epochs, SolverCalls):
+        builds = {epochs.family: len(epochs)}
+    if builds is not None:
+        check_build_launches(what, launches, builds)
 
 
 NL_B, NL_STEPS = 64, 20
@@ -689,10 +970,16 @@ def nl_end_to_end(dev):
                 "nl", scenarios=B, agents=3, N=20, steps=3,
                 device=torch.device(name), coupling=coupling, sweep=sweep)
             calls, restore = record_admm_iterations()
+            reset_launches()
             try:
                 fin, (_, _, m) = rollout(st)
             finally:
                 restore()
+            # one NL build kernel launch per SQP build on the card, none
+            # on the CPU
+            check_build_launches(
+                f"phase 7 ({coupling}/{sweep}, {name})", read_launches(),
+                {"nl": len(calls)} if name == "cuda" else {})
             outs[name] = (fin.x_pred.cpu(), m.feasible.cpu(),
                           m.ocd_iterations.cpu(), calls)
         (xg, fg, og, cg), (xc, fc, oc, cc) = outs["cuda"], outs["cpu"]
@@ -730,7 +1017,8 @@ def nl_end_to_end(dev):
 
 
 def nl_single_fleet(dev, card):
-    """Phase 8: one fleet's NL-OCD closed loop, as ``nl_main`` runs it."""
+    """Phase 8: one fleet's NL-OCD closed loop, as ``nl_main`` runs it;
+    the kernels launched once per epoch and per SQP build."""
     from colaborativempc_tpu_torch.config import (
         ExperimentConfig, OCDConfig, SolverConfig, nl_gains,
     )
@@ -739,7 +1027,14 @@ def nl_single_fleet(dev, card):
         n_agents=3, N=20, dt=0.02, max_it=20, map_type="Highway",
         gains=nl_gains(), ocd=OCDConfig(max_it_ocd=50),
         solver=SolverConfig(admm_iters=200, sqp_iters=2))
-    res = run_nl_experiment(cfg, device=dev)
+    epochs, restore = count_solver_epochs()
+    reset_launches()
+    try:
+        res = run_nl_experiment(cfg, device=dev)
+    finally:
+        restore()
+    check_epoch_launches("phase 8 (NL single fleet)", read_launches(),
+                         epochs)
     if res.steps != 20 or not np.isfinite(res.states).all():
         fail(f"single-fleet NL run: {res.steps} steps, finite states: "
              f"{bool(np.isfinite(res.states).all())}")
@@ -824,11 +1119,9 @@ def layer_split(dev, card, steps=3):
             timer.wrap(lpv, "build_lpv_qp", "qp_assembly")
             timer.wrap(simulate, "lpv_solve", "planner")
         elif path == "nl":
-            timer.wrap(nl, "_linearize_horizon", "linearisation")
             timer.wrap(nl, "build_nl_qp", "qp_build")
             timer.wrap(ocd, "nl_solve", "planner")
         else:
-            timer.wrap(mpcc, "linearize_pacejka", "linearisation")
             timer.wrap(mpcc, "build_mpcc_qp", "qp_build")
             timer.wrap(racing, "mpcc_solve", "planner")
         try:
@@ -848,9 +1141,8 @@ def layer_split(dev, card, steps=3):
             split["qp_assembly"] = ms["qp_assembly"]
             split["planner_rest"] = (ms["planner"] - ms["qp_assembly"]
                                      - ms["admm_solve"])
-        else:     # the NL and MPCC SQPs: linearisation inside the build
-            split["linearisation"] = ms["linearisation"]
-            split["qp_assembly"] = ms["qp_build"] - ms["linearisation"]
+        else:     # the NL and MPCC SQPs: the build kernel, one launch
+            split["qp_build"] = ms["qp_build"]
             split["planner_rest"] = (ms["planner"] - ms["qp_build"]
                                      - ms["admm_solve"])
         split["step_rest"] = total / steps - ms["planner"]
@@ -1053,8 +1345,11 @@ def held_to_tolerance(what, dx_per, differ):
 
 
 def mpcc_kernel_vs_plain(dev):
-    """Phase 12: B=2 races x 5 steps at N=20 on the card and on the CPU."""
+    """Phase 12: B=2 races x 5 steps at N=20 on the card and on the CPU;
+    on the card the kernels launched once per epoch and per SQP build,
+    on the CPU no build kernel."""
     from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners import mpcc
     from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
     from colaborativempc_tpu_torch.runtime import racing
     cfg = MPCCConfig(N=BAT_N)
@@ -1068,7 +1363,18 @@ def mpcc_kernel_vs_plain(dev):
             x0 = st.x.cpu().clone()
             x0[1, 0] += 0.3                       # the second race faster
         st = racing.init_mpcc(track, cfg, x0=x0, races=2, device=d)
-        fin, m = racing.make_mpcc_rollout(track, cfg, 5)(st)
+        epochs, restore = count_solver_epochs(mpcc)
+        reset_launches()
+        try:
+            fin, m = racing.make_mpcc_rollout(track, cfg, 5)(st)
+        finally:
+            restore()
+        if name == "cuda":
+            check_epoch_launches("phase 12 (MPCC, card)", read_launches(),
+                                 epochs)
+        else:
+            check_build_launches("phase 12 (MPCC, CPU)", read_launches(), {})
+
         outs[name] = (fin.x.cpu(), fin.x_bar.cpu(), m.reset.cpu(),
                       m.iterations.cpu())
     (xg, bg, rg, ig), (xc, bc, rc, ic) = outs["cuda"], outs["cpu"]
@@ -1367,7 +1673,11 @@ def run_counted(what, fn, *planners):
         for restore in restores:
             restore()
     launches = read_launches()
-    check_epoch_launches(what, launches, [e for c in counts for e in c])
+    builds = {}
+    for c in counts:
+        builds[c.family] = builds.get(c.family, 0) + len(c)
+    check_epoch_launches(what, launches, [e for c in counts for e in c],
+                         builds)
     return out, launches["epoch"], secs
 
 
@@ -1864,6 +2174,7 @@ def _gloo_card_rank(rank, world, rdv, case, device, fleets, steps):
             shard_fleet_state(state0, mesh))
         el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
         epochs = int((met.iterations.amax(dim=(1, 2)) // el).sum())
+        builds = {}
     else:
         mesh = init_device_mesh(dev.type, (1, 3),
                                 mesh_dim_names=("scen", "agent"))
@@ -1876,12 +2187,16 @@ def _gloo_card_rank(rank, world, rdv, case, device, fleets, steps):
         finally:
             restore()
         epochs = sum(counted)
+        builds = {"nl": len(counted)}
     final = gather_sharded(final, mesh)
     synchronize(dev)
     launches = read_launches()
     return dict(final=[t.cpu().numpy() for t in final],
                 launches=launches["epoch"],
-                launches_epoch_data=launches["epoch_data"], epochs=epochs)
+                launches_epoch_data=launches["epoch_data"],
+                launches_nl_qp=launches["nl_qp"],
+                launches_mpcc_qp=launches["mpcc_qp"], epochs=epochs,
+                builds=builds)
 
 
 def sharded_gloo_on_card(dev, card):
@@ -1922,8 +2237,10 @@ def sharded_gloo_on_card(dev, card):
                 check_epoch_launches(
                     f"phase 21 (b) {case} rank {r}",
                     dict(epoch=res["launches"],
-                         epoch_data=res["launches_epoch_data"]),
-                    res["epochs"])
+                         epoch_data=res["launches_epoch_data"],
+                         nl_qp=res["launches_nl_qp"],
+                         mpcc_qp=res["launches_mpcc_qp"]),
+                    res["epochs"], res["builds"])
             diffs = [record_diff(res["final"], ref) for res in ranks]
             dx = max(d for d, _ in diffs)
             n_int = max(n for _, n in diffs)
@@ -2010,6 +2327,8 @@ def main():
     for P, N in ((18, BAT_N), (1, MPCC_N)):
         kdata[f"mpcc_p{P}_n{N}"] = check_epoch_data(
             dev, f"mpcc P={P} N={N}", mpcc_qps(dev, P, N)[0], 1.0, 10)
+    # phase 3d: the SQP build kernels vs their plain versions
+    ksqp = check_sqp_builds(dev)
 
     # phase 4: the main path
     B, STEPS = LPV_B, LPV_STEPS
@@ -2169,6 +2488,33 @@ def main():
                  "plain_max_rel_err_vs_f64", "compared_as_batch")}
                      for tag, r in kdata.items() if tag != "headline"}),
     ]
+    sqp_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
+                "max_abs_err", "max_rel_err", "entries_differing",
+                "max_rel_err_vs_f64", "plain_max_rel_err_vs_f64",
+                "compared_as_batch", "matvec_order")
+    for fam, name, head, main_run, replaces in (
+            ("nl", "nl_qp_batched", "nl eu", "phase 6 (NL path)",
+             "colaborativempc_tpu/planners/nl.py:80-94 _linearize_horizon, "
+             ":97 build_nl_qp (XLA, not Pallas)"),
+            ("mpcc", "mpcc_qp_batched", "mpcc P=1 N=60",
+             "phase 10 (MPCC race)",
+             "colaborativempc_tpu/planners/mpcc.py:132 build_mpcc_qp, "
+             "dynamics/pacejka.py:110 linearize_pacejka, mpcc.py:215-221 "
+             "(XLA, not Pallas)")):
+        runs = {k: v[fam] for k, v in BUILD_LAUNCHES.items() if v[fam]}
+        r = ksqp[head]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="colaborativempc_tpu_torch/csrc/sqp_qp.cu",
+            replaces=replaces, launches=sum(runs.values()),
+            launches_main_path=BUILD_LAUNCHES[main_run][fam],
+            launches_per_step_main_path=BUILD_LAUNCHES[main_run][fam]
+            / (NL_STEPS if fam == "nl" else race["steps"]),
+            launches_by_run=runs, library_ms=None,
+            **{k: r[k] for k in sqp_keys},
+            shapes={tag: {k: v[k] for k in sqp_keys}
+                    for tag, v in ksqp.items()
+                    if tag.startswith(fam) and tag != head}))
     print(json.dumps({"main_path": {
         "card": card, "solves_per_s": solves_per_s, "ms_per_step": best * 1e3,
         "feasible_share": feas, "mean_admm_iterations": mean_it,

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels (every ``csrc/*.cu``:
 ``lqr_kernels.cu``, the ADMM epoch and the affine solve; ``epoch_data.cu``,
-the epoch's fixed data).
+the epoch's fixed data; ``sqp_qp.cu``, the NL and MPCC SQP stage QPs).
 
 ``nvcc`` compiles each source into an object, all sources at once (one
 process each), and links the objects into one shared library with a plain
@@ -112,4 +112,10 @@ def load() -> ctypes.CDLL:
     lib.cmpc_epoch_data.argtypes = ([_P] * 22 + [_I] * 5
                                     + [ctypes.c_float] * 2 + [_I] * 2 + [_P])
     lib.cmpc_epoch_data.restype = _I
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    for name in ("cmpc_nl_qp", "cmpc_mpcc_qp"):
+        fn = getattr(lib, name)
+        fn.argtypes = [pp, pp, pp, pp, ctypes.POINTER(ctypes.c_double),
+                       ctypes.POINTER(_I), _P]
+        fn.restype = _I
     return lib

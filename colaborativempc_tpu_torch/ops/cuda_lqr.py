@@ -170,13 +170,14 @@ def admm_epoch_batched_plain(data, z0, w0, y0, *, epoch_len: int = 25,
     return z, c, w, y, rp, rd
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype=torch.float32):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes "
+                        f"{str(dtype).replace('torch.', '')}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

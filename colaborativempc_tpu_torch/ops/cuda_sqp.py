@@ -1,0 +1,340 @@
+"""Hand-written CUDA kernels that build the SQP stage QPs of the nonlinear
+planners, one launch per SQP iteration.
+
+The kernels live in ``csrc/sqp_qp.cu`` (design notes there) and are built
+by ``ops/_build.py`` at the first CUDA launch. :func:`nl_qp_batched`
+replaces ``planners/nl.py build_nl_qp_plain`` (the linearisation of the
+bicycle model, the lift, the track lookups, the cost and every row, for the
+eu, hp and hp_opt couplings); :func:`mpcc_qp_batched` replaces
+``planners/mpcc.py build_mpcc_qp_plain`` (the Pacejka linearisation, the
+tyre rows and their Jacobians, the cost and every row). ``build_nl_qp`` and
+``build_mpcc_qp`` pick one of the two by device, as ``ops/admm.py
+admm_epoch_inputs`` does; the wrappers here take CUDA tensors only and
+raise on anything they cannot take (device, dtype, shape, layout) — there
+is no fallback to the plain version. Each counts its launches in a plain
+integer attribute (``nl_qp_batched.launches``,
+``mpcc_qp_batched.launches``), incremented only where the kernel is
+launched.
+
+The wrappers pass the gains and limits (numbers, or tensors shared or per
+problem) to the kernel as slots (:func:`pack_slots`: a pointer and a
+per-problem stride into the caller's tensor, or the number itself), the
+lane as a number or a per-problem tensor and the track's tables as they
+are, and allocate the outputs with ``torch.empty``. The slot
+packing, the order of the batched matrix-vector products
+(:func:`matvec_order`) and the traffic counts (:func:`sqp_qp_traffic`) are
+plain Python, so the CPU tests reach them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from colaborativempc_tpu_torch.ops.admm import StageQP
+from colaborativempc_tpu_torch.ops.cuda_lqr import (
+    _check, _cuda_device, _raise_on,
+)
+from colaborativempc_tpu_torch.ops.lqr import LQRCost, LQRDynamics
+
+NX, NU, NZ, NC = 9, 2, 11, 2
+MAX_NEIGHBOURS = 8       # the kernel's coupling lanes and record size
+SOFT_WEIGHT_CAP = 1e4    # planners/lpv.py SOFT_WEIGHT_CAP
+LOW_VEL_THRESH = 0.2     # dynamics/bicycle.py LOW_VEL_THRESH
+DIST_EPS = 1e-6          # planners/nl.py _EPS
+PLANE_TRUST_THETA, PLANE_TRUST_B, PLANE_REG = 0.3, 0.2, 0.1  # planners/nl.py
+SLIP_VX_FLOOR = 0.3      # dynamics/pacejka.py slip_angles
+MPCC_HALFWIDTH_SM = 0.95  # planners/mpcc.py build_mpcc_qp
+MPCC_ROWS = 7
+COUPLINGS = ("eu", "hp", "hp_opt")
+
+# The card's cuBLAS order for a batch of matrix-vector products, by the
+# matrices' layout (the NL build's are row-major, torch.func's MPCC
+# Jacobians column-major) and the batch size (problems x stages), read off
+# torch 2.11.0+cu128, CUDA 12.8, NVIDIA H100 80GB HBM3 by
+# scripts/matvec_order.py: HALVES, two fused multiply-add chains from zero
+# over [0, ceil(n/2)) and the rest; EVEN_ODD, chains over the even and the
+# odd terms; QUARTERS, chains over [0, 4), [4, 8), [8, ...) summed as a
+# butterfly. Each range below is (first batch, last batch, order); the
+# script read up to 60,000, and a larger batch takes HALVES unread (a field
+# the library orders otherwise is then held to the plain version within
+# the checks' tolerance).
+HALVES, EVEN_ODD, QUARTERS = 0, 1, 2
+MATVEC_ORDERS = {
+    "row": ((1, 12_997, HALVES), (12_998, 37_292, EVEN_ODD),
+            (37_293, 60_000, HALVES)),
+    "col": ((1, 189, QUARTERS), (190, 1_335, HALVES),
+            (1_336, 2_852, EVEN_ODD), (2_853, 60_000, HALVES)),
+}
+
+
+def matvec_order(batch: int, layout: str = "row") -> int:
+    """The order the build kernel gives its matrix-vector products for a
+    build of ``batch`` = problems x stages whose plain version multiplies
+    ``layout`` (``row`` for NL, ``col`` for MPCC) matrices."""
+    for lo, hi, order in MATVEC_ORDERS[layout]:
+        if lo <= batch <= hi:
+            return order
+    return HALVES
+
+
+def nl_shape(nb: int, coupling: str):
+    """``(nc, m)`` of the NL stage QP: stage controls and rows per stage."""
+    if coupling not in COUPLINGS:
+        raise ValueError(f"coupling {coupling!r}: one of {COUPLINGS}")
+    hp_opt = coupling == "hp_opt"
+    return NC + (2 * nb if hp_opt else 0), 4 + (3 * nb if hp_opt else nb)
+
+
+OPS_PER_STAGE = 300   # FP32 operations of one stage, rounded up
+
+
+def sqp_qp_traffic(P: int, N: int, nc: int, m: int, per_stage_in: int,
+                   per_problem_in: int, shared_in: int):
+    """Bytes and FP32 operations of one build, the least the function
+    needs. Bytes, in float32: each input read once (``per_stage_in`` floats
+    per stage, ``per_problem_in`` per problem, the state of stage N, and
+    ``shared_in`` floats that every problem shares: the track's tables) and
+    each output field of the StageQP written once: F, G, d, R, r, S, D, E
+    and four row bounds over N stages, Q and q over N + 1. Operations:
+    ``OPS_PER_STAGE`` per stage for the Jacobians, the discrete model and
+    the rows, whose time is far below the bytes'."""
+    out = (N * (NZ * NZ + NZ * nc + NZ + nc * nc + nc + NZ * nc
+                + m * (NZ + nc + 4))
+           + (N + 1) * (NZ * NZ + NZ))
+    inp = N * per_stage_in + NX + per_problem_in
+    return 4.0 * (P * (inp + out) + shared_in), float(OPS_PER_STAGE) * P * N
+
+
+def _track_floats(lanes: int, nseg: int) -> int:
+    return lanes * (3 * nseg + 1) + 1
+
+
+def nl_traffic(P: int, N: int, nb: int, coupling: str, lanes: int = 1,
+               nseg: int = 1):
+    """:func:`sqp_qp_traffic` of :func:`nl_qp_batched`: per stage the
+    state and input and, per neighbour, its position at the next stage and
+    its price (and hp_opt's plane); per problem the gains, the limits, the
+    lane and the master mask; the track's tables once."""
+    nc, m = nl_shape(nb, coupling)
+    per_stage = NX + NU + nb * (3 + (2 if coupling == "hp_opt" else 0))
+    return sqp_qp_traffic(P, N, nc, m, per_stage, 16 + 9 + 1 + nb,
+                          _track_floats(lanes, nseg))
+
+
+def mpcc_traffic(P: int, N: int, lanes: int = 1, nseg: int = 1):
+    """:func:`sqp_qp_traffic` of :func:`mpcc_qp_batched`: per stage the
+    state and input, per race the gains, the track's tables once."""
+    return sqp_qp_traffic(P, N, NC, MPCC_ROWS, NX + NU, 10,
+                          _track_floats(lanes, nseg))
+
+
+# --- the kernels' arguments -------------------------------------------------
+
+NL_SLOTS, MPCC_SLOTS = 16 + 9, 10   # csrc/sqp_qp.cu kNLSlots, kMPCCSlots
+
+
+def nl_fields(gains, limits):
+    """The NL kernel's per-problem scalars in slot order, as ``(value,
+    width)``: the gains q (9), r (2), dr (2), qs (3), then the ``SysLimits``
+    fields."""
+    return ([(gains.q, NX), (gains.r, NU), (gains.dr, NC), (gains.qs, 3)]
+            + [(v, 1) for v in limits])
+
+
+def mpcc_fields(gains):
+    """The MPCC kernel's per-race scalars in slot order: the
+    ``MPCCGains`` fields."""
+    return [(v, 1) for v in gains]
+
+
+def pack_slots(fields, P: int, device):
+    """The kernel's slots for ``fields`` (``(value, width)`` pairs, each
+    value numbers or a tensor of ``width`` entries per problem, shared or
+    one row per problem): per slot a device pointer (``None`` for a number),
+    the stride from one problem to the next in floats (0: shared) and the
+    float32 number a missing pointer stands for; and the tensors the
+    pointers point into. A tensor is moved to ``device`` in float32, as the
+    plain versions take it; nothing is packed into a new tensor."""
+    ptrs, strides, values, keep = [], [], [], []
+    for v, k in fields:
+        if isinstance(v, torch.Tensor):
+            t = v.to(device=device, dtype=torch.float32).contiguous()
+            rows = t.numel() // k
+            if t.numel() != rows * k or rows not in (1, P):
+                raise ValueError(f"a per-problem value of shape "
+                                 f"{tuple(v.shape)}: {k} entries for 1 or "
+                                 f"{P} problems expected")
+            keep.append(t)
+            ptrs += [t.data_ptr() + 4 * j for j in range(k)]
+            strides += [k if rows > 1 else 0] * k
+            values += [0.0] * k
+        else:
+            vals = ([v] if isinstance(v, (int, float)) else
+                    np.asarray(v, np.float64).reshape(k).tolist())
+            ptrs += [None] * k
+            strides += [0] * k
+            values += [float(np.float32(x)) for x in vals]
+    return ptrs, strides, values, keep
+
+
+def pack_lane(lane, P: int, device):
+    """The lane of every problem: a number as it is (a kernel argument),
+    a tensor as ``(P,)`` int32 on ``device``."""
+    if isinstance(lane, torch.Tensor):
+        t = lane.to(device=device, dtype=torch.int32).reshape(-1)
+        if t.shape[0] not in (1, P):
+            raise ValueError(f"lane: {t.shape[0]} entries for {P} problems")
+        return t.expand(P).contiguous()
+    return int(lane)
+
+
+def nl_consts(model, dt, coupling: str, u_trust) -> list:
+    """The NL kernel's constants (``NLConst`` of the source), as the plain
+    version's Python expressions form them in double precision."""
+    p = model
+    ut = (0.0, 0.0) if u_trust is None else u_trust
+    a = p.Cf / p.m
+    return [LOW_VEL_THRESH, -p.mu, a, -a, p.lf, p.Cf, p.Cr, p.m, p.I,
+            p.lf * p.Cf, p.lr * p.Cr, p.lf ** 2 * p.Cf, p.lr ** 2 * p.Cr,
+            p.lf * p.Cf / p.I, float(dt), DIST_EPS,
+            0.5 if coupling == "hp" else 1.0, float(ut[0]), float(ut[1]),
+            PLANE_TRUST_THETA, PLANE_TRUST_B, 2.0 * PLANE_REG]
+
+
+def mpcc_consts(p, dt, bounds) -> list:
+    """The MPCC kernel's constants (``MPCCConst`` of the source)."""
+    return [p.lf, p.lr, p.Bf, p.Cf, p.Df, p.Br, p.Cr, p.Dr, p.Cm1, p.Cm2,
+            p.Cr0, p.Cr2, p.m, p.I, p.p_long, (p.p_ell * p.Dr) ** 2,
+            p.max_alpha, -p.max_alpha, float(dt), bounds.trust_delta,
+            bounds.trust_drive, -bounds.delta_max, bounds.delta_max,
+            bounds.drive_min, bounds.drive_max, bounds.vx_min,
+            SLIP_VX_FLOOR, MPCC_HALFWIDTH_SM]
+
+
+# --- the launches -----------------------------------------------------------
+
+def _track_args(track, device):
+    """The track's tables the kernel reads, checked and made contiguous
+    (a table built from a broadcast array may not be)."""
+    nl, ns = track.s0.shape
+    tables = [getattr(track, k).contiguous()
+              for k in ("s0", "curv", "halfwidth", "track_length")]
+    for k, t in zip(("s0", "curv", "halfwidth"), tables):
+        _check(f"track.{k}", t, (nl, ns), device)
+    _check("track.track_length", tables[3], (nl,), device)
+    _check("track.open_flag", track.open_flag, (), device, torch.bool)
+    return tables + [track.open_flag], ns
+
+
+def _outputs(P, N, nc, m, device):
+    """The StageQP's fields in the kernel's order, allocated empty."""
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return [out(P, N, NZ, NZ), out(P, N, NZ, nc), out(P, N, NZ),
+            out(P, N + 1, NZ, NZ), out(P, N + 1, NZ), out(P, N, nc, nc),
+            out(P, N, nc), out(P, N, NZ, nc), out(P, N, m, NZ),
+            out(P, N, m, nc), out(P, N, m), out(P, N, m), out(P, N, m),
+            out(P, N, m)]
+
+
+def _stage_qp(outs) -> StageQP:
+    F, G, d, Q, q, R, r, S, D, E, lo, hi, slo, shi = outs
+    return StageQP(dyn=LQRDynamics(F=F, G=G, d=d),
+                   cost=LQRCost(Q=Q, q=q, R=R, r=r, S=S), D=D, E=E, lo=lo,
+                   hi=hi, soft_lo=slo, soft_hi=shi)
+
+
+def _addresses(ps):
+    """Addresses (None: null) as the kernel's pointer array."""
+    return (ctypes.c_void_p * len(ps))(*ps)
+
+
+def _pointers(ts):
+    """Tensors' device pointers for the kernel; None stands for null."""
+    return _addresses([None if t is None else t.data_ptr() for t in ts])
+
+
+def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
+                  lambdas, neigh_xy, master_mask, u_trust=(0.06, 0.6),
+                  coupling: str = "eu", lane=0, planes0=None) -> StageQP:
+    """The NL SQP stage QPs of P problems on the card, in one launch of
+    ``cmpc_nl_qp``: the arguments and the result as
+    ``planners/nl.py build_nl_qp`` (float32, contiguous CUDA tensors;
+    ``planes0`` for hp_opt only). Limits are taken in float32."""
+    nb = neigh_xy.shape[-2]
+    if nb > MAX_NEIGHBOURS:
+        raise ValueError(f"{nb} neighbours: the kernel takes at most "
+                         f"{MAX_NEIGHBOURS}")
+    dev = _cuda_device(x_bar)
+    P = x_bar.shape[0]
+    nc, m = nl_shape(nb, coupling)
+    hp_opt = coupling == "hp_opt"
+    _check("x_bar", x_bar, (P, N + 1, NX), dev)
+    _check("u_bar", u_bar, (P, N, NU), dev)
+    _check("lambdas", lambdas, (P, nb, N), dev)
+    _check("neigh_xy", neigh_xy, (P, N + 1, nb, 2), dev)
+    _check("master_mask", master_mask, (P, nb), dev)
+    if hp_opt:
+        _check("planes0", planes0, (P, nb, N, 2), dev)
+    # `alive` holds the tensors the slot pointers point into
+    sp, ss, sv, alive = pack_slots(nl_fields(gains, limits), P, dev)
+    ln = pack_lane(lane, P, dev)
+    tr, nseg = _track_args(track, dev)
+    outs = _outputs(P, N, nc, m, dev)
+    ins = [x_bar, u_bar, lambdas, neigh_xy, master_mask,
+           planes0 if hp_opt else None,
+           ln if isinstance(ln, torch.Tensor) else None]
+    ints = [P, N, nb, COUPLINGS.index(coupling), int(u_trust is not None),
+            matvec_order(P * N, "row"), nseg,
+            0 if isinstance(ln, torch.Tensor) else ln] + ss
+    consts = nl_consts(model, dt, coupling, u_trust) + sv
+    from colaborativempc_tpu_torch.ops import _build
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cmpc_nl_qp(_pointers(ins), _pointers(tr), _pointers(outs),
+                             _addresses(sp),
+                             (ctypes.c_double * len(consts))(*consts),
+                             (ctypes.c_int * len(ints))(*ints),
+                             ctypes.c_void_p(stream))
+    _raise_on(err, "nl_qp_batched")
+    nl_qp_batched.launches += 1
+    return _stage_qp(outs)
+
+
+nl_qp_batched.launches = 0
+
+
+def mpcc_qp_batched(track, gains, p, N: int, dt, x_bar, u_bar,
+                    bounds) -> StageQP:
+    """The MPCC SQP stage QPs of B races on the card, in one launch of
+    ``cmpc_mpcc_qp``: the arguments and the result as
+    ``planners/mpcc.py build_mpcc_qp`` (float32, contiguous CUDA
+    tensors)."""
+    dev = _cuda_device(x_bar)
+    P = x_bar.shape[0]
+    _check("x_bar", x_bar, (P, N + 1, NX), dev)
+    _check("u_bar", u_bar, (P, N, NU), dev)
+    sp, ss, sv, alive = pack_slots(mpcc_fields(gains), P, dev)
+    tr, nseg = _track_args(track, dev)
+    outs = _outputs(P, N, NC, MPCC_ROWS, dev)
+    ints = [P, N, matvec_order(P * N, "col"), nseg] + ss
+    consts = mpcc_consts(p, dt, bounds) + sv
+    from colaborativempc_tpu_torch.ops import _build
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cmpc_mpcc_qp(_pointers([x_bar, u_bar]), _pointers(tr),
+                               _pointers(outs), _addresses(sp),
+                               (ctypes.c_double * len(consts))(*consts),
+                               (ctypes.c_int * len(ints))(*ints),
+                               ctypes.c_void_p(stream))
+    _raise_on(err, "mpcc_qp_batched")
+    mpcc_qp_batched.launches += 1
+    return _stage_qp(outs)
+
+
+mpcc_qp_batched.launches = 0

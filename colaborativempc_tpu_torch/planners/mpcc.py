@@ -31,7 +31,7 @@ from colaborativempc_tpu_torch.dynamics.pacejka import (
 )
 from colaborativempc_tpu_torch.geometry import Track, curvature, halfwidth
 from colaborativempc_tpu_torch.ops import (
-    LQRCost, StageQP, admm_solve, scale_stage_qp,
+    LQRCost, StageQP, admm_solve, cuda_sqp, scale_stage_qp,
 )
 from colaborativempc_tpu_torch.planners.lpv import NC, NZ, _augment_dynamics
 
@@ -131,8 +131,28 @@ def _col(v, dtype, device) -> torch.Tensor:
 def build_mpcc_qp(track: Track, gains: MPCCGains, p: PacejkaParams,
                   N: int, dt, x_bar: torch.Tensor, u_bar: torch.Tensor,
                   bounds: MPCCBounds = MPCCBounds()) -> StageQP:
-    """Assemble the racing stage QPs of B races around ``x_bar (B, N+1, 9)``,
-    ``u_bar (B, N, 2)``: 7 rows per stage — the track corridor on
+    """The racing stage QPs of B races around ``x_bar (B, N+1, 9)``,
+    ``u_bar (B, N, 2)``, as :func:`build_mpcc_qp_plain` forms them.
+
+    On CPU tensors: :func:`build_mpcc_qp_plain`. On CUDA tensors: one
+    launch of ``ops/cuda_sqp.py mpcc_qp_batched`` (the inputs made
+    contiguous first), which raises on a tensor it cannot take; there is
+    no fallback to the plain version, and neither the linearisation nor
+    ``torch.func`` runs."""
+    if x_bar.device.type == "cpu":
+        return build_mpcc_qp_plain(track, gains, p, N, dt, x_bar, u_bar,
+                                   bounds)
+    return cuda_sqp.mpcc_qp_batched(track, gains, p, N, dt,
+                                    x_bar.contiguous(), u_bar.contiguous(),
+                                    bounds)
+
+
+def build_mpcc_qp_plain(track: Track, gains: MPCCGains, p: PacejkaParams,
+                        N: int, dt, x_bar: torch.Tensor, u_bar: torch.Tensor,
+                        bounds: MPCCBounds = MPCCBounds()) -> StageQP:
+    """Plain version of :func:`build_mpcc_qp` on any device: assemble the
+    racing stage QPs of B races around ``x_bar (B, N+1, 9)``, ``u_bar (B,
+    N, 2)``: 7 rows per stage — the track corridor on
     ey_{k+1} (soft), the steer and duty boxes tightened by the SQP trust
     region, the friction ellipse and the two slip-angle rows linearised at
     (x_bar_k, u_bar_k) (soft), and vx_{k+1} >= vx_min (soft); soft weights

@@ -18,8 +18,11 @@ trust-box rows per neighbour: ``m = 4 + 3 n_nb``). Role asymmetry (master:
 price in the cost; slave: linearised distance row) is a per-problem
 ``master_mask`` over the neighbour axis.
 
-The Jacobians of the linearisation are analytic (the JAX package takes
-``jax.jacfwd`` of the same model); both agree to rounding.
+On CUDA tensors each build is one launch of the hand-written kernel of
+``csrc/sqp_qp.cu`` (``ops/cuda_sqp.py nl_qp_batched``); on CPU tensors it
+is :func:`build_nl_qp_plain`, whose Jacobians of the linearisation are
+analytic (the JAX package takes ``jax.jacfwd`` of the same model; both
+agree to rounding).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from colaborativempc_tpu_torch.dynamics.bicycle import (
 )
 from colaborativempc_tpu_torch.geometry import Track, curvature, halfwidth
 from colaborativempc_tpu_torch.ops import (
-    ADMMSolution, LQRCost, StageQP, admm_solve,
+    ADMMSolution, LQRCost, StageQP, admm_solve, cuda_sqp,
 )
 from colaborativempc_tpu_torch.planners.lpv import (
     NZ, NC, SOFT_WEIGHT_CAP, _augment_dynamics, _gain, _lim, _violations,
@@ -147,7 +150,34 @@ def build_nl_qp(track: Track, gains: Gains, limits: SysLimits,
                 coupling: str = "eu", lane=0,
                 planes0: Optional[torch.Tensor] = None) -> StageQP:
     """Assemble P SQP inner QPs around ``(x_bar (P, N+1, 9), u_bar (P, N,
-    2))``.
+    2))``; arguments as :func:`build_nl_qp_plain`.
+
+    On CPU tensors: :func:`build_nl_qp_plain`. On CUDA tensors: one launch
+    of ``ops/cuda_sqp.py nl_qp_batched`` (the inputs made contiguous
+    first), which raises on a tensor it cannot take (dtype, shape, device);
+    there is no fallback to the plain version."""
+    if x_bar.device.type == "cpu":
+        return build_nl_qp_plain(track, gains, limits, model, N, dt, x_bar,
+                                 u_bar, lambdas, neigh_xy, master_mask,
+                                 u_trust=u_trust, coupling=coupling,
+                                 lane=lane, planes0=planes0)
+    return cuda_sqp.nl_qp_batched(
+        track, gains, limits, model, N, dt, x_bar.contiguous(),
+        u_bar.contiguous(), lambdas.contiguous(), neigh_xy.contiguous(),
+        master_mask.contiguous(), u_trust=u_trust, coupling=coupling,
+        lane=lane, planes0=None if planes0 is None else planes0.contiguous())
+
+
+def build_nl_qp_plain(track: Track, gains: Gains, limits: SysLimits,
+                      model: ModelParams, N: int, dt,
+                      x_bar: torch.Tensor, u_bar: torch.Tensor,
+                      lambdas: torch.Tensor, neigh_xy: torch.Tensor,
+                      master_mask: torch.Tensor,
+                      u_trust: Optional[tuple] = (0.06, 0.6),
+                      coupling: str = "eu", lane=0,
+                      planes0: Optional[torch.Tensor] = None) -> StageQP:
+    """Plain version of :func:`build_nl_qp` on any device: P SQP inner QPs
+    around ``(x_bar (P, N+1, 9), u_bar (P, N, 2))`` in batched torch.
 
     Args:
       gains: each vector shared by all problems or per problem ``(P, k)``.

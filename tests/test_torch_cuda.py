@@ -422,3 +422,210 @@ def test_cuda_epoch_data_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="expected cuda"):
         admm_epoch_inputs(qp._replace(hi=qp.hi.cpu()))
     assert cuda_lqr.epoch_data_batched.launches == before
+
+
+# --- the SQP build kernels (csrc/sqp_qp.cu) ----------------------------------
+
+def nl_build_args(dev, B, N, coupling, map_type="Highway", lanes=False,
+                  edges=False, seed=7):
+    """``build_nl_qp``'s arguments for B perturbed 3-agent fleets as the
+    Jacobi sweep hands them to it, with random prices; ``lanes`` puts every
+    other problem on lane 1, ``edges`` vx below and at the velocity gate
+    and a NaN into the linearisation point (as ``chip_smoke.py`` phase
+    3d)."""
+    from colaborativempc_tpu_torch.config import SysLimits
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.runtime.ocd import _bisector_planes
+    from colaborativempc_tpu_torch.runtime.simulate import (
+        _neighbour_index, _per_agent_limits,
+    )
+    from colaborativempc_tpu_torch.scripts import monte_carlo
+    n = 3
+    cfg, _, st = monte_carlo.setup("nl", scenarios=B, agents=n, N=N,
+                                   steps=1, device=dev, coupling=coupling,
+                                   map_type=map_type)
+    ns = torch.as_tensor(_neighbour_index(n), device=dev)
+    ids = torch.arange(n, device=dev)
+    rng = np.random.default_rng(seed)
+    lam = torch.tensor(rng.uniform(0.0, 1.0, size=(B, n, n - 1, N)),
+                       dtype=F32, device=dev)
+    x_bar = torch.cat([st.x0[:, :, None], st.x_pred[:, :, 1:]], dim=2)
+    planes = _bisector_planes(x_bar)[:, torch.minimum(ids[:, None], ns),
+                                     torch.maximum(ids[:, None], ns)]
+    neigh = x_bar[:, ns][..., 7:9].transpose(2, 3)
+
+    def flat(t):
+        return t.reshape((B * n,) + t.shape[2:]).contiguous()
+    x_bar = flat(x_bar)
+    if edges:
+        x_bar[:, 2:N:4, 0] = 0.1
+        x_bar[:, 3:N:4, 0] = 0.2
+        x_bar[0, 1, 0] = float("nan")
+    P = B * n
+    return dict(
+        track=make_track(map_type, device=dev), gains=cfg.gains,
+        limits=SysLimits(*(v.repeat(B) for v in _per_agent_limits(cfg, dev))),
+        model=cfg.model, N=N, dt=cfg.dt, x_bar=x_bar, u_bar=flat(st.u_pred),
+        lambdas=flat(lam), neigh_xy=flat(neigh),
+        master_mask=flat((ids[:, None] < ns).float().expand(B, n, n - 1)),
+        coupling=coupling, lane=torch.arange(P, device=dev) % 2 if lanes
+        else 0, planes0=flat(planes) if coupling == "hp_opt" else None)
+
+
+def mpcc_build_args(dev, P, N, edges=False, seed=11):
+    """``build_mpcc_qp``'s arguments for P cold-started races with noise;
+    ``edges`` vx at and below the slip floor and a NaN."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.geometry.frenet import frenet_to_cartesian
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N)
+    track = make_track(cfg.map_type, device=dev)
+    s = torch.arange(P, dtype=F32, device=dev) * (
+        float(track.track_length[0]) / P)
+    px, py, th = frenet_to_cartesian(track, s, 0.0)
+    zero = torch.zeros_like(s)
+    x0 = torch.stack([0.5 + 0.05 * torch.arange(P, device=dev), zero, zero,
+                      zero, zero, th, s, px, py], dim=-1)
+    x_bar, u_bar = racing._cold_guess(track, cfg, x0)
+    rng = np.random.default_rng(seed)
+    x_bar = x_bar + torch.tensor(
+        rng.normal(size=x_bar.shape) * [0.1, 0.05, 0.3, 0.05, 0.05, 0, 0, 0,
+                                        0], dtype=F32, device=dev)
+    u_bar = u_bar + torch.tensor(rng.normal(size=u_bar.shape) * [0.05, 0.1],
+                                 dtype=F32, device=dev)
+    if edges:
+        x_bar[:, 2:N:4, 0] = 0.3
+        x_bar[:, 3:N:4, 0] = 0.1
+        x_bar[0, 1, 0] = float("nan")
+    return dict(track=track, gains=cfg.gains, p=cfg.model, N=N, dt=cfg.dt,
+                x_bar=x_bar.contiguous(), u_bar=u_bar.contiguous(),
+                bounds=cfg.bounds)
+
+
+def qp_close_to_scale(got, ref, tol):
+    """``close_to_scale`` over every field of two StageQPs."""
+    for g, r in ((got.dyn, ref.dyn), (got.cost, ref.cost)):
+        for f, a, b in zip(g._fields, g, r):
+            _field_close(f, a, b, tol)
+    for f in ("D", "E", "lo", "hi", "soft_lo", "soft_hi"):
+        _field_close(f, getattr(got, f), getattr(ref, f), tol)
+
+
+def _field_close(f, g, r, tol):
+    assert g.is_cuda and g.is_contiguous() and g.shape == r.shape, f
+    g, r = g.double().cpu(), r.double().cpu()
+    fin = torch.isfinite(r)
+    assert torch.equal(fin, torch.isfinite(g)), f
+    assert torch.equal(g[~fin].nan_to_num(), r[~fin].nan_to_num()), f
+    if bool(fin.any()):
+        scale = max(1.0, float(r[fin].abs().max()))
+        err = float((g[fin] - r[fin]).abs().max())
+        assert err <= tol * scale, (f, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nl_eu", "nl_hp_opt_edges",
+                                  "nl_eu_oval2_lanes_n40", "mpcc_edges"])
+def test_cuda_build_kernels_match_plain_versions(cuda, case):
+    """``build_nl_qp`` / ``build_mpcc_qp`` on the card (one launch of the
+    build kernel) against their plain versions on the same CUDA tensors,
+    every field within 1e-4 of its scale (as ``chip_smoke.py`` phase 3d),
+    NaN and infinities in the same places."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import mpcc, nl
+    if case == "mpcc_edges":
+        args = mpcc_build_args(cuda, 4, 20, edges=True)
+        build, plain = mpcc.build_mpcc_qp, mpcc.build_mpcc_qp_plain
+        wrapper = cuda_sqp.mpcc_qp_batched
+    else:
+        args = {"nl_eu": lambda: nl_build_args(cuda, 4, 20, "eu"),
+                "nl_hp_opt_edges": lambda: nl_build_args(
+                    cuda, 2, 20, "hp_opt", edges=True),
+                "nl_eu_oval2_lanes_n40": lambda: nl_build_args(
+                    cuda, 2, 40, "eu", map_type="Oval2", lanes=True)}[case]()
+        build, plain = nl.build_nl_qp, nl.build_nl_qp_plain
+        wrapper = cuda_sqp.nl_qp_batched
+    before = wrapper.launches
+    got = build(**args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    qp_close_to_scale(got, plain(**args), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["nl", "mpcc"])
+def test_cuda_build_kernels_launch_once_per_sqp_build(cuda, family):
+    """A 2-step rollout on the card: the build kernel launched once per
+    SQP build (one per solve of the planner), the other family's never,
+    and neither the linearisation nor torch.func ran."""
+    from colaborativempc_tpu_torch.dynamics import pacejka
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import mpcc, nl
+    planner = nl if family == "nl" else mpcc
+    solves, forbidden = [], []
+    orig = planner.admm_solve
+    watched = {(nl, "_linearize_horizon"), (pacejka, "linearize_pacejka"),
+               (pacejka, "tire_row_jacobians"),
+               (pacejka, "_batched_jacobians"),
+               (mpcc, "linearize_pacejka"), (mpcc, "tire_row_jacobians")}
+    saved = {(m, a): getattr(m, a) for m, a in watched}
+
+    def solve(*a, **kw):
+        solves.append(1)
+        return orig(*a, **kw)
+
+    def refuse(name):
+        def f(*a, **kw):
+            forbidden.append(name)
+            return saved[name](*a, **kw)
+        return f
+    planner.admm_solve = solve
+    for key in watched:
+        setattr(key[0], key[1], refuse(key))
+    before = (cuda_sqp.nl_qp_batched.launches,
+              cuda_sqp.mpcc_qp_batched.launches)
+    try:
+        if family == "nl":
+            from colaborativempc_tpu_torch.scripts import monte_carlo
+            _, roll, st = monte_carlo.setup("nl", scenarios=2, agents=3,
+                                            N=20, steps=2, device=cuda)
+            roll(st)
+        else:
+            from colaborativempc_tpu_torch.geometry import make_track
+            from colaborativempc_tpu_torch.runtime import racing
+            cfg = mpcc.MPCCConfig(N=20)
+            track = make_track(cfg.map_type, device=cuda)
+            racing.make_mpcc_rollout(track, cfg, 2)(
+                racing.init_mpcc(track, cfg, races=2, device=cuda))
+        torch.cuda.synchronize()
+    finally:
+        planner.admm_solve = orig
+        for (m, a), fn in saved.items():
+            setattr(m, a, fn)
+    launched = (cuda_sqp.nl_qp_batched.launches - before[0],
+                cuda_sqp.mpcc_qp_batched.launches - before[1])
+    assert solves and not forbidden
+    assert launched == ((len(solves), 0) if family == "nl"
+                        else (0, len(solves)))
+
+
+@pytest.mark.cuda
+def test_cuda_build_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """float64, a transposed (non-contiguous) input and a track left on
+    the CPU each raise before any launch; nothing falls back to the plain
+    version."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    args = nl_build_args(cuda, 1, 8, "eu")
+    before = cuda_sqp.nl_qp_batched.launches
+    with pytest.raises(TypeError, match="float32"):
+        cuda_sqp.nl_qp_batched(**dict(args, x_bar=args["x_bar"].double()))
+    lam = args["lambdas"]
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda_sqp.nl_qp_batched(**dict(
+            args, lambdas=lam.transpose(1, 2).contiguous().transpose(1, 2)))
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_sqp.nl_qp_batched(**dict(args, track=make_track(
+            "Highway", device="cpu")))
+    assert cuda_sqp.nl_qp_batched.launches == before
