@@ -8,7 +8,8 @@ gain battery, the long-horizon single fleet and the dynamic-lane rollout —
 and checks them:
 
 1. a CUDA device is present; prints the card's name and power limit;
-2. builds the kernels from ``colaborativempc_tpu_torch/csrc`` with nvcc;
+2. builds the kernels from ``colaborativempc_tpu_torch/csrc`` with nvcc,
+   and the clock-stamped epoch-data kernel beside them;
 3. each kernel against its plain PyTorch twin on the card, with the time of
    each beside its bound (bytes over 3.35 TB/s or FP32 operations over 67
    TFLOP/s, whichever is larger) and the launch plan (QPs per block, ring
@@ -30,8 +31,14 @@ and checks them:
    expected: the kernel follows the order of the card's batched library
    routines that the plain version calls, and the torch and CUDA versions
    are printed beside the check); both also read against the plain
-   version in float64 on the card. Phases 3, 3b and 13 feed the epoch
-   kernel the plain version's data, as before;
+   version in float64 on the card. The check fails on any entry whose bits
+   differ, and at the MPCC shapes when the kernel lies more than 1.5x as
+   far from float64 as the float32 plain version does. Each shape prints
+   the wrapper's host microseconds per call beside the kernel's device
+   time; then the split of the kernel's barrier intervals at the headline
+   and at P=7, from its clock-stamped build (built in phase 2 beside the
+   library; its outputs held bit for bit to the default build's). Phases
+   3, 3b and 13 feed the epoch kernel the plain version's data, as before;
 3d. the SQP build kernels (``csrc/sqp_qp.cu``: ``build_nl_qp`` and
    ``build_mpcc_qp`` on the card) against their plain versions on the card,
    field by field, each within 1e-4 of the larger of 1 and the field's max
@@ -151,6 +158,7 @@ any failure or when no CUDA device is available.
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 
+import concurrent.futures
 import functools
 import importlib.util
 import json
@@ -367,6 +375,9 @@ def check_kernels(dev, N, reps, P=HEADLINE["P"], **pin):
 
 
 TOL_EPOCH_DATA = 1e-4     # of max(1, the field's max |value|), float32
+# at the MPCC shapes, the kernel's share of scale from the float64 plain
+# version, at most this times the float32 plain version's own
+TOL_EPOCH_DATA_F64 = 1.5
 
 
 def epoch_data_bound(P, N, nz, nc, mr):
@@ -399,8 +410,12 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
     where the kernel's share is no larger than the float32 plain version's,
     a failure of the check reads as the libraries' order of operations
     having changed (a new torch or CUDA build), not as a kernel fault.
+    The kernel must also give 0 entries whose bits differ from the float32
+    plain version, and at the MPCC shapes its share of scale from float64
+    may be at most TOL_EPOCH_DATA_F64 times the float32 plain version's.
     Times both at the QP's own batch (the plain version is the path the
-    card ran before the kernel)."""
+    card ran before the kernel), and the wrapper's host microseconds per
+    call (host clock over calls queued without a synchronise)."""
     from colaborativempc_tpu_torch.ops import ADMMEpochData, cuda_lqr
     from colaborativempc_tpu_torch.ops.admm import (
         admm_epoch_inputs, admm_epoch_inputs_plain,
@@ -446,6 +461,23 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
                  f"plain version {rel64['plain']:.3g} (torch "
                  f"{torch.__version__}, CUDA {torch.version.cuda})")
         err, rel = max(err, e), max(rel, e / scale)
+    if differing:
+        fail(f"phase 3c {tag}: {differing} entries differ in their bits from "
+             f"the float32 plain version (torch {torch.__version__}, CUDA "
+             f"{torch.version.cuda})")
+    if tag.startswith("mpcc") and not (
+            rel64["kernel"] <= TOL_EPOCH_DATA_F64 * rel64["plain"]):
+        fail(f"phase 3c {tag}: the kernel's share of scale from float64 "
+             f"{rel64['kernel']:.3g} exceeds {TOL_EPOCH_DATA_F64} x the "
+             f"float32 plain version's {rel64['plain']:.3g}")
+    admm_epoch_inputs(qp, 10.0, rs)
+    torch.cuda.synchronize()
+    calls = 50
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        admm_epoch_inputs(qp, 10.0, rs)
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
     plan = cuda_lqr.epoch_data_plan(
         P, N, nz, nc, mr,
         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -454,7 +486,7 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
                compared_as_batch=cqp.lo.shape[0],
                max_rel_err_vs_f64=rel64["kernel"],
                plain_max_rel_err_vs_f64=rel64["plain"],
-               plan=plan._asdict(),
+               plan=plan._asdict(), host_us=host_us,
                ms=cuda_ms(lambda: admm_epoch_inputs(qp, 10.0, rs), reps),
                plain_ms=cuda_ms(lambda: admm_epoch_inputs_plain(
                    qp, 10.0, rs), 2))
@@ -463,12 +495,38 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
     print(f"phase 3c {tag} P={P} N={N} nc={nc} mr={mr}: epoch-data kernel "
           f"{out['ms']:.4f} ms (bound {out['bound_ms']:.3g} by "
           f"{out['bound_by']}, share {out['roofline_share']:.3f}, plan "
-          f"{out['plan']}) vs plain {out['plain_ms']:.3f} ms (max |err| "
+          f"{out['plan']}; wrapper {host_us:.1f} us of host per call) vs "
+          f"plain {out['plain_ms']:.3f} ms (max |err| "
           f"{err:.3g}, {rel:.3g} of scale, tol {TOL_EPOCH_DATA}; "
           f"{differing} entries differ in their bits; compared at batch "
           f"{cqp.lo.shape[0]}; vs float64 {rel64['kernel']:.3g} of scale, "
           f"the float32 plain version {rel64['plain']:.3g})", flush=True)
     return out
+
+
+def epoch_data_split_on_card(dev, tag, qp, rho_scale):
+    """Phase 3c's split of the epoch-data kernel: its clock-stamped build
+    (``cuda_lqr.epoch_data_clocked``, a library of its own) on ``qp``, the
+    mean cycles of each barrier interval (``scripts/epoch_data_split.py
+    split``), its outputs against the default build's bit for bit."""
+    from colaborativempc_tpu_torch.ops import ADMMEpochData, cuda_lqr
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs
+    from colaborativempc_tpu_torch.scripts.epoch_data_split import split
+    got, clocks, names, plan = cuda_lqr.epoch_data_clocked(qp, 10.0,
+                                                           rho_scale)
+    ref = admm_epoch_inputs(qp, 10.0, rho_scale)
+    torch.cuda.synchronize()
+    for f, g, r in zip(ADMMEpochData._fields, got, ref):
+        if not torch.equal(g.nan_to_num(), r.nan_to_num()):
+            fail(f"phase 3c split {tag}: field {f} of the clocked build "
+                 "differs from the default build's")
+    res = split(clocks.cpu().numpy(), names, qp.lo.shape[1])
+    print(f"phase 3c split {tag}: {res['cycles_per_stage']:.0f} cycles per "
+          f"stage (blocks at once per SM {res.get('blocks_at_once_per_sm')}"
+          f"); " + "; ".join(
+              f"{k} {v['mean_cycles']:.0f} x {v['count_per_block']}"
+              for k, v in res["intervals"].items()), flush=True)
+    return res
 
 
 TOL_SQP_QP = 1e-4         # of max(1, the field's max |value|), float32
@@ -2284,8 +2342,12 @@ def main():
     from colaborativempc_tpu_torch.ops.admm import default_epoch_len
     from colaborativempc_tpu_torch.runtime import make_lpv_fleet_rollout
 
-    # phase 2: build
-    info = _build.build()
+    # phase 2: build (the clock-stamped epoch-data kernel of phase 3c's
+    # split beside the library, its nvcc processes started together)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        clocked = ex.submit(_build.load_epoch_data_clocks)
+        info = _build.build()
+        clocked.result()
     _build.load()
     secs["phase 2"] = time.perf_counter() - t_start
     print(f"phase 2: kernels built in {info['seconds']:.2f} s "
@@ -2327,6 +2389,9 @@ def main():
     for P, N in ((18, BAT_N), (1, MPCC_N)):
         kdata[f"mpcc_p{P}_n{N}"] = check_epoch_data(
             dev, f"mpcc P={P} N={N}", mpcc_qps(dev, P, N)[0], 1.0, 10)
+    ksplit = {"headline": epoch_data_split_on_card(dev, "headline",
+                                                   *k20["qp"]),
+              "p7": epoch_data_split_on_card(dev, "p7", *k7["qp"])}
     # phase 3d: the SQP build kernels vs their plain versions
     ksqp = check_sqp_builds(dev)
 
@@ -2482,10 +2547,11 @@ def main():
              plain_max_rel_err_vs_f64=kdata["headline"][
                  "plain_max_rel_err_vs_f64"],
              library_ms=None, plan=kdata["headline"]["plan"],
+             host_us=kdata["headline"]["host_us"], split=ksplit,
              torch_version=torch.__version__, cuda_version=torch.version.cuda,
              shapes={tag: {k: r[k] for k in keys + (
                  "max_rel_err", "max_rel_err_vs_f64",
-                 "plain_max_rel_err_vs_f64", "compared_as_batch")}
+                 "plain_max_rel_err_vs_f64", "compared_as_batch", "host_us")}
                      for tag, r in kdata.items() if tag != "headline"}),
     ]
     sqp_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",

@@ -16,22 +16,48 @@
 // once is ~34 MB at the LPV headline (768 QPs, N=20, nz=11, nc=2, mr=6),
 // 0.010 ms at 3.35 TB/s; its ~7,000 FP32 operations per stage are 0.0016 ms
 // at 67 TFLOP/s. So the bound is bytes, but the real time is set by the
-// Riccati chain: N dependent stage steps per QP, each a few 11x11 products
-// separated by barriers.
+// latency of the Riccati chain: N dependent stage steps per QP, each a few
+// short products separated by barriers, and at a large batch by the SM's
+// issue rate over the resident blocks. The design is laid out from the
+// split of the first version (PERF.md section 6; clock stamps of
+// scripts/epoch_data_split.py): one thread per nz x nz entry, every loop
+// strided from thread 0, five barriers per stage, ~13,500-14,700 cycles per
+// stage, every interval slow: rows with P F, P G, m ~5,300-5,900; Qxx, Qxu,
+// Quu ~3,800-4,100; the Cholesky on thread 0 ~1,550 (nc=6: ~6,900); the
+// solve from a local array ~1,800; P ~1,000.
 //
 // What the design does about it.
-// * One block per QP, one thread per entry of an nz x nz matrix (128
-//   threads at nz=11), so each product of a stage step is one short chain
-//   of fused multiply-adds per thread and the step is a handful of
-//   barriers deep.
-//   768 blocks of 4 warps are resident on the card at once.
-// * Stage inputs stream through shared memory: while stage k runs, cp.async
-//   brings stage k-1 into the other of two slots, so the chain never waits
-//   on device memory after the first stage.
-// * The work that does not depend on P_{k+1} (row mask, rv, masked rows,
-//   the augmentation D'diag(rv)D, E'diag(rv)E, D'diag(rv)E, the prox
-//   factors) runs in the same barrier intervals as the products with
-//   P_{k+1}, on the same threads, so it adds no barrier to the chain.
+// * Everything that does not depend on P_{k+1} leaves the chain. Stages
+//   stream through shared memory in chunks of up to 8 stages (two slots;
+//   cp.async brings the next chunk while this one runs, each matrix
+//   transposed on the way in). On arrival, one pass over the chunk forms
+//   the rows (rv, fac_lo, fac_hi, written out), the masked rows Dm, Em
+//   (written out) and their rv-weighted copies Dw, Ew; a second pass forms
+//   the augmentations Q + Dw'Dm, S + Dw'Em and R + Ew'Em in place of Q, S
+//   and R. Both passes run over the chunk's stages at once: three barriers
+//   per chunk (arrival, rows, augmentations), not per stage.
+// * The chain runs three barrier intervals per stage, each kind of entry
+//   on warps of its own (no warp runs two kinds one after the other):
+//   (1) P F, P G and m = P d (192 threads at nz=11, nc=2);
+//   (2) Qxx, Qxu and Quu, each one sum added to its precomputed base;
+//   (3) every thread that needs K factors the small Quu itself, in the same
+//       order (so the same bits): the thread of P_k's entry (i, j), i <= j,
+//       solves K's columns i and j and writes P_k (i, j) and (j, i) (the
+//       two are the same sum); the diagonal thread writes K's column; nc
+//       more threads solve Quu_inv's columns. The factor, the right-hand
+//       sides and the solves live in registers: the kernel is instantiated
+//       for nc <= 2, nc <= 8 and nc <= 32, the loops over nc unrolled to
+//       that bound (above 8 they are not: nc > 8 comes only from NL
+//       hp_opt with five or more agents).
+// * Every product is a sum along two rows of shared memory: P, F', G',
+//   (P F)', (P G)', D', E' and their weighted copies are kept a row per
+//   vector, 12 floats wide (32 when nz or mr exceeds 12), the entries at
+//   the row's end after zeros. A row is read as three float4s, and the
+//   leading zeros add fmaf(0, 0, +0) = +0 to a sum that is still +0, so the
+//   sums need no select. m's two halves are sums along P's rows and d kept
+//   a second time split into halves the same way.
+// * __launch_bounds__ hold the nc <= 2 kernel to 72 registers (4 blocks of
+//   192 threads per SM) and the nc <= 8 one to 96.
 // * Order of operations: bit for bit the plain version's on the card. In
 //   float32 the MPCC planner's QPs cancel so much (Qxu ~ 7e4 out of far
 //   larger terms) that two summation orders land ~1e-3 of scale apart, so
@@ -40,7 +66,7 @@
 //   version calls (cuBLAS batched GEMM, cuSOLVER / MAGMA batched Cholesky
 //   and solve), read off this build's results on the H100
 //   (PERF.md): a matrix product sums its terms as fused multiply-adds in
-//   index order from zero (fma_dot); a matrix-vector product (m = P d)
+//   index order from zero (dot_row); a matrix-vector product (m = P d)
 //   sums two halves, [0, ceil(n/2)) and the rest, and adds them; the
 //   Cholesky factor goes column by column, L_jj = sqrt(a_jj - ...) with
 //   the updates as fused multiply-adds, L_ij = (a_ij - ...) * (1 / L_jj);
@@ -57,11 +83,18 @@
 //   makes that stage's whole Cholesky factor NaN, as JAX's cholesky does,
 //   so K, Quu_inv and every earlier stage's data come out NaN.
 //
+// Built with -DCMPC_EPOCH_DATA_CLOCKS (ops/_build.py
+// load_epoch_data_clocks, a library of its own), the kernel also stamps
+// clock64() at each barrier: thread 0's arrival and the last warp's, per
+// block, into a buffer the caller passes (cmpc_epoch_data_clocked). The
+// default build has no stamps.
+//
 // Layout: row-major (P, N, ...) float32 tensors, contiguous, as the PyTorch
 // wrapper (ops/cuda_lqr.py epoch_data_batched) checks; rho_scale is
 // (P, mr); soft_lo / soft_hi may be null (every row hard). Plain C
-// interface for ctypes; the entry launches on the given stream and returns
-// cudaGetLastError(). nz, nc, mr <= 32.
+// interface for ctypes; the entry checks the launch plan (ops/cuda_lqr.py
+// epoch_data_plan: threads, chunk, shared bytes), launches on the given
+// stream and returns cudaGetLastError(). nz, nc, mr <= 32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,46 +103,144 @@ namespace {
 
 constexpr int kMaxDim = 32;
 
+#ifdef CMPC_EPOCH_DATA_CLOCKS
+struct Clocks {
+  long long* out;  // (P, stamps, 3): label, thread 0's clock, last warp's
+  int stamps;
+};
+
+// Stamp n of this block: thread 0's arrival at the barrier that follows,
+// and the arrival of the block's last warp (the barrier's release).
+__device__ __forceinline__ void stamp(const Clocks& c, unsigned* arrivals,
+                                      int& n, int label) {
+  if (n < c.stamps) {
+    long long* s = c.out + ((size_t)blockIdx.x * c.stamps + n) * 3;
+    if (threadIdx.x == 0) {
+      s[0] = label;
+      s[1] = clock64();
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      const unsigned warps = (blockDim.x + 31) / 32;
+      if (atomicAdd(arrivals, 1u) % warps == warps - 1) s[2] = clock64();
+    }
+  }
+  ++n;
+}
+#define CLOCK_STAMP(label) stamp(a.clocks, &clk_arrivals, clk_n, (label))
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The block's last stamp row: (-2 - its SM, its start and its end in ns of
+// the global timer), so a reader sees which blocks ran at once.
+__device__ __forceinline__ void stamp_block(const Clocks& c, long long t0) {
+  if (threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    long long* s = c.out + ((size_t)blockIdx.x * c.stamps + c.stamps - 1) * 3;
+    s[0] = -2 - (long long)sm;
+    s[1] = t0;
+    s[2] = global_ns();
+  }
+}
+#else
+#define CLOCK_STAMP(label)
+#endif
+
+// Stamp labels, in the order of cmpc_epoch_data_clock_names.
+enum Label { kChain1 = 1, kChain2, kChain3, kArrival, kRows, kAugment };
+
 struct DataArgs {
   const float *F, *G, *d, *Q, *R, *S, *D, *E, *lo, *hi, *slo, *shi, *rs;
   float *K, *Qi, *Qxu, *m, *Dm, *Em, *rv, *flo, *fhi;
-  int P, N, nz, nc, mr;
+  int P, N, nz, nc, mr, chunk;
   float rho, reg;
+#ifdef CMPC_EPOCH_DATA_CLOCKS
+  Clocks clocks;
+#endif
 };
 
-// Floats of one stage's inputs in a slot: F, G, Q, R, S, d, D, E, lo, hi,
-// soft_lo, soft_hi.
+// n rounded up to whole float4s: every field and row in shared memory
+// starts on 16 bytes.
+__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The width of a row in shared memory (a vector of nz or mr entries): 12
+// floats when nz, mr <= 12, else 32; the entries sit at its end, after
+// zeros (the kernel's DIM).
+__host__ __device__ inline int data_width(int nz, int mr) {
+  return nz <= 12 && mr <= 12 ? 12 : 32;
+}
+
+// Floats of one stage in a chunk slot: F and G transposed (a row per
+// column), d's two halves (a row each), Q, R, S, D and E transposed and the
+// rv-weighted D' and E' (a row per column), lo, hi, soft_lo, soft_hi. Q,
+// S and R become the augmentations in place, D' and E' the masked rows.
 __host__ __device__ inline int data_stage_floats(int nz, int nc, int mr) {
-  return 2 * nz * nz + 2 * nz * nc + nc * nc + nz + mr * (nz + nc + 4);
+  return (3 * (nz + nc) + 2) * data_width(nz, mr) + round4(nz * nz) +
+         round4(nc * nc) + round4(nz * nc) + 4 * round4(mr);
 }
 
-// Floats of one block's shared memory: two stage slots, the value Hessian
-// P, the products P F and P G, Qxx, Qxu, Quu, its factor L and the
-// reciprocals of its diagonal, the gains K, and per row rv, rho_scale, Dm,
-// Dw = Dm rv, Em and Ew = Em rv.
-__host__ __device__ inline int data_block_floats(int nz, int nc, int mr) {
-  return 2 * data_stage_floats(nz, nc, mr) + 3 * nz * nz + 2 * nz * nc +
-         2 * nc * nc + nc + nc * nz + mr * (2 + 2 * nz + 2 * nc);
+// Floats of one block's shared memory: two slots of `chunk` stages, the
+// value Hessian P, the two halves of its rows, (P F)' (a row each per row
+// or column), (P G)', Qxx, Qxu, Quu and rho_scale.
+__host__ __device__ inline int data_block_floats(int nz, int nc, int mr,
+                                                 int chunk) {
+  return 2 * chunk * data_stage_floats(nz, nc, mr) +
+         (4 * nz + nc) * data_width(nz, mr) + round4(nz * nz) +
+         round4(nz * nc) + round4(nc * nc) + round4(mr);
 }
 
+// Whole warps: each kind of entry of an interval starts on a warp of its
+// own, so no warp runs two kinds of chain one after the other.
+__host__ __device__ inline int warps_of(int n) { return (n + 31) / 32 * 32; }
+
+// The threads of a block: the largest of the three chain intervals (P F,
+// P G, m; Qxx, Qxu, Quu; P's upper triangle, Quu_inv's columns), each
+// kind of entry in whole warps, at most 1024. The chunk's passes stride
+// over them.
+__host__ __device__ inline int data_threads(int nz, int nc) {
+  const int one = warps_of(nz * nz) + warps_of(nz * nc) + warps_of(nz);
+  const int two = warps_of(nz * nz) + warps_of(nz * nc) + warps_of(nc * nc);
+  const int three = warps_of(nz * (nz + 1) / 2) + warps_of(nc);
+  int t = one > two ? one : two;
+  t = t > three ? t : three;
+  return t < 1024 ? t : 1024;
+}
+
+// floor(o / n) from inv = 1 / n in single precision: exact for 0 <= o <
+// 2^20 and n <= 1024 (the quotient's distance from an integer, at least
+// 0.5 / n, outweighs the rounding, at most ~1.2e-7 (o + 0.5) / n).
+__device__ __forceinline__ int div_small(int o, float inv) {
+  return (int)(((float)o + 0.5f) * inv);
+}
+
+// A chunk slot holds each field for its `chunk` stages, stage after stage.
 struct Slot {
-  float *F, *G, *Q, *R, *S, *d, *D, *E, *lo, *hi, *slo, *shi;
+  float *Ft, *Gt, *Q, *R, *S, *d, *Dt, *Et, *Dwt, *Ewt, *lo, *hi, *slo, *shi;
 };
 
-__device__ inline Slot slot_at(float* base, int i, int nz, int nc, int mr) {
+__device__ inline Slot slot_at(float* base, int half, int C, int nz, int nc,
+                               int mr) {
+  const int W = data_width(nz, mr);
   Slot s;
-  float* p = base + (size_t)i * data_stage_floats(nz, nc, mr);
-  s.F = p;   p += nz * nz;
-  s.G = p;   p += nz * nc;
-  s.Q = p;   p += nz * nz;
-  s.R = p;   p += nc * nc;
-  s.S = p;   p += nz * nc;
-  s.d = p;   p += nz;
-  s.D = p;   p += mr * nz;
-  s.E = p;   p += mr * nc;
-  s.lo = p;  p += mr;
-  s.hi = p;  p += mr;
-  s.slo = p; p += mr;
+  float* p = base + (size_t)half * C * data_stage_floats(nz, nc, mr);
+  s.Ft = p;   p += C * nz * W;
+  s.Gt = p;   p += C * nc * W;
+  s.Q = p;    p += C * round4(nz * nz);
+  s.R = p;    p += C * round4(nc * nc);
+  s.S = p;    p += C * round4(nz * nc);
+  s.d = p;    p += 2 * C * W;  // d's halves [0, ceil(nz/2)), the rest
+  s.Dt = p;   p += C * nz * W;
+  s.Et = p;   p += C * nc * W;
+  s.Dwt = p;  p += C * nz * W;
+  s.Ewt = p;  p += C * nc * W;
+  s.lo = p;   p += C * round4(mr);
+  s.hi = p;   p += C * round4(mr);
+  s.slo = p;  p += C * round4(mr);
   s.shi = p;
   return s;
 }
@@ -131,280 +262,567 @@ __device__ __forceinline__ void cp_async_commit() {
 #endif
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
+// Wait until at most `pending` committed groups are still in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
 #if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 #endif
 }
 
-__device__ inline void load_field(float* dst, const float* src, int count) {
-  for (int o = threadIdx.x; o < count; o += blockDim.x)
-    cp_async4(dst + o, src + o);
+// n stages of a (rows x cols) row-major field into the slot as stage after
+// stage of the transpose, each column a row of W floats ending in its
+// entries.
+__device__ inline void load_transposed(float* dst, const float* src, int n,
+                                       int rows, int cols, int W) {
+  const float inv_cols = 1.f / cols, inv_rows = 1.f / rows;
+  dst += W - rows;
+  for (int o = threadIdx.x; o < n * rows * cols; o += blockDim.x) {
+    const int r = div_small(o, inv_cols), c = o - r * cols;  // r = t rows + i
+    const int t = div_small(r, inv_rows), i = r - t * rows;
+    cp_async4(dst + (t * cols + c) * W + i, src + o);
+  }
 }
 
-// Stage k of problem p into slot s, asynchronously; absent soft weights
-// are +inf (hard rows).
-__device__ inline void load_stage(const DataArgs& a, const Slot& s, int p,
-                                  int k) {
-  const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr;
-  const size_t st = (size_t)p * N + k;
-  load_field(s.F, a.F + st * nz * nz, nz * nz);
-  load_field(s.G, a.G + st * nz * nc, nz * nc);
-  load_field(s.Q, a.Q + ((size_t)p * (N + 1) + k) * nz * nz, nz * nz);
-  load_field(s.R, a.R + st * nc * nc, nc * nc);
-  load_field(s.S, a.S + st * nz * nc, nz * nc);
-  load_field(s.d, a.d + st * nz, nz);
-  load_field(s.D, a.D + st * mr * nz, mr * nz);
-  load_field(s.E, a.E + st * mr * nc, mr * nc);
-  load_field(s.lo, a.lo + st * mr, mr);
-  load_field(s.hi, a.hi + st * mr, mr);
-  if (a.slo) {
-    load_field(s.slo, a.slo + st * mr, mr);
-  } else {
-    for (int o = threadIdx.x; o < mr; o += blockDim.x) s.slo[o] = INFINITY;
+// n stages of `per` floats each into stage slots of `stride` floats.
+__device__ inline void load_padded(float* dst, const float* src, int n,
+                                   int per, int stride) {
+  const float inv = 1.f / per;
+  for (int o = threadIdx.x; o < n * per; o += blockDim.x) {
+    const int t = div_small(o, inv);
+    cp_async4(dst + t * stride + (o - t * per), src + o);
   }
-  if (a.shi) {
-    load_field(s.shi, a.shi + st * mr, mr);
-  } else {
-    for (int o = threadIdx.x; o < mr; o += blockDim.x) s.shi[o] = INFINITY;
+}
+
+__device__ inline void fill_padded(float* dst, float v, int n, int per,
+                                   int stride) {
+  const float inv = 1.f / per;
+  for (int o = threadIdx.x; o < n * per; o += blockDim.x) {
+    const int t = div_small(o, inv);
+    dst[t * stride + (o - t * per)] = v;
   }
+}
+
+// Stages [k0, k1) of problem p into a slot, asynchronously, as one group;
+// absent soft weights are +inf (hard rows).
+__device__ inline void load_chunk(const DataArgs& a, const Slot& s, int p,
+                                  int k0, int k1) {
+  const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, n = k1 - k0;
+  const int W = data_width(nz, mr), lr = round4(mr);
+  const size_t st = (size_t)p * N + k0;
+  load_transposed(s.Ft, a.F + st * nz * nz, n, nz, nz, W);
+  load_transposed(s.Gt, a.G + st * nz * nc, n, nz, nc, W);
+  load_padded(s.Q, a.Q + ((size_t)p * (N + 1) + k0) * nz * nz, n, nz * nz,
+              round4(nz * nz));
+  load_padded(s.R, a.R + st * nc * nc, n, nc * nc, round4(nc * nc));
+  load_padded(s.S, a.S + st * nz * nc, n, nz * nc, round4(nz * nc));
+  const int h = (nz + 1) / 2;
+  const float inv_nz = 1.f / nz;
+  for (int o = threadIdx.x; o < n * nz; o += blockDim.x) {
+    const int t = div_small(o, inv_nz), l = o - t * nz;
+    cp_async4(s.d + 2 * t * W + (l < h ? W - h + l : 2 * W - nz + l),
+              a.d + st * nz + o);
+  }
+  load_transposed(s.Dt, a.D + st * mr * nz, n, mr, nz, W);
+  load_transposed(s.Et, a.E + st * mr * nc, n, mr, nc, W);
+  load_padded(s.lo, a.lo + st * mr, n, mr, lr);
+  load_padded(s.hi, a.hi + st * mr, n, mr, lr);
+  if (a.slo)
+    load_padded(s.slo, a.slo + st * mr, n, mr, lr);
+  else
+    fill_padded(s.slo, INFINITY, n, mr, lr);
+  if (a.shi)
+    load_padded(s.shi, a.shi + st * mr, n, mr, lr);
+  else
+    fill_padded(s.shi, INFINITY, n, mr, lr);
   cp_async_commit();
 }
 
-// Row j's mask (a finite bound on either side) and its rv = (rho * mask)
-// * rho_scale, as the plain version forms them.
-__device__ __forceinline__ float row_mask(const Slot& s, int j) {
-  return (isfinite(s.lo[j]) || isfinite(s.hi[j])) ? 1.f : 0.f;
+// Row j's mask (a finite bound on either side), as the plain version forms
+// it; rv = (rho * mask) * rho_scale.
+__device__ __forceinline__ float row_mask(const float* lo, const float* hi,
+                                          int j) {
+  return (isfinite(lo[j]) || isfinite(hi[j])) ? 1.f : 0.f;
 }
 
-__device__ __forceinline__ float row_rv(const Slot& s, const float* rsc,
-                                        float rho, int j) {
-  return __fmul_rn(__fmul_rn(rho, row_mask(s, j)), rsc[j]);
-}
-
-// acc + sum over l in [l0, l1) of a[l sa] * b[l sb], one fused multiply-add
-// per term in index order (the order of the card's batched GEMM).
-__device__ __forceinline__ float fma_dot(const float* a, int sa,
-                                         const float* b, int sb, int l0,
-                                         int l1, float acc) {
-  for (int l = l0; l < l1; ++l) acc = fmaf(a[l * sa], b[l * sb], acc);
+// The sum over a row of W entries of a[l] * b[l], one fused multiply-add
+// per term in index order from zero (the order of the card's batched GEMM),
+// a and b rows in shared memory on 16 bytes, read as float4s. A row's
+// leading zeros add fmaf(0, 0, +0) = +0 to the sum while it is still +0,
+// so the sum is that of the entries alone, with no select.
+template <int W>
+__device__ __forceinline__ float dot_row(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const float4 u = reinterpret_cast<const float4*>(a)[q];
+    const float4 v = reinterpret_cast<const float4*>(b)[q];
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
+    acc = fmaf(u.z, v.z, acc);
+    acc = fmaf(u.w, v.w, acc);
+  }
   return acc;
 }
 
-// Solve L L' x = b in place (b of length n; L lower triangular, row-major
-// n x n; rcp[i] = 1 / L_ii): forward with the terms in index order, back
-// with them in reverse, as the card's batched solve.
-__device__ inline void chol_solve(const float* L, const float* rcp, float* x,
-                                  int n) {
-  for (int i = 0; i < n; ++i) {
-    float s = x[i];
-    for (int j = 0; j < i; ++j) s = fmaf(-L[i * n + j], x[j], s);
-    x[i] = __fmul_rn(s, rcp[i]);
+// The loops over nc below run to NC and skip what lies at or past nc; up
+// to NC = 8 they are unrolled, so the factor, the right-hand sides and the
+// solves stay in registers.
+
+// The Cholesky factor of 0.5 (Quu + Quu') + reg I (Quu row-major nc x nc
+// in shared memory) into registers, column by column as the card's batched
+// routine; all NaN unless every pivot is > 0 (the plain version's NaN for
+// a failed cholesky_ex, as JAX's cholesky). rcp[j] = 1 / L_jj.
+template <int NC>
+__device__ __forceinline__ void factor(const float* Quu, float reg, int nc,
+                                       float (&L)[NC][NC], float (&rcp)[NC]) {
+  bool ok = true;
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll(NC <= 8 ? NC : 1)
+    for (int i = j; i < NC; ++i) {
+      if (i < nc) {
+        float v =
+            __fmul_rn(0.5f, __fadd_rn(Quu[i * nc + j], Quu[j * nc + i]));
+        v = __fadd_rn(v, i == j ? reg : 0.f);
+#pragma unroll(NC <= 8 ? NC : 1)
+        for (int l = 0; l < j; ++l) v = fmaf(-L[i][l], L[j][l], v);
+        if (i == j) {
+          if (!(v > 0.f)) ok = false;
+          L[j][j] = __fsqrt_rn(v);
+          rcp[j] = __frcp_rn(L[j][j]);
+        } else {
+          L[i][j] = __fmul_rn(v, rcp[j]);
+        }
+      }
+    }
   }
-  for (int i = n - 1; i >= 0; --i) {
-    float s = x[i];
-    for (int j = n - 1; j > i; --j) s = fmaf(-L[j * n + i], x[j], s);
-    x[i] = __fmul_rn(s, rcp[i]);
+  if (!ok) {
+#pragma unroll(NC <= 8 ? NC : 1)
+    for (int i = 0; i < NC; ++i) {
+      rcp[i] = NAN;
+#pragma unroll(NC <= 8 ? NC : 1)
+      for (int j = 0; j <= i; ++j) L[i][j] = NAN;
+    }
   }
 }
 
-__global__ void epoch_data_kernel(DataArgs a) {
-  extern __shared__ float smem[];
+// Solve L L' x = b in place (b of length nc, in registers): forward with
+// the terms in index order, back with them in reverse, each row times
+// 1 / L_ii, as the card's batched solve.
+template <int NC>
+__device__ __forceinline__ void chol_solve(const float (&L)[NC][NC],
+                                           const float (&rcp)[NC],
+                                           float (&x)[NC], int nc) {
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int i = 0; i < NC; ++i) {
+    if (i < nc) {
+      float s = x[i];
+#pragma unroll(NC <= 8 ? NC : 1)
+      for (int j = 0; j < i; ++j) s = fmaf(-L[i][j], x[j], s);
+      x[i] = __fmul_rn(s, rcp[i]);
+    }
+  }
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int i = NC - 1; i >= 0; --i) {
+    if (i < nc) {
+      float s = x[i];
+#pragma unroll(NC <= 8 ? NC : 1)
+      for (int j = NC - 1; j > i; --j)
+        if (j < nc) s = fmaf(-L[j][i], x[j], s);
+      x[i] = __fmul_rn(s, rcp[i]);
+    }
+  }
+}
+
+// K's column c: -(Quu^-1 Qxu')[:, c], from Qxu's row c.
+template <int NC>
+__device__ __forceinline__ void gain_column(const float (&L)[NC][NC],
+                                            const float (&rcp)[NC],
+                                            const float* Qxu, int c, int nc,
+                                            float (&k)[NC]) {
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int u = 0; u < NC; ++u) k[u] = u < nc ? Qxu[c * nc + u] : 0.f;
+  chol_solve<NC>(L, rcp, k, nc);
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int u = 0; u < NC; ++u) k[u] = -k[u];
+}
+
+// Qxx[i][j] + sum over u of Qxu[i][u] K[u][j], the terms in index order.
+template <int NC>
+__device__ __forceinline__ float closed_loop(const float* Qxx,
+                                             const float* Qxu,
+                                             const float (&kj)[NC], int i,
+                                             int j, int nz, int nc) {
+  float acc = 0.f;
+#pragma unroll(NC <= 8 ? NC : 1)
+  for (int u = 0; u < NC; ++u)
+    if (u < nc) acc = fmaf(Qxu[i * nc + u], kj[u], acc);
+  return __fadd_rn(Qxx[i * nz + j], acc);
+}
+
+// The kinds of entry of one pass, each starting on a warp of its own: o
+// falls in kind 0, 1 or 2 at index q of that kind (or past every kind).
+__device__ __forceinline__ int kind_of(int o, int n0, int n1, int n2,
+                                       int& q) {
+  const int w0 = warps_of(n0), w1 = warps_of(n1);
+  q = o < w0 ? o : (o < w0 + w1 ? o - w0 : o - w0 - w1);
+  const int kind = o < w0 ? 0 : (o < w0 + w1 ? 1 : 2);
+  return q < (kind == 0 ? n0 : (kind == 1 ? n1 : n2)) ? kind : 3;
+}
+
+// Entry o of a pass of three kinds (n0, n1, n2 entries, rows of c0, c1,
+// c2 columns): its kind (3 past every kind), row i and column j.
+struct Entry {
+  int kind, q, i, j;
+};
+
+__device__ __forceinline__ Entry entry_of(int o, int n0, int c0, int n1,
+                                          int c1, int n2, int c2) {
+  Entry e;
+  e.kind = kind_of(o, n0, n1, n2, e.q);
+  const int cols = e.kind == 0 ? c0 : (e.kind == 1 ? c1 : c2);
+  e.i = e.kind < 3 ? e.q / cols : 0;
+  e.j = e.q - e.i * cols;
+  return e;
+}
+
+// Entry o of the last interval: P's upper-triangle entry (i, j), i <= j,
+// row by row (kind 0), or Quu_inv's column q (kind 1).
+__device__ __forceinline__ Entry last_entry_of(int o, int nz, int nc) {
+  Entry e;
+  e.kind = kind_of(o, nz * (nz + 1) / 2, nc, 0, e.q);
+  int i = 0, j = e.kind == 0 ? e.q : 0;
+  while (j >= nz - i) {
+    j -= nz - i;
+    ++i;
+  }
+  e.i = i;
+  e.j = i + j;
+  return e;
+}
+
+// Stages per chunk, at most.
+constexpr int kMaxChunk = 8;
+
+// DIM >= nz, mr (a multiple of 4) bounds the loops of the products; NC >=
+// nc those of the factor and the solves.
+template <int NC, int DIM>
+__global__ void __launch_bounds__(
+    NC == 2 && DIM == 12 ? 224 : (NC == 8 && DIM == 12 ? 320 : 1024),
+    NC == 2 && DIM == 12 ? 4 : (NC == 8 && DIM == 12 ? 2 : 1))
+    epoch_data_kernel(DataArgs a) {
+  extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.x;
-  const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr;
+  const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, C = a.chunk;
   const int tid = threadIdx.x, T = blockDim.x;
+  constexpr int W = DIM;              // a row: zeros, then its entries
+  const int pz = W - nz, pr = W - mr, lr = round4(mr), h = (nz + 1) / 2;
+#ifdef CMPC_EPOCH_DATA_CLOCKS
+  __shared__ unsigned clk_arrivals;
+  int clk_n = 0;
+  if (tid == 0) clk_arrivals = 0;
+  const long long clk_t0 = global_ns();
+#endif
 
-  float* base = smem;
-  float* w = base + 2 * data_stage_floats(nz, nc, mr);
-  float* Pm = w;   w += nz * nz;   // value Hessian P_{k+1}
-  float* PF = w;   w += nz * nz;
-  float* Qxx = w;  w += nz * nz;
-  float* PG = w;   w += nz * nc;
-  float* Qxu = w;  w += nz * nc;
-  float* Quu = w;  w += nc * nc;
-  float* L = w;    w += nc * nc;
-  float* rcp = w;  w += nc;        // 1 / L_jj
-  float* Kg = w;   w += nc * nz;
-  float* rvs = w;  w += mr;
-  float* rsc = w;  w += mr;
-  float* Dm = w;   w += mr * nz;
-  float* Dw = w;   w += mr * nz;
-  float* Em = w;   w += mr * nc;
-  float* Ew = w;
+  float* w = smem + 2 * C * data_stage_floats(nz, nc, mr);
+  float* Pm = w;   w += nz * W;            // value Hessian P_{k+1}, rows
+  float* Plo = w;  w += nz * W;            // its rows' halves, as d's
+  float* Phi = w;  w += nz * W;
+  float* PFt = w;  w += nz * W;            // (P F)', a row per column
+  float* PGt = w;  w += nc * W;            // (P G)'
+  float* Qxx = w;  w += round4(nz * nz);   // row-major
+  float* Qxu = w;  w += round4(nz * nc);
+  float* Quu = w;  w += round4(nc * nc);
+  float* rsc = w;
 
-  // P_N = Q_N (the terminal cost is not augmented), rho_scale, stage N-1
-  for (int o = tid; o < nz * nz; o += T)
-    Pm[o] = a.Q[((size_t)p * (N + 1) + N) * nz * nz + o];
-  for (int o = tid; o < mr; o += T) rsc[o] = a.rs[(size_t)p * mr + o];
-  load_stage(a, slot_at(base, (N - 1) & 1, nz, nc, mr), p, N - 1);
-  cp_async_wait_all();
+  // the rows' leading zeros: nothing writes them after this
+  for (int o = tid; o < data_block_floats(nz, nc, mr, C) / 4; o += T)
+    reinterpret_cast<float4*>(smem)[o] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  for (int k = N - 1; k >= 0; --k) {
-    const Slot s = slot_at(base, k & 1, nz, nc, mr);
-    // the next stage streams into the other slot while this one runs
-    if (k > 0) load_stage(a, slot_at(base, (k - 1) & 1, nz, nc, mr), p, k - 1);
-    const size_t st = (size_t)p * N + k;
-
-    // (1) rows: rv, prox factors, the masked rows and their rv-weighted
-    //     copies; P F, P G and m = P d
-    for (int o = tid; o < mr; o += T) {
-      const float r = row_rv(s, rsc, a.rho, o);
-      const float safe = r > 0.f ? r : 1.f;
-      const float sl = s.slo[o], sh = s.shi[o];
-      rvs[o] = r;
-      a.rv[st * mr + o] = r;
-      a.flo[st * mr + o] =
-          isinf(sl) ? 0.f
-                    : __fdiv_rn(safe, __fadd_rn(safe, __fmul_rn(2.f, sl)));
-      a.fhi[st * mr + o] =
-          isinf(sh) ? 0.f
-                    : __fdiv_rn(safe, __fadd_rn(safe, __fmul_rn(2.f, sh)));
-    }
-    for (int o = tid; o < mr * nz; o += T) {
-      const int j = o / nz;
-      const float v = __fmul_rn(s.D[o], row_mask(s, j));
-      Dm[o] = v;
-      Dw[o] = __fmul_rn(v, row_rv(s, rsc, a.rho, j));
-      a.Dm[st * mr * nz + o] = v;
-    }
-    for (int o = tid; o < mr * nc; o += T) {
-      const int j = o / nc;
-      const float v = __fmul_rn(s.E[o], row_mask(s, j));
-      Em[o] = v;
-      Ew[o] = __fmul_rn(v, row_rv(s, rsc, a.rho, j));
-      a.Em[st * mr * nc + o] = v;
-    }
-    for (int o = tid; o < nz * nz; o += T) {
-      const int i = o / nz, j = o - i * nz;
-      PF[o] = fma_dot(Pm + i * nz, 1, s.F + j, nz, 0, nz, 0.f);
-    }
-    for (int o = tid; o < nz * nc; o += T) {
-      const int i = o / nc, c = o - i * nc;
-      PG[o] = fma_dot(Pm + i * nz, 1, s.G + c, nc, 0, nz, 0.f);
-    }
-    for (int i = tid; i < nz; i += T) {
-      const int h = (nz + 1) / 2;  // m = P d: two halves, then their sum
-      a.m[st * nz + i] =
-          __fadd_rn(fma_dot(Pm + i * nz, 1, s.d, 1, 0, h, 0.f),
-                    fma_dot(Pm + i * nz, 1, s.d, 1, h, nz, 0.f));
-    }
-    __syncthreads();
-
-    // (2) Qxx = (Q + Dw'Dm) + F'(PF), Qxu = (S + Dw'Em) + F'(PG),
-    //     Quu = (R + Ew'Em) + G'(PG), Ew = Em rv
-    for (int o = tid; o < nz * nz; o += T) {
-      const int i = o / nz, j = o - i * nz;
-      const float qa =
-          __fadd_rn(s.Q[o], fma_dot(Dw + i, nz, Dm + j, nz, 0, mr, 0.f));
-      Qxx[o] = __fadd_rn(qa, fma_dot(s.F + i, nz, PF + j, nz, 0, nz, 0.f));
-    }
-    for (int o = tid; o < nz * nc; o += T) {
-      const int i = o / nc, c = o - i * nc;
-      const float sa =
-          __fadd_rn(s.S[o], fma_dot(Dw + i, nz, Em + c, nc, 0, mr, 0.f));
-      const float v =
-          __fadd_rn(sa, fma_dot(s.F + i, nz, PG + c, nc, 0, nz, 0.f));
-      Qxu[o] = v;
-      a.Qxu[st * nz * nc + o] = v;
-    }
-    for (int o = tid; o < nc * nc; o += T) {
-      const int c = o / nc, b = o - c * nc;
-      const float ra =
-          __fadd_rn(s.R[o], fma_dot(Ew + c, nc, Em + b, nc, 0, mr, 0.f));
-      Quu[o] = __fadd_rn(ra, fma_dot(s.G + c, nc, PG + b, nc, 0, nz, 0.f));
-    }
-    __syncthreads();
-
-    // (3) L = chol(0.5 (Quu + Quu') + reg I) column by column, all NaN
-    //     unless every pivot is > 0 (the plain version's NaN for a failed
-    //     cholesky_ex, as JAX's cholesky)
-    if (tid == 0) {
-      bool ok = true;
-      for (int j = 0; j < nc; ++j) {
-        for (int i = j; i < nc; ++i) {
-          float v = __fmul_rn(0.5f, __fadd_rn(Quu[i * nc + j],
-                                              Quu[j * nc + i]));
-          v = __fadd_rn(v, i == j ? a.reg : 0.f);
-          for (int l = 0; l < j; ++l)
-            v = fmaf(-L[i * nc + l], L[j * nc + l], v);
-          if (i == j) {
-            if (!(v > 0.f)) ok = false;
-            L[j * nc + j] = __fsqrt_rn(v);
-            rcp[j] = __frcp_rn(L[j * nc + j]);
-          } else {
-            L[i * nc + j] = __fmul_rn(v, rcp[j]);
-          }
-        }
-        for (int i = 0; i < j; ++i) L[i * nc + j] = 0.f;
-      }
-      if (!ok)
-        for (int i = 0; i < nc; ++i) {
-          rcp[i] = NAN;
-          for (int j = 0; j <= i; ++j) L[i * nc + j] = NAN;
-        }
-    }
-    __syncthreads();
-
-    // (4) K = -Quu^-1 Qxu' (one column per thread), Quu_inv = Quu^-1
-    if (tid < nz + nc) {
-      float x[kMaxDim];
-      const bool gain = tid < nz;
-      const int col = gain ? tid : tid - nz;
-      for (int c = 0; c < nc; ++c)
-        x[c] = gain ? Qxu[col * nc + c] : (c == col ? 1.f : 0.f);
-      chol_solve(L, rcp, x, nc);
-      for (int c = 0; c < nc; ++c) {
-        if (gain) {
-          Kg[c * nz + col] = -x[c];
-          a.K[st * nc * nz + c * nz + col] = -x[c];
-        } else {
-          a.Qi[st * nc * nc + c * nc + col] = x[c];
-        }
-      }
-    }
-    __syncthreads();
-
-    // (5) P_k = 0.5 (M + M'), M = Qxx + Qxu K
-    for (int o = tid; o < nz * nz; o += T) {
-      const int i = o / nz, j = o - i * nz;
-      const float mij = __fadd_rn(
-          Qxx[o], fma_dot(Qxu + i * nc, 1, Kg + j, nz, 0, nc, 0.f));
-      const float mji = __fadd_rn(
-          Qxx[j * nz + i], fma_dot(Qxu + j * nc, 1, Kg + i, nz, 0, nc, 0.f));
-      Pm[o] = __fmul_rn(0.5f, __fadd_rn(mij, mji));
-    }
-    // the next stage's slot has arrived, and every thread is past (5)
-    cp_async_wait_all();
-    __syncthreads();
+  // P_N = Q_N (the terminal cost is not augmented), rho_scale, chunk 0
+  const float inv_nz = 1.f / nz;
+  for (int o = tid; o < nz * nz; o += T) {
+    const int i = div_small(o, inv_nz), j = o - i * nz;
+    const float v = a.Q[((size_t)p * (N + 1) + N) * nz * nz + o];
+    Pm[i * W + pz + j] = v;
+    (j < h ? Plo : Phi)[i * W + (j < h ? W - h : W - nz) + j] = v;
   }
+  for (int o = tid; o < mr; o += T) rsc[o] = a.rs[(size_t)p * mr + o];
+  load_chunk(a, slot_at(smem, 0, C, nz, nc, mr), p, N > C ? N - C : 0, N);
+
+  const int chunks = (N + C - 1) / C;
+  const int tri = nz * (nz + 1) / 2;
+  // each thread's entry of every pass, where the pass needs no more
+  // threads than the block has (the others decode as they stride)
+  const Entry e1 = entry_of(tid, nz * nz, nz, nz * nc, nc, nz, 1);
+  const Entry e2 = entry_of(tid, nz * nz, nz, nz * nc, nc, nc * nc, nc);
+  const Entry e3 = last_entry_of(tid, nz, nc);
+  const float inv_mr = 1.f / mr;
+  for (int c = 0; c < chunks; ++c) {
+    const int k1 = N - c * C, k0 = k1 > C ? k1 - C : 0, n = k1 - k0;
+    const Slot s = slot_at(smem, c & 1, C, nz, nc, mr);
+    // the next chunk streams into the other slot while this one runs
+    if (c + 1 < chunks) {
+      load_chunk(a, slot_at(smem, (c + 1) & 1, C, nz, nc, mr), p,
+                 k0 > C ? k0 - C : 0, k0);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    CLOCK_STAMP(kArrival);
+    __syncthreads();
+
+    // rows of the chunk: rv and the prox factors, one thread per row and
+    // stage (written out); the masked rows Dm, Em (written out, and in
+    // place of D', E') and Dw = Dm rv, Ew = Em rv, one thread per entry
+    // over the chunk's stages
+    const size_t st0 = (size_t)p * N + k0;
+    for (int o = tid; o < warps_of(C * mr) + warps_of(mr * nz) +
+                              warps_of(mr * nc);
+         o += T) {
+      int q;
+      const int kind = kind_of(o, C * mr, mr * nz, mr * nc, q);
+      if (kind == 0) {
+        const int t = div_small(q, inv_mr), j = q - t * mr;
+        if (t < n) {
+          const int e = t * lr + j;
+          const float r = __fmul_rn(
+              __fmul_rn(a.rho, row_mask(s.lo, s.hi, e)), rsc[j]);
+          const float safe = r > 0.f ? r : 1.f;
+          const float sl = s.slo[e], sh = s.shi[e];
+          a.rv[st0 * mr + q] = r;
+          a.flo[st0 * mr + q] =
+              isinf(sl) ? 0.f
+                        : __fdiv_rn(safe, __fadd_rn(safe, __fmul_rn(2.f, sl)));
+          a.fhi[st0 * mr + q] =
+              isinf(sh) ? 0.f
+                        : __fdiv_rn(safe, __fadd_rn(safe, __fmul_rn(2.f, sh)));
+        }
+      } else if (kind < 3) {
+        // q = row * width + col, the order of the global rows
+        const int width = kind == 1 ? nz : nc;
+        const int j = kind == 1 ? div_small(q, inv_nz) : q / nc;
+        const int col = q - j * width;
+        float* src = (kind == 1 ? s.Dt : s.Et) + col * W + pr + j;
+        float* wgt = (kind == 1 ? s.Dwt : s.Ewt) + col * W + pr + j;
+        float* out = (kind == 1 ? a.Dm + st0 * mr * nz
+                                : a.Em + st0 * mr * nc) + q;
+        const int stride = width * W, gstride = mr * width;
+        const float rj = rsc[j];
+        for (int t = 0; t < n; ++t) {
+          const float mask = row_mask(s.lo, s.hi, t * lr + j);
+          const float v = __fmul_rn(src[t * stride], mask);
+          src[t * stride] = v;
+          wgt[t * stride] = __fmul_rn(v, __fmul_rn(__fmul_rn(a.rho, mask), rj));
+          out[t * gstride] = v;
+        }
+      }
+    }
+    CLOCK_STAMP(kRows);
+    __syncthreads();
+
+    // the augmentations of the chunk, in place, one thread per entry over
+    // the chunk's stages: Q + Dw'Dm, S + Dw'Em, R + Ew'Em
+    for (int o = tid; o < warps_of(nz * nz) + warps_of(nz * nc) +
+                              warps_of(nc * nc);
+         o += T) {
+      const Entry e =
+          o == tid ? e2 : entry_of(o, nz * nz, nz, nz * nc, nc, nc * nc, nc);
+      if (e.kind == 3) continue;
+      const float* lhs = (e.kind == 2 ? s.Ewt : s.Dwt) + e.i * W;
+      const float* rhs = (e.kind == 0 ? s.Dt : s.Et) + e.j * W;
+      const int lw = (e.kind == 2 ? nc : nz) * W;
+      const int rw = (e.kind == 0 ? nz : nc) * W;
+      float* base = (e.kind == 0 ? s.Q : (e.kind == 1 ? s.S : s.R)) + e.q;
+      const int per = e.kind == 0 ? round4(nz * nz)
+                                  : (e.kind == 1 ? round4(nz * nc)
+                                                 : round4(nc * nc));
+      // four stages at a time: their sums, then their stores (a past-the-
+      // end stage repeats the last one and is not stored)
+      for (int t0 = 0; t0 < n; t0 += 4) {
+        float r[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int tt = t0 + u < n ? t0 + u : n - 1;
+          r[u] = dot_row<W>(lhs + tt * lw, rhs + tt * rw);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (t0 + u < n)
+            base[(t0 + u) * per] = __fadd_rn(base[(t0 + u) * per], r[u]);
+      }
+    }
+    CLOCK_STAMP(kAugment);
+    __syncthreads();
+
+    for (int k = k1 - 1; k >= k0; --k) {
+      const int t = k - k0;
+      const size_t st = (size_t)p * N + k;
+      const float* Ft = s.Ft + t * nz * W;
+      const float* Gt = s.Gt + t * nc * W;
+
+      // (1) P F, P G (both kept transposed) and m = P d (two halves,
+      //     then their sum)
+      for (int o = tid; o < warps_of(nz * nz) + warps_of(nz * nc) +
+                                warps_of(nz);
+           o += T) {
+        const Entry e =
+            o == tid ? e1 : entry_of(o, nz * nz, nz, nz * nc, nc, nz, 1);
+        if (e.kind == 0) {
+          PFt[e.j * W + pz + e.i] = dot_row<W>(Pm + e.i * W, Ft + e.j * W);
+        } else if (e.kind == 1) {
+          PGt[e.j * W + pz + e.i] = dot_row<W>(Pm + e.i * W, Gt + e.j * W);
+        } else if (e.kind == 2) {
+          const float* dk = s.d + 2 * t * W;
+          a.m[st * nz + e.q] =
+              __fadd_rn(dot_row<W>(Plo + e.q * W, dk),
+                        dot_row<W>(Phi + e.q * W, dk + W));
+        }
+      }
+      CLOCK_STAMP(kChain1);
+      __syncthreads();
+
+      // (2) Qxx = (Q + Dw'Dm) + F'(PF), Qxu = (S + Dw'Em) + F'(PG),
+      //     Quu = (R + Ew'Em) + G'(PG)
+      for (int o = tid; o < warps_of(nz * nz) + warps_of(nz * nc) +
+                                warps_of(nc * nc);
+           o += T) {
+        const Entry e =
+            o == tid ? e2 : entry_of(o, nz * nz, nz, nz * nc, nc, nc * nc, nc);
+        if (e.kind == 0) {
+          Qxx[e.q] = __fadd_rn(s.Q[t * round4(nz * nz) + e.q],
+                               dot_row<W>(Ft + e.i * W, PFt + e.j * W));
+        } else if (e.kind == 1) {
+          const float v = __fadd_rn(
+              s.S[t * round4(nz * nc) + e.q],
+              dot_row<W>(Ft + e.i * W, PGt + e.j * W));
+          Qxu[e.q] = v;
+          a.Qxu[st * nz * nc + e.q] = v;
+        } else if (e.kind == 2) {
+          Quu[e.q] = __fadd_rn(s.R[t * round4(nc * nc) + e.q],
+                               dot_row<W>(Gt + e.i * W, PGt + e.j * W));
+        }
+      }
+      CLOCK_STAMP(kChain2);
+      __syncthreads();
+
+      // (3) each thread factors Quu itself; P_k = 0.5 (M + M'), M = Qxx +
+      //     Qxu K, over the upper triangle (i <= j), K's columns i and j
+      //     solved by that thread (the diagonal thread writes K's column);
+      //     then Quu_inv's columns
+      for (int o = tid; o < warps_of(tri) + warps_of(nc); o += T) {
+        const Entry e = o == tid ? e3 : last_entry_of(o, nz, nc);
+        if (e.kind > 1) continue;
+        float L[NC][NC], rcp[NC], ki[NC];
+        factor<NC>(Quu, a.reg, nc, L, rcp);
+        if (e.kind == 0) {
+          const int i = e.i, j = e.j;
+          float kj[NC];
+          gain_column<NC>(L, rcp, Qxu, i, nc, ki);
+          gain_column<NC>(L, rcp, Qxu, j, nc, kj);
+          const float mij = closed_loop<NC>(Qxx, Qxu, kj, i, j, nz, nc);
+          const float mji = closed_loop<NC>(Qxx, Qxu, ki, j, i, nz, nc);
+          const float v = __fmul_rn(0.5f, __fadd_rn(mij, mji));
+          Pm[i * W + pz + j] = v;
+          Pm[j * W + pz + i] = v;
+          (j < h ? Plo : Phi)[i * W + (j < h ? W - h : W - nz) + j] = v;
+          (i < h ? Plo : Phi)[j * W + (i < h ? W - h : W - nz) + i] = v;
+          if (i == j) {
+#pragma unroll(NC <= 8 ? NC : 1)
+            for (int u = 0; u < NC; ++u)
+              if (u < nc) a.K[st * nc * nz + u * nz + i] = ki[u];
+          }
+        } else {
+#pragma unroll(NC <= 8 ? NC : 1)
+          for (int u = 0; u < NC; ++u) ki[u] = u == e.q ? 1.f : 0.f;
+          chol_solve<NC>(L, rcp, ki, nc);
+#pragma unroll(NC <= 8 ? NC : 1)
+          for (int u = 0; u < NC; ++u)
+            if (u < nc) a.Qi[st * nc * nc + u * nc + e.q] = ki[u];
+        }
+      }
+      CLOCK_STAMP(kChain3);
+      __syncthreads();
+    }
+  }
+#ifdef CMPC_EPOCH_DATA_CLOCKS
+  stamp_block(a.clocks, clk_t0);
+#endif
+}
+
+template <int NC, int DIM>
+cudaError_t launch_with(const DataArgs& a, int threads, size_t smem,
+                        cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        epoch_data_kernel<NC, DIM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  epoch_data_kernel<NC, DIM><<<a.P, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int launch(const DataArgs& a, int threads, int smem_bytes, void* stream) {
+  const int nz = a.nz, nc = a.nc, mr = a.mr;
+  if (a.P <= 0 || a.N <= 0 || nz <= 0 || nz > kMaxDim || nc <= 0 ||
+      nc > kMaxDim || mr <= 0 || mr > kMaxDim || a.chunk <= 0 ||
+      a.chunk > kMaxChunk || a.chunk > a.N ||
+      threads != data_threads(nz, nc))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (size_t)data_block_floats(nz, nc, mr, a.chunk);
+  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool narrow = data_width(nz, mr) == 12;
+  if (nc <= 2)
+    return (int)(narrow ? launch_with<2, 12>(a, threads, smem, s)
+                        : launch_with<2, 32>(a, threads, smem, s));
+  if (nc <= 8)
+    return (int)(narrow ? launch_with<8, 12>(a, threads, smem, s)
+                        : launch_with<8, 32>(a, threads, smem, s));
+  return (int)launch_with<32, 32>(a, threads, smem, s);
 }
 
 }  // namespace
 
-extern "C" int cmpc_epoch_data(
-    const float* F, const float* G, const float* d, const float* Q,
-    const float* R, const float* S, const float* D, const float* E,
-    const float* lo, const float* hi, const float* soft_lo,
-    const float* soft_hi, const float* rho_scale, float* K, float* Quu_inv,
-    float* Qxu, float* m, float* D_out, float* E_out, float* rv,
-    float* fac_lo, float* fac_hi, int P, int N, int nz, int nc, int mr,
-    float rho, float reg, int threads, int smem_bytes, void* stream) {
-  if (P <= 0 || N <= 0 || nz <= 0 || nz > kMaxDim || nc <= 0 ||
-      nc > kMaxDim || mr <= 0 || mr > kMaxDim || threads <= 0 ||
-      threads % 32 != 0 || threads > 1024 || nz + nc > threads)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)data_block_floats(nz, nc, mr);
-  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        epoch_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  DataArgs a = {F,  G,     d,     Q,      R,     S,   D,  E,  lo,  hi,
-                soft_lo, soft_hi, rho_scale, K, Quu_inv, Qxu, m, D_out, E_out,
-                rv, fac_lo, fac_hi, P, N, nz, nc, mr, rho, reg};
-  epoch_data_kernel<<<P, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+#define EPOCH_DATA_PARAMS                                                   \
+  const float *F, const float *G, const float *d, const float *Q,           \
+      const float *R, const float *S, const float *D, const float *E,       \
+      const float *lo, const float *hi, const float *soft_lo,               \
+      const float *soft_hi, const float *rho_scale, float *K,               \
+      float *Quu_inv, float *Qxu, float *m, float *D_out, float *E_out,     \
+      float *rv, float *fac_lo, float *fac_hi, int P, int N, int nz,        \
+      int nc, int mr, float rho, float reg, int threads, int chunk,         \
+      int smem_bytes, void *stream
+#define EPOCH_DATA_FIELDS                                                   \
+  F, G, d, Q, R, S, D, E, lo, hi, soft_lo, soft_hi, rho_scale, K, Quu_inv,  \
+      Qxu, m, D_out, E_out, rv, fac_lo, fac_hi, P, N, nz, nc, mr, chunk,    \
+      rho, reg
+
+#ifndef CMPC_EPOCH_DATA_CLOCKS
+extern "C" int cmpc_epoch_data(EPOCH_DATA_PARAMS) {
+  const DataArgs a = {EPOCH_DATA_FIELDS};
+  return launch(a, threads, smem_bytes, stream);
 }
+#else
+// The clock-stamped build: stamps (P, stamps, 3) int64, each (label, thread
+// 0's clock, the last warp's clock) at one barrier, in the block's order.
+extern "C" int cmpc_epoch_data_clocked(EPOCH_DATA_PARAMS, long long* clocks,
+                                       int stamps) {
+  const DataArgs a = {EPOCH_DATA_FIELDS, {clocks, stamps}};
+  return launch(a, threads, smem_bytes, stream);
+}
+
+// Stamps per block: three per chunk, three per stage, and the block's row.
+extern "C" int cmpc_epoch_data_clock_stamps(int N, int chunk) {
+  return 3 * ((N + chunk - 1) / chunk) + 3 * N + 1;
+}
+
+extern "C" const char* cmpc_epoch_data_clock_names() {
+  return "-;PF PG m;Qxx Qxu Quu;factor K P Quu_inv;chunk arrival;"
+         "rows;augmentations";
+}
+#endif

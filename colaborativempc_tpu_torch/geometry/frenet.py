@@ -154,9 +154,9 @@ def cartesian_to_frenet(track: Track, x, y, psi, lane=0):
     points return the reference's sentinel (1e4, 1e4, 1e4, False).
     """
     dtype = track.x0.dtype
-    x = torch.as_tensor(x, device=track.x0.device).to(dtype)
-    y = torch.as_tensor(y, device=track.x0.device).to(dtype)
-    psi = torch.as_tensor(psi, device=track.x0.device).to(dtype)
+    x = torch.as_tensor(x, dtype=dtype, device=track.x0.device)
+    y = torch.as_tensor(y, dtype=dtype, device=track.x0.device)
+    psi = torch.as_tensor(psi, dtype=dtype, device=track.x0.device)
     shape = torch.broadcast_shapes(x.shape, y.shape, psi.shape)
     x, y, psi = (torch.broadcast_to(v, shape)[..., None] for v in (x, y, psi))
     lx0, ly0, lpsi, ls0, llen, lk, lhw = (

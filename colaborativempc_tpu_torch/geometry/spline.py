@@ -224,9 +224,9 @@ def project_on_spline(track: Track, x, y, s_guess, lane: int = 0,
     converged falls back to its guess.
     """
     dtype, dev = track.x0.dtype, track.x0.device
-    px = torch.as_tensor(x, device=dev).to(dtype)
-    py = torch.as_tensor(y, device=dev).to(dtype)
-    s_guess = torch.as_tensor(s_guess, device=dev).to(dtype)
+    px = torch.as_tensor(x, dtype=dtype, device=dev)
+    py = torch.as_tensor(y, dtype=dtype, device=dev)
+    s_guess = torch.as_tensor(s_guess, dtype=dtype, device=dev)
 
     gx, gy, _ = frenet_to_cartesian(track, s_guess, 0.0, lane)
     far = torch.sqrt((px - gx) ** 2 + (py - gy) ** 2) >= max_dist

@@ -9,6 +9,12 @@ takes seconds. Every source is compiled with the same flags. The library
 goes under ``colaborativempc_tpu_torch/_build/``, named by a hash of the
 sources and the flags, so a changed source is rebuilt and an unchanged one
 is reused. Nothing is built at import: the first CUDA launch builds.
+
+On request, :func:`load_epoch_data_clocks` builds ``epoch_data.cu`` alone
+with ``-DCMPC_EPOCH_DATA_CLOCKS`` into a second library of its own hashed
+name: the kernel then stamps ``clock64()`` at each of its barriers
+(``scripts/epoch_data_split.py`` reads the stamps). The default library
+is compiled without the macro and does not depend on it.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -30,8 +37,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+CLOCKS_FLAG = "-DCMPC_EPOCH_DATA_CLOCKS"
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# cmpc_epoch_data: 22 pointers, P, N, nz, nc, mr, rho, reg, threads, chunk,
+# smem_bytes, stream
+_EPOCH_DATA_ARGS = [_P] * 22 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P]
 
 
 def nvcc_path() -> str:
@@ -49,36 +62,42 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+def library_path(sources: Sequence[Path] = SOURCES,
+                 flags: Sequence[str] = NVCC_FLAGS,
+                 stem: str = "cmpc_kernels") -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"cmpc_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile the kernels unless the library for these sources exists.
-    Returns ``{"path", "seconds", "built", "log"}``; ``log`` holds nvcc's
-    output (register and shared-memory use from ``-Xptxas -v``)."""
-    out = library_path()
+def build(sources: Sequence[Path] = SOURCES,
+          flags: Sequence[str] = NVCC_FLAGS,
+          stem: str = "cmpc_kernels") -> dict:
+    """Compile ``sources`` with ``flags`` into one library unless it exists
+    (by default every ``csrc/*.cu``, the port's library). Returns
+    ``{"path", "seconds", "built", "log"}``; ``log`` holds nvcc's output
+    (register and shared-memory use from ``-Xptxas -v``)."""
+    sources = tuple(Path(s) for s in sources)
+    out = library_path(sources, flags, stem)
     log_path = out.with_suffix(".log")
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(out), "seconds": 0.0, "built": False, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = BUILD_DIR / f"{tag}.tmp.so"
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj),
                                    str(src)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(SOURCES, objs)]
+                 for src, obj in zip(sources, objs)]
         logs = [f"== {src.name}\n" + proc.communicate()[0]
-                for src, proc in zip(SOURCES, procs)]
-        failed = [src.name for src, proc in zip(SOURCES, procs)
+                for src, proc in zip(sources, procs)]
+        failed = [src.name for src, proc in zip(sources, procs)
                   if proc.returncode != 0]
         if not failed:
             link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
@@ -109,8 +128,7 @@ def load() -> ctypes.CDLL:
     lib.cmpc_admm_epoch.restype = _I
     lib.cmpc_lqr_affine.argtypes = [_P] * 12 + [_I] * 7 + [_P]
     lib.cmpc_lqr_affine.restype = _I
-    lib.cmpc_epoch_data.argtypes = ([_P] * 22 + [_I] * 5
-                                    + [ctypes.c_float] * 2 + [_I] * 2 + [_P])
+    lib.cmpc_epoch_data.argtypes = _EPOCH_DATA_ARGS
     lib.cmpc_epoch_data.restype = _I
     pp = ctypes.POINTER(ctypes.c_void_p)
     for name in ("cmpc_nl_qp", "cmpc_mpcc_qp"):
@@ -119,3 +137,25 @@ def load() -> ctypes.CDLL:
                        ctypes.POINTER(_I), _P]
         fn.restype = _I
     return lib
+
+
+@functools.cache
+def load_epoch_data_clocks(source: Optional[str] = None) -> ctypes.CDLL:
+    """The clock-stamped epoch-data kernel: ``source`` (default
+    ``csrc/epoch_data.cu``) alone, built with :data:`CLOCKS_FLAG` into a
+    library of its own. It exports ``cmpc_epoch_data_clocked`` (the
+    arguments of ``cmpc_epoch_data``, then the stamp buffer and its stamps
+    per block), ``cmpc_epoch_data_clock_stamps(N, chunk)`` (stamps per
+    block) and ``cmpc_epoch_data_clock_names()`` (the labels' names,
+    separated by ``;``)."""
+    src = Path(source) if source else _PKG / "csrc" / "epoch_data.cu"
+    lib = ctypes.CDLL(build((src,), (*NVCC_FLAGS, CLOCKS_FLAG),
+                            "cmpc_epoch_data_clocks")["path"])
+    lib.cmpc_epoch_data_clocked.argtypes = _EPOCH_DATA_ARGS + [_P, _I]
+    lib.cmpc_epoch_data_clocked.restype = _I
+    lib.cmpc_epoch_data_clock_stamps.argtypes = [_I, _I]
+    lib.cmpc_epoch_data_clock_stamps.restype = _I
+    lib.cmpc_epoch_data_clock_names.argtypes = []
+    lib.cmpc_epoch_data_clock_names.restype = ctypes.c_char_p
+    return lib
+

@@ -217,8 +217,8 @@ def scale_stage_qp(qp: StageQP, tz, tc) -> StageQP:
     with ``z = z~ * tz``, ``c = c~ * tc``."""
     dtype, dev = qp.lo.dtype, qp.lo.device
     nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
-    tz = torch.as_tensor(tz, device=dev).to(dtype).reshape(-1, 1, nz)
-    tc = torch.as_tensor(tc, device=dev).to(dtype).reshape(-1, 1, nc)
+    tz = torch.as_tensor(tz, dtype=dtype, device=dev).reshape(-1, 1, nz)
+    tc = torch.as_tensor(tc, dtype=dtype, device=dev).reshape(-1, 1, nc)
     tzi = 1.0 / tz
     col_z, row_z = tz[..., None, :], tz[..., :, None]
     col_c, row_c = tc[..., None, :], tc[..., :, None]

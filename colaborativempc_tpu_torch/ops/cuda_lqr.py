@@ -23,25 +23,30 @@ Pallas kernels).
 
 :func:`kernel_plan` chooses each epoch or affine launch's QPs per block,
 ring depth and shared-memory bytes from the shapes and the card's SM count;
-:func:`epoch_data_plan` the epoch-data launch's threads and shared memory.
+:func:`epoch_data_plan` the epoch-data launch's threads, chunk of stages and
+shared memory.
 Both are plain Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 # NVIDIA H100 (sm_90): dynamic shared memory a block may use, shared memory
 # of an SM (each resident block reserves 1 KB of it), resident blocks and
-# warps per SM, and its SM count.
+# warps per SM, registers per SM, and its SM count.
 SMEM_PER_BLOCK = 232_448
 SMEM_PER_SM = 233_472
 SMEM_RESERVED_PER_BLOCK = 1_024
 MAX_BLOCKS_PER_SM = 32
 MAX_WARPS_PER_SM = 64
+REGISTERS_PER_SM = 65_536
 H100_SMS = 132
 _RING_CANDIDATES = (32, 16, 8, 4, 2, 1)
 
@@ -316,50 +321,105 @@ admm_epoch_batched.launches = 0
 
 # --- the epoch's fixed data (csrc/epoch_data.cu) -----------------------------
 
-MAX_THREADS_EPOCH_DATA = 256
+_CHUNK_CANDIDATES = (8, 4, 2, 1)
 
 
 class EpochDataPlan(NamedTuple):
     """One epoch-data launch's geometry: one block of ``threads`` per QP
-    (one thread per entry of an nz x nz matrix, up to 256, each striding
-    over the rest), ``smem_bytes`` of dynamic shared memory per block,
-    ``blocks_per_sm`` resident at once, and ``waves``, the rounds of
-    blocks the card runs one after another."""
+    (:func:`epoch_data_threads`; each pass strides over what lies past
+    them), stages streamed in chunks
+    of ``chunk`` through two slots, ``smem_bytes`` of dynamic shared
+    memory per block, ``blocks_per_sm`` resident at once, and ``waves``,
+    the rounds of blocks the card runs one after another."""
     threads: int
+    chunk: int
     smem_bytes: int
     blocks_per_sm: int
     waves: int
 
 
-def epoch_data_floats(nz: int, nc: int, mr: int) -> int:
-    """Floats of one block's shared memory (``data_block_floats`` of
-    ``csrc/epoch_data.cu``): two slots of one stage's inputs, P, P F, Qxx,
-    P G, Qxu, Quu, its factor and the reciprocals of its diagonal, the
-    gains and the per-row work."""
-    stage = 2 * nz * nz + 2 * nz * nc + nc * nc + nz + mr * (nz + nc + 4)
-    return (2 * stage + 3 * nz * nz + 2 * nz * nc + 2 * nc * nc + nc
-            + nc * nz + mr * (2 + 2 * nz + 2 * nc))
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def epoch_data_width(nz: int, mr: int) -> int:
+    """Floats of a row in the kernel's shared memory (``data_width`` of
+    ``csrc/epoch_data.cu``): 12 when nz, mr <= 12, else 32."""
+    return 12 if nz <= 12 and mr <= 12 else 32
+
+
+def epoch_data_stage_floats(nz: int, nc: int, mr: int) -> int:
+    """Floats of one stage in a chunk slot (``data_stage_floats`` of the
+    source): F and G transposed, d's two halves, D and E transposed and
+    their weighted copies (a row of :func:`epoch_data_width` each), Q, R,
+    S, lo, hi and both soft weights, every field on whole float4s."""
+    return ((3 * (nz + nc) + 2) * epoch_data_width(nz, mr) + _round4(nz * nz)
+            + _round4(nc * nc) + _round4(nz * nc) + 4 * _round4(mr))
+
+
+def epoch_data_floats(nz: int, nc: int, mr: int, chunk: int) -> int:
+    """Floats of one block's shared memory (``data_block_floats`` of the
+    source): two slots of ``chunk`` stages, P, the two halves of its rows
+    and (P F)' (a row each per row or column), (P G)', Qxx, Qxu, Quu and
+    rho_scale."""
+    return (2 * chunk * epoch_data_stage_floats(nz, nc, mr)
+            + (4 * nz + nc) * epoch_data_width(nz, mr) + _round4(nz * nz)
+            + _round4(nz * nc) + _round4(nc * nc) + _round4(mr))
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def epoch_data_threads(nz: int, nc: int) -> int:
+    """Threads of one block (``data_threads`` of the source): the largest
+    of the chain's three intervals (P F, P G, m; Qxx, Qxu, Quu; P's upper
+    triangle and Quu_inv's columns), each kind of entry in whole warps of
+    its own, at most 1024. The chunk's passes stride over them."""
+    return min(1024, max(
+        _warps(nz * nz) + _warps(nz * nc) + _warps(nz),
+        _warps(nz * nz) + _warps(nz * nc) + _warps(nc * nc),
+        _warps(nz * (nz + 1) // 2) + _warps(nc)))
+
+
+def epoch_data_registers(nz: int, nc: int, mr: int) -> int:
+    """Registers per thread the kernel's instantiation for these dimensions
+    may use at most (its ``__launch_bounds__``): 72 for nc <= 2, 96 for
+    nc <= 8 (rows of 12 floats), 64 otherwise."""
+    if epoch_data_width(nz, mr) == 12 and nc <= 8:
+        return 72 if nc <= 2 else 96
+    return 64
 
 
 def epoch_data_plan(P: int, N: int, nz: int, nc: int, mr: int,
                     sms: int = H100_SMS) -> EpochDataPlan:
     """The launch plan of :func:`epoch_data_batched` for P QPs of horizon N:
-    the threads of a block are the nz x nz entries rounded up to whole
-    warps (at least the nz gain columns and nc inverse columns the solve
-    step gives a thread each), at most 256; the shared memory does not
-    depend on N (stages stream through two slots). Raises on dimensions
+    :func:`epoch_data_threads` threads per block, at most
+    :func:`epoch_data_registers` registers each; among chunks of 8, 4, 2
+    and 1 stages (at most N) it takes the fewest waves, then the deeper
+    chunk. Raises on dimensions
     the kernel does not take (nz, nc, mr in 1..32, P, N >= 1)."""
     if not (P >= 1 and N >= 1 and 1 <= nz <= 32 and 1 <= nc <= 32
             and 1 <= mr <= 32):
         raise ValueError(f"P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}: the "
                          "epoch-data kernel takes P, N >= 1 and nz, nc, mr "
                          "in 1..32")
-    threads = min(MAX_THREADS_EPOCH_DATA,
-                  -(-max(nz * nz, nz + nc) // 32) * 32)
-    smem = 4 * epoch_data_floats(nz, nc, mr)
-    per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // (threads // 32),
-                 SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
-    return EpochDataPlan(threads, smem, per_sm, -(-P // (sms * per_sm)))
+    threads = epoch_data_threads(nz, nc)
+    regs = epoch_data_registers(nz, nc, mr)
+    best = None
+    for chunk in sorted({min(c, N) for c in _CHUNK_CANDIDATES},
+                        reverse=True):
+        smem = 4 * epoch_data_floats(nz, nc, mr, chunk)
+        if smem > SMEM_PER_BLOCK:
+            continue
+        per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // (threads // 32),
+                     SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
+                     REGISTERS_PER_SM // (regs * threads))
+        plan = EpochDataPlan(threads, chunk, smem, per_sm,
+                             -(-P // (sms * per_sm)))
+        if best is None or plan.waves < best.waves:
+            best = plan
+    return best
 
 
 def epoch_data_traffic(P: int, N: int, nz: int, nc: int, mr: int):
@@ -390,28 +450,23 @@ def epoch_data_traffic(P: int, N: int, nz: int, nc: int, mr: int):
     return nbytes, float(P) * N * per_stage
 
 
-def epoch_data_batched(qp, rho: float = 10.0, rho_scale=1.0,
-                       reg: float = 1e-8):
-    """The fixed data of one ADMM epoch for a batch of stage QPs on the
-    card, in one launch of ``cmpc_epoch_data``.
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    Args:
-      qp: an ``ops/admm.py StageQP`` of contiguous float32 CUDA tensors
-        with a leading batch axis P (soft weights may be None: hard rows).
-      rho: the base penalty (a number); ``rho_scale``: per-row multipliers,
-        a scalar, ``(mr,)`` or ``(P, mr)``; ``reg``: the regularisation of
-        ``Quu``.
-    Returns:
-      the fields of ``ops/admm.py ADMMEpochData`` in its order: the QP's
-      own F, G, d, q, r, lo, hi (the same tensors) and the kernel's K,
-      Quu_inv, Qxu, m, masked D and E, rv, fac_lo, fac_hi.
-    """
+
+_plan_cached = functools.lru_cache(maxsize=256)(epoch_data_plan)
+
+
+def _epoch_data_args(qp, rho, rho_scale, reg):
+    """Check ``qp``, plan and allocate the outputs of one epoch-data launch.
+    Returns the arguments of ``cmpc_epoch_data`` up to the stream, the
+    fields of ADMMEpochData, the plan and the device."""
     dev = _cuda_device(qp.lo)
     F, G, d = qp.dyn.F, qp.dyn.G, qp.dyn.d
     P, N, mr = qp.lo.shape
     nz, nc = F.shape[-1], G.shape[-1]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = epoch_data_plan(P, N, nz, nc, mr, sms=sms)
+    plan = _plan_cached(P, N, nz, nc, mr, _sm_count(dev.index))
     row = (P, N, mr)
     args = dict(F=F, G=G, d=d, Q=qp.cost.Q, R=qp.cost.R, S=qp.cost.S,
                 D=qp.D, E=qp.E, lo=qp.lo, hi=qp.hi, soft_lo=qp.soft_lo,
@@ -427,29 +482,77 @@ def epoch_data_batched(qp, rho: float = 10.0, rho_scale=1.0,
     _check("r", qp.cost.r, (P, N, nc), dev)
     rs = torch.broadcast_to(torch.as_tensor(rho_scale, dtype=torch.float32,
                                             device=dev), (P, mr)).contiguous()
+    # one allocation for every output, carved into contiguous views
+    out_shapes = ((P, N, nc, nz), (P, N, nc, nc), (P, N, nz, nc), (P, N, nz),
+                  (P, N, mr, nz), (P, N, mr, nc), row, row, row)
+    sizes = [math.prod(sh) for sh in out_shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    outs = [v.view(sh) for v, sh in zip(flat.split(sizes), out_shapes)]
+    ptrs = [None if args[k] is None else args[k].data_ptr() for k in shapes]
+    ptrs += [rs.data_ptr()] + [t.data_ptr() for t in outs]
+    K, Qi, Qxu, m, Dm, Em, rv, flo, fhi = outs
+    fields = (F, G, d, K, Qi, Qxu, m, qp.cost.q, qp.cost.r, Dm, Em, qp.lo,
+              qp.hi, rv, flo, fhi)
+    return ((*ptrs, P, N, nz, nc, mr, rho, reg, plan.threads, plan.chunk,
+             plan.smem_bytes), fields, plan, dev)
+
+
+def _on(dev: torch.device):
+    """The context that makes ``dev`` current: none when it already is."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
+
+
+def epoch_data_batched(qp, rho: float = 10.0, rho_scale=1.0,
+                       reg: float = 1e-8):
+    """The fixed data of one ADMM epoch for a batch of stage QPs on the
+    card, in one launch of ``cmpc_epoch_data``.
+
+    Args:
+      qp: an ``ops/admm.py StageQP`` of contiguous float32 CUDA tensors
+        with a leading batch axis P (soft weights may be None: hard rows).
+      rho: the base penalty (a number); ``rho_scale``: per-row multipliers,
+        a scalar, ``(mr,)`` or ``(P, mr)``; ``reg``: the regularisation of
+        ``Quu``.
+    Returns:
+      the fields of ``ops/admm.py ADMMEpochData`` in its order: the QP's
+      own F, G, d, q, r, lo, hi (the same tensors) and the kernel's K,
+      Quu_inv, Qxu, m, masked D and E, rv, fac_lo, fac_hi (views of one
+      allocation, each contiguous).
+    """
     from colaborativempc_tpu_torch.ops import _build
+    args, fields, _, dev = _epoch_data_args(qp, rho, rho_scale, reg)
     lib = _build.load()
-
-    def out(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    K, Qi, Qxu, m = out(P, N, nc, nz), out(P, N, nc, nc), out(P, N, nz, nc), \
-        out(P, N, nz)
-    Dm, Em, rv, flo, fhi = (out(P, N, mr, nz), out(P, N, mr, nc), out(*row),
-                            out(*row), out(*row))
-    null = ctypes.c_void_p(None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cmpc_epoch_data(
-            *[null if args[k] is None else _ptr(args[k]) for k in shapes],
-            _ptr(rs), _ptr(K), _ptr(Qi), _ptr(Qxu), _ptr(m), _ptr(Dm),
-            _ptr(Em), _ptr(rv), _ptr(flo), _ptr(fhi), P, N, nz, nc, mr,
-            ctypes.c_float(rho), ctypes.c_float(reg), plan.threads,
-            plan.smem_bytes, ctypes.c_void_p(stream))
+    with _on(dev):
+        err = lib.cmpc_epoch_data(*args,
+                                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "epoch_data_batched")
     epoch_data_batched.launches += 1
-    return (F, G, d, K, Qi, Qxu, m, qp.cost.q, qp.cost.r, Dm, Em, qp.lo,
-            qp.hi, rv, flo, fhi)
+    return fields
+
+
+def epoch_data_clocked(qp, rho: float = 10.0, rho_scale=1.0,
+                       reg: float = 1e-8, source: Optional[str] = None):
+    """:func:`epoch_data_batched` through the clock-stamped build of the
+    kernel (``ops/_build.py load_epoch_data_clocks``; ``source`` another
+    copy of ``epoch_data.cu`` with the same entry). A measurement tool,
+    not counted in ``epoch_data_batched.launches``. Returns the fields,
+    the stamps ``(P, stamps, 3)`` int64 (label, thread 0's clock, the
+    last warp's clock at each barrier of a block, in order), the labels'
+    names and the plan."""
+    from colaborativempc_tpu_torch.ops import _build
+    args, fields, plan, dev = _epoch_data_args(qp, rho, rho_scale, reg)
+    lib = _build.load_epoch_data_clocks(source)
+    P, N = qp.lo.shape[:2]
+    n = lib.cmpc_epoch_data_clock_stamps(N, plan.chunk)
+    clocks = torch.full((P, n, 3), -1, dtype=torch.int64, device=dev)
+    with _on(dev):
+        err = lib.cmpc_epoch_data_clocked(
+            *args, torch.cuda.current_stream(dev).cuda_stream,
+            clocks.data_ptr(), n)
+    _raise_on(err, "epoch_data_clocked")
+    names = lib.cmpc_epoch_data_clock_names().decode().split(";")
+    return fields, clocks, names, plan
 
 
 epoch_data_batched.launches = 0

@@ -125,7 +125,7 @@ class MPCCSolution(NamedTuple):
 
 def _col(v, dtype, device) -> torch.Tensor:
     """A gain as a ``(B or 1, 1)`` column (float or per-race tensor)."""
-    return torch.as_tensor(v, device=device).to(dtype).reshape(-1, 1)
+    return torch.as_tensor(v, dtype=dtype, device=device).reshape(-1, 1)
 
 
 def build_mpcc_qp(track: Track, gains: MPCCGains, p: PacejkaParams,
@@ -273,7 +273,7 @@ def mpcc_solve(track: Track, gains: MPCCGains, p: PacejkaParams,
     w = x_bar.new_zeros((B, N, m)) if w0 is None else w0
     y = x_bar.new_zeros((B, N, m)) if y0 is None else y0
     rs = torch.broadcast_to(
-        torch.as_tensor(rho_scale0, device=dev).to(dtype), (B, m))
+        torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (B, m))
     x_lin, u_lin = x_bar, u_bar
     iterations = torch.zeros((B,), dtype=torch.int64, device=dev)
     fails = torch.zeros((B,), dtype=torch.int32, device=dev)

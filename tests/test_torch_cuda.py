@@ -360,31 +360,100 @@ def close_to_scale(got, ref, tol):
             assert err <= tol * scale, (f, err, scale)
 
 
+def bits_differing(got, ref) -> int:
+    """Entries whose bits differ (NaN against NaN counts as equal)."""
+    return sum(int((g != r).sum()) - int((g.isnan() & r.isnan()).sum())
+               for g, r in zip(got, ref))
+
+
+def twice(qp):
+    """A StageQP with every tensor repeated along the batch axis."""
+    return type(qp)(*(twice(x) if isinstance(x, tuple) else
+                      None if x is None else torch.cat([x, x]) for x in qp))
+
+
+# (P, N, nz, nc, mr, source): the phase-3c shapes of chip_smoke.py, then
+# every instantiation of the kernel (nc <= 2 / 8 / 32, rows of 12 or 32
+# floats) at a shape the port reaches: hard rows only (soft weights None),
+# NL hp_opt with 4 agents (nc=8, mr=13) and 5 (nc=10, mr=16), nz > 12
+EPOCH_DATA_CASES = {
+    "headline": (768, 20, 11, 2, 6, "random"),
+    "n125": (24, 125, 11, 2, 6, "random"),
+    "p7_inactive_rows": (7, 20, 11, 2, 6, "random"),
+    "nl_eu": (192, 20, 11, 2, 6, "random"),
+    "nl_hp_opt": (192, 20, 11, 6, 10, "random"),
+    "mpcc_p18_n20": (18, 20, 11, 2, 7, "mpcc"),
+    "mpcc_p1_n60": (1, 60, 11, 2, 7, "mpcc"),
+    "hard_rows": (3, 60, 11, 2, 7, "hard"),
+    "nl_hp_opt_4_agents": (256, 20, 11, 8, 13, "random"),
+    "nl_hp_opt_5_agents": (320, 20, 11, 10, 16, "random"),
+    "nz16": (48, 20, 16, 2, 6, "random"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,N,nc,mr,soft", [
-    (37, 20, 2, 6, True),     # the LPV / NL eu rows
-    (5, 125, 2, 6, True),     # the long horizon
-    (9, 20, 6, 10, True),     # NL hp_opt: a 6x6 Cholesky
-    (3, 60, 2, 7, False),     # MPCC's rows, no soft weights (hard rows)
-])
-def test_cuda_epoch_data_kernel_matches_plain_version(cuda, P, N, nc, mr,
-                                                      soft):
+@pytest.mark.parametrize("case", sorted(EPOCH_DATA_CASES))
+def test_cuda_epoch_data_kernel_matches_plain_version(cuda, case):
     """``admm_epoch_inputs`` on the card (one launch of the epoch-data
-    kernel) against its plain version on the same CUDA tensors, with a
-    per-problem rho_scale, unbounded, one-sided and soft rows."""
-    qp, _, _, _ = problems(70 + N + nc, P=P, N=N, nc=nc, mr=mr)
-    qp = to(qp, cuda)
-    if not soft:
-        qp = qp._replace(soft_lo=None, soft_hi=None)
-    scale = torch.linspace(0.5, 2.0, P * mr, device=cuda).reshape(P, mr)
+    kernel) against its plain version on the same CUDA tensors, at the
+    shapes of the main paths and at every instantiation of the kernel: 0
+    entries whose bits differ (the kernel keeps the order of the card
+    libraries' batched routines), each field within 1e-4 of its scale.
+    Random QPs carry a per-problem rho_scale and unbounded, one-sided and
+    soft rows (hard ones: no soft weights at all); MPCC's are the races'
+    own, a single QP compared as a batch of two (the libraries take
+    other routines for one matrix)."""
+    P, N, nz, nc, mr, source = EPOCH_DATA_CASES[case]
+    if source == "mpcc":
+        qp = mpcc_qps(cuda, P, N)[0]
+        scale = 1.0
+    else:
+        qp, _, _, _ = problems(70 + N + nc + P, P=P, N=N, nz=nz, nc=nc,
+                               mr=mr)
+        qp = to(qp, cuda)
+        if source == "hard":
+            qp = qp._replace(soft_lo=None, soft_hi=None)
+        scale = torch.linspace(0.5, 2.0, P * mr, device=cuda).reshape(P, mr)
+    assert qp.lo.shape == (P, N, mr) and qp.dyn.F.shape[-1] == nz
+    if P == 1:
+        qp = twice(qp)
     before = cuda_lqr.epoch_data_batched.launches
     got = admm_epoch_inputs(qp, 10.0, scale)
     torch.cuda.synchronize()
     assert cuda_lqr.epoch_data_batched.launches == before + 1
     ref = admm_epoch_inputs_plain(qp, 10.0, scale)
     assert all(t.is_contiguous() and t.is_cuda for t in got)
-    assert bool((got.rv == 0).any())
+    if source != "mpcc":
+        assert bool((got.rv == 0).any())
+    assert bits_differing(got, ref) == 0
     close_to_scale(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,mr", [(2, 6), (6, 10)])
+def test_cuda_clocked_build_matches_default_build(cuda, nc, mr):
+    """The clock-stamped build (``-DCMPC_EPOCH_DATA_CLOCKS``, a library of
+    its own) gives the default build's outputs bit for bit, and stamps
+    every barrier of every block in order: known labels, the last warp
+    never before thread 0, the clocks rising; each block's last row holds
+    its SM and its start and end on the global timer."""
+    qp, _, _, _ = problems(90 + nc, P=9, N=21, nc=nc, mr=mr)
+    qp = to(qp, cuda)
+    before = cuda_lqr.epoch_data_batched.launches
+    got, stamps, names, plan = cuda_lqr.epoch_data_clocked(qp, 10.0, 1.3)
+    assert cuda_lqr.epoch_data_batched.launches == before
+    ref = cuda_lqr.epoch_data_batched(qp, 10.0, 1.3)
+    torch.cuda.synchronize()
+    assert bits_differing(got, ref) == 0
+    assert all(torch.equal(g.isnan(), r.isnan()) for g, r in zip(got, ref))
+    st, block = stamps[:, :-1].cpu(), stamps[:, -1].cpu()
+    assert stamps.shape[0] == 9 and bool((st[..., 0] >= 1).all())
+    assert bool((st[..., 0] < len(names)).all())
+    assert bool((st[..., 2] >= st[..., 1]).all())
+    assert bool((st[:, 1:, 2] > st[:, :-1, 2]).all())
+    assert bool((block[:, 0] <= -2).all())
+    assert bool((block[:, 2] > block[:, 1]).all())
+    assert plan.chunk <= 21
 
 
 @pytest.mark.cuda

@@ -383,3 +383,63 @@ def test_library_order_emulations_compute_the_right_values(n):
     for got, ref in pairs:
         scale = max(1.0, float(ref.abs().max()))
         close(got, ref, 1e-5 * scale)
+
+
+# --- the clock-stamped build and scripts/epoch_data_split.py ----------------
+
+def test_split_script_imports_here_and_raises_without_a_card():
+    """The split script imports on the CPU, names the shapes it reads (the
+    LPV headline, P=7, N=125 at 768 QPs and at one fleet's 3, NL hp_opt,
+    MPCC P=1/N=60 and P=18/N=20) and raises without a card, before it
+    builds."""
+    from colaborativempc_tpu_torch.scripts import epoch_data_split
+    assert epoch_data_split.SHAPES == {
+        "headline": (768, 20, 11, 2, 6), "p7": (7, 20, 11, 2, 6),
+        "n125": (768, 125, 11, 2, 6), "n125_fleet": (3, 125, 11, 2, 6),
+        "nl_hp_opt": (192, 20, 11, 6, 10),
+        "mpcc_p1_n60": (1, 60, 11, 2, 7), "mpcc_p18_n20": (18, 20, 11, 2, 7)}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        epoch_data_split.main([])
+
+
+def test_split_reads_each_interval_from_the_stamps():
+    """An interval's cycles are the last warp's arrival at its barrier less
+    the last warp's at the barrier before; the first stamp of a block is
+    the reference; stamps never written (label -1) are dropped."""
+    from colaborativempc_tpu_torch.scripts import epoch_data_split
+    names = ["-", "one", "two", "three", "arrival"]
+    labels = [4, 1, 2, 3, 1, 2, 3, -1]
+    last = np.array([100, 130, 190, 290, 320, 380, 480, 0])
+    stamps = np.zeros((2, len(labels), 3), np.int64)
+    stamps[..., 0] = labels
+    stamps[..., 2] = last
+    stamps[..., 1] = last - np.array([0, 5, 10, 0, 5, 10, 0, 0])
+    stamps[1, :, 1:] += 1000
+    out = epoch_data_split.split(stamps, names, N=2)
+    assert out["span_cycles"] == 380 and out["cycles_per_stage"] == 190
+    iv = out["intervals"]
+    assert set(iv) == {"one", "two", "three"}
+    assert iv["one"]["mean_cycles"] == 30 and iv["two"]["mean_cycles"] == 60
+    assert iv["three"]["mean_cycles"] == 100
+    assert iv["three"]["max_cycles"] == 100
+    assert iv["two"]["thread0_early_cycles"] == 10
+    assert iv["one"]["count_per_block"] == 2
+    assert iv["one"]["cycles_per_block"] == 60
+
+
+def test_clocked_wrapper_refuses_cpu_tensors_before_building(monkeypatch):
+    """``epoch_data_clocked`` checks the device before it asks for the
+    clock-stamped library, and counts no launch of the main path's
+    kernel."""
+    from colaborativempc_tpu_torch.ops import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("built the clocked library for CPU tensors")
+    monkeypatch.setattr(_build, "load_epoch_data_clocks", no_build)
+    qp = port_qp(random_qps(3, 2, 5, 11, 2, 6), dtype=torch.float32)
+    before = cuda_lqr.epoch_data_batched.launches
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        cuda_lqr.epoch_data_clocked(qp)
+    assert cuda_lqr.epoch_data_batched.launches == before

@@ -4,8 +4,9 @@
   without one.
 - ``ops/cuda_lqr.py kernel_plan``: QPs per block, ring depth and
   shared-memory bytes at the shapes the planners hand the kernels;
-  ``epoch_data_plan``: the epoch-data kernel's threads, shared memory and
-  waves, and the dimensions it refuses.
+  ``epoch_data_plan``: the epoch-data kernel's threads, chunk of stages,
+  shared memory (the source's formula) and waves, and the dimensions it
+  refuses.
 - The closed-loop form of the sweeps (``A_cl = F + G K``,
   ``D_cl = D + E K``, the feedforward off the chain: one matvec per chain
   step), written here in float64 numpy, against the plain twins
@@ -30,6 +31,7 @@ from colaborativempc_tpu_torch.ops import (
 )
 from colaborativempc_tpu_torch.ops.cuda_lqr import (
     H100_SMS, SMEM_PER_BLOCK, epoch_data_floats, epoch_data_plan,
+    epoch_data_registers, epoch_data_stage_floats, epoch_data_threads,
     kernel_plan, qp_floats,
 )
 from colaborativempc_tpu_torch.geometry import make_track, spline
@@ -252,26 +254,121 @@ DATA_PLAN_SHAPES = {
 
 @pytest.mark.parametrize("name", sorted(DATA_PLAN_SHAPES))
 def test_epoch_data_plan_threads_smem_and_waves(name):
-    """One block per QP: the nz x nz entries rounded up to whole warps, at
-    most 256 threads, never fewer than the nz + nc columns of the solve
-    step; shared memory of two stage slots and the work, whatever N and P;
-    the waves from the blocks resident per SM."""
+    """One block per QP: threads cover the largest of the chain's three
+    intervals (P F, P G, m; Qxx, Qxu, Quu; P's upper triangle and Quu_inv's
+    columns), each kind of entry in whole warps of its own, at most 1024;
+    at most the launch bounds' registers each; stages stream in chunks of
+    8, 4, 2 or 1 (at most N), the fewest waves first, then the deeper
+    chunk; shared memory of two chunk slots and the work, within 227 KB;
+    the waves from the
+    blocks resident per SM."""
     P, N, nz, nc, mr = DATA_PLAN_SHAPES[name]
     plan = epoch_data_plan(P, N, nz, nc, mr)
-    assert plan.threads % 32 == 0 and nz + nc <= plan.threads <= 256
-    assert plan.threads == min(256, -(-max(nz * nz, nz + nc) // 32) * 32)
-    assert plan.smem_bytes == 4 * epoch_data_floats(nz, nc, mr)
+
+    def w(n):
+        return -(-n // 32) * 32
+    spaces = (w(nz * nz) + w(nz * nc) + w(nz),
+              w(nz * nz) + w(nz * nc) + w(nc * nc),
+              w(nz * (nz + 1) // 2) + w(nc))
+    assert plan.threads == epoch_data_threads(nz, nc)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.threads == min(1024, max(spaces))
+    assert all(plan.threads >= sp for sp in spaces) or plan.threads == 1024
+    assert plan.chunk in (8, 4, 2, 1, N) and plan.chunk <= N
+    assert plan.smem_bytes == 4 * epoch_data_floats(nz, nc, mr, plan.chunk)
     assert plan.smem_bytes <= SMEM_PER_BLOCK
-    assert epoch_data_plan(1, 1, nz, nc, mr).smem_bytes == plan.smem_bytes
     assert 1 <= plan.blocks_per_sm <= 32
     assert plan.blocks_per_sm * plan.threads // 32 <= 64
     assert plan.waves == -(-P // (H100_SMS * plan.blocks_per_sm))
-    if name in ("lpv_headline", "hp_opt", "n125", "mpcc_race"):
-        assert plan.threads == 128 and plan.waves == 1
+    regs = epoch_data_registers(nz, nc, mr)
+    assert plan.blocks_per_sm * regs * plan.threads <= 65_536
+    for chunk in (8, 4, 2, 1):
+        other = 4 * epoch_data_floats(nz, nc, mr, min(chunk, N))
+        if chunk > plan.chunk and other <= SMEM_PER_BLOCK:
+            per_sm = min(32, 64 // (plan.threads // 32),
+                         233_472 // (other + 1_024),
+                         65_536 // (regs * plan.threads))
+            assert -(-P // (H100_SMS * per_sm)) > plan.waves
+    if name in ("lpv_headline", "n125"):
+        assert (plan.threads, plan.chunk, plan.waves) == (192, 8, 2)
+    if name in ("mpcc_race", "mpcc_battery"):
+        assert (plan.threads, plan.chunk, plan.waves) == (192, 8, 1)
+    if name == "hp_opt":
+        assert plan.threads == 288 and plan.waves == 3
     if name == "p4096":
-        assert plan.waves == 2
+        assert plan.chunk == 8 and plan.waves == 8
     if name == "nz32":
-        assert plan.threads == 256
+        assert plan.threads == 1024 and plan.chunk == 2
+
+
+def test_epoch_data_floats_mirror_the_source():
+    """``epoch_data_stage_floats`` and ``epoch_data_floats`` are the
+    source's ``data_stage_floats`` and ``data_block_floats``: their return
+    expressions, read from ``csrc/epoch_data.cu``, give the same counts."""
+    import re
+    from pathlib import Path
+    src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
+           / "epoch_data.cu").read_text()
+
+    def body(name):
+        m = re.search(name + r"\([^)]*\) \{\s*return ([^;]+);", src)
+        return " ".join(m.group(1).split())
+    stage, block = body("data_stage_floats"), body("data_block_floats")
+    for nz, nc, mr in ((11, 2, 6), (11, 6, 10), (11, 2, 7), (32, 32, 32),
+                       (1, 1, 1)):
+        env = dict(nz=nz, nc=nc, mr=mr, round4=lambda n: -(-n // 4) * 4,
+                   data_width=cuda_lqr.epoch_data_width)
+        assert eval(stage, env) == epoch_data_stage_floats(nz, nc, mr)
+        for chunk in (1, 2, 4, 8):
+            env.update(chunk=chunk, data_stage_floats=(
+                lambda a, b, c: epoch_data_stage_floats(a, b, c)))
+            assert eval(block, env) == epoch_data_floats(nz, nc, mr, chunk)
+
+
+def c_ternary(expr: str, env: dict) -> int:
+    """Evaluate a C expression of nested ``cond ? a : b`` (nested in the
+    else branch only) with ``&&``."""
+    expr = expr.strip()
+    while expr.startswith("(") and expr.endswith(")"):
+        expr = expr[1:-1].strip()
+    cond, _, rest = expr.partition("?")
+    if not rest:
+        return eval(expr, env)
+    then, _, other = rest.partition(":")
+    taken = eval(cond.replace("&&", " and "), env)
+    return c_ternary(then if taken else other, env)
+
+
+def test_epoch_data_launch_bounds_mirror_the_source():
+    """``epoch_data_registers`` is the cap that the kernel's
+    ``__launch_bounds__`` (max threads, min blocks), read from
+    ``csrc/epoch_data.cu``, set for the instantiation that ``launch``
+    picks (nc <= 2 / 8 / 32, rows of 12 or 32 floats): 64 K registers over
+    threads x blocks, down to a multiple of 8. And every nz, nc, mr in
+    1..32 launches ``epoch_data_threads`` within that bound."""
+    import re
+    from pathlib import Path
+    src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
+           / "epoch_data.cu").read_text()
+    args = re.search(r"__launch_bounds__\((.*?)\)\s*epoch_data_kernel",
+                     src.replace("__global__ void ", ""), re.S)
+    assert args is not None
+    max_threads, min_blocks = args.group(1).split(",")
+    seen = set()
+    for nz in range(1, 33):
+        for nc in range(1, 33):
+            for mr in range(1, 33):
+                width = cuda_lqr.epoch_data_width(nz, mr)
+                env = dict(NC=2 if nc <= 2 else 8 if nc <= 8 else 32,
+                           DIM=width if nc <= 8 else 32)
+                threads = c_ternary(max_threads, env)
+                blocks = c_ternary(min_blocks, env)
+                assert epoch_data_threads(nz, nc) <= threads, (nz, nc, mr)
+                cap = cuda_lqr.REGISTERS_PER_SM // (threads * blocks) // 8 * 8
+                assert cuda_lqr.epoch_data_registers(nz, nc, mr) == cap
+                seen.add((env["NC"], env["DIM"], cap))
+    assert seen == {(2, 12, 72), (8, 12, 96), (2, 32, 64), (8, 32, 64),
+                    (32, 32, 64)}
 
 
 @pytest.mark.parametrize("P,N,nz,nc,mr", [(0, 20, 11, 2, 6),
@@ -413,3 +510,17 @@ def test_closed_loop_affine_matches_plain_twin_f64(nc, N):
     got = closed_loop(d, z0, None, None, 1, 0.0, rows=False)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, r.numpy(), rtol=0, atol=1e-10)
+
+
+def test_epoch_data_float_division_is_exact_where_the_kernel_divides():
+    """The epoch-data kernel splits flat indices with ``div_small``:
+    ``(int)((o + 0.5f) * (1.f / n))`` in single precision. It equals
+    ``o // n`` wherever the kernel uses it: n up to nz * nz = 1024 with o
+    below 8 stages of n, and n up to 32 with o below 2^20."""
+    f32 = np.float32
+    for n in range(1, 1025):
+        top = 1 << 20 if n <= 32 else 8 * n
+        o = np.arange(top, dtype=np.int64)
+        got = ((o.astype(f32) + f32(0.5)) * (f32(1) / f32(n))).astype(
+            np.int64)
+        assert np.array_equal(got, o // n), n
