@@ -42,14 +42,19 @@ and checks them:
 3d. the SQP build kernels (``csrc/sqp_qp.cu``: ``build_nl_qp`` and
    ``build_mpcc_qp`` on the card) against their plain versions on the card,
    field by field, each within 1e-4 of the larger of 1 and the field's max
-   |value|, with the entries whose bits differ (none expected: the kernels
-   follow the plain versions' order of operations, the card's cuBLAS order
-   for the matrix-vector products and torch.func's forward-mode rules) and
-   both read against the plain version in float64: NL eu, hp and hp_opt
-   (192 QPs, N=20), eu at N=125, eu with per-problem lanes on Oval2, eu
-   and hp_opt at the velocity gate's edges with a NaN, MPCC P=1/N=60 (as a
-   batch of two), P=18/N=20 and at the slip floor's edges with a NaN; with
-   each kernel's time, the plain version's and the bound;
+   |value|, failing on any entry whose bits differ (the kernels follow the
+   plain versions' order of operations, the card's cuBLAS order for the
+   matrix-vector products and torch.func's forward-mode rules), both read
+   against the plain version in float64: NL eu, hp and hp_opt (192 QPs,
+   N=20), eu at N=125, eu with per-problem lanes on Oval2, eu and hp_opt
+   at the velocity gate's edges with a NaN, eu either side of the row
+   layout's order boundaries (P=649/650, 1864/1865), hp_opt at 4, 5 and 9
+   agents (3, 4 and 8 neighbours), MPCC P=1/N=60 (as a batch of two),
+   P=18/N=20, at the slip floor's edges with a NaN and either side of the
+   column layout's boundaries (P=9/10, 66/67, 142/143), and each family
+   on a fitted track of 3000 segments (more than the kernels stage in
+   shared memory); with each kernel's time beside the plain version's and
+   the bound, and the wrapper's host microseconds per call;
 4. the LPV path: launch counts reset, one 20-step rollout, every state
    finite, the epoch kernel and the epoch-data kernel each launched once
    per ADMM epoch the solves ran; then solves/s as the best of 3
@@ -541,86 +546,6 @@ def sqp_qp_bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def nl_build_args(dev, B, n, N, coupling, map_type="Highway", lanes=False,
-                  edges=False, seed=7):
-    """The arguments of ``build_nl_qp`` for B perturbed n-agent fleets at
-    horizon N as the Jacobi sweep hands them to it (phase 3b's
-    construction): per-agent float32 limits, random prices, the bisector
-    planes; ``lanes`` gives every other problem lane 1 (a per-problem lane
-    tensor), ``edges`` puts the velocity gate's edges (vx below and at 0.2)
-    and a NaN into the linearisation point."""
-    from colaborativempc_tpu_torch.config import SysLimits
-    from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.runtime.ocd import _bisector_planes
-    from colaborativempc_tpu_torch.runtime.simulate import (
-        _neighbour_index, _per_agent_limits,
-    )
-    from colaborativempc_tpu_torch.scripts import monte_carlo
-    cfg, _, st = monte_carlo.setup("nl", scenarios=B, agents=n, N=N,
-                                   steps=1, device=dev, coupling=coupling,
-                                   map_type=map_type)
-    ns = torch.as_tensor(_neighbour_index(n), device=dev)
-    ids = torch.arange(n, device=dev)
-    rng = np.random.default_rng(seed)
-    lam = torch.tensor(rng.uniform(0.0, 1.0, size=(B, n, n - 1, N)),
-                       dtype=torch.float32, device=dev)
-    x_bar = torch.cat([st.x0[:, :, None], st.x_pred[:, :, 1:]], dim=2)
-    planes = _bisector_planes(x_bar)[:, torch.minimum(ids[:, None], ns),
-                                     torch.maximum(ids[:, None], ns)]
-
-    def flat(t):
-        return t.reshape((B * n,) + t.shape[2:]).contiguous()
-    mm = (ids[:, None] < ns).float().expand(B, n, n - 1)
-    x_bar, u_bar = flat(x_bar), flat(st.u_pred)
-    if edges:
-        x_bar[:, 2:N:4, 0] = 0.1
-        x_bar[:, 3:N:4, 0] = 0.2
-        x_bar[0, 1, 0] = float("nan")
-    P = B * n
-    limits = SysLimits(*(v.repeat(B) for v in _per_agent_limits(cfg, dev)))
-    lane = (torch.arange(P, device=dev) % 2 if lanes else 0)
-    return dict(track=make_track(map_type, device=dev), gains=cfg.gains,
-                limits=limits, model=cfg.model, N=N, dt=cfg.dt,
-                x_bar=x_bar, u_bar=u_bar, lambdas=flat(lam),
-                neigh_xy=flat(x_bar.reshape(B, n, N + 1, 9)[:, ns][..., 7:9]
-                              .transpose(2, 3)),
-                master_mask=flat(mm), coupling=coupling, lane=lane,
-                planes0=flat(planes) if coupling == "hp_opt" else None)
-
-
-def mpcc_build_args(dev, P, N, edges=False, seed=11):
-    """The arguments of ``build_mpcc_qp`` for P races spread over oval_mt
-    at horizon N: the cold guess of ``runtime/racing.py`` with noise on the
-    lateral states and inputs; ``edges`` puts the slip floor's edges (vx at
-    and below 0.3) and a NaN into the linearisation point."""
-    from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.geometry.frenet import frenet_to_cartesian
-    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
-    from colaborativempc_tpu_torch.runtime import racing
-    cfg = MPCCConfig(N=N)
-    track = make_track(cfg.map_type, device=dev)
-    s = torch.arange(P, dtype=torch.float32, device=dev) * (
-        float(track.track_length[0]) / P)
-    px, py, th = frenet_to_cartesian(track, s, 0.0)
-    zero = torch.zeros_like(s)
-    x0 = torch.stack([0.5 + 0.05 * torch.arange(P, device=dev), zero, zero,
-                      zero, zero, th, s, px, py], dim=-1)
-    x_bar, u_bar = racing._cold_guess(track, cfg, x0)
-    rng = np.random.default_rng(seed)
-    x_bar = x_bar + torch.tensor(
-        rng.normal(size=x_bar.shape) * [0.1, 0.05, 0.3, 0.05, 0.05, 0, 0, 0,
-                                        0], dtype=torch.float32, device=dev)
-    u_bar = u_bar + torch.tensor(rng.normal(size=u_bar.shape) * [0.05, 0.1],
-                                 dtype=torch.float32, device=dev)
-    if edges:
-        x_bar[:, 2:N:4, 0] = 0.3
-        x_bar[:, 3:N:4, 0] = 0.1
-        x_bar[0, 1, 0] = float("nan")
-    return dict(track=track, gains=cfg.gains, p=cfg.model, N=N, dt=cfg.dt,
-                x_bar=x_bar.contiguous(), u_bar=u_bar.contiguous(),
-                bounds=cfg.bounds)
-
-
 def qp_fields(qp):
     """A StageQP's fields by name."""
     return {"F": qp.dyn.F, "G": qp.dyn.G, "d": qp.dyn.d, "Q": qp.cost.Q,
@@ -673,11 +598,15 @@ def compare_qp(what, got, ref, ref64, keep):
 def check_sqp_build(dev, tag, family, args, reps, batch_of_two=False):
     """Phase 3d at one shape: the NL or MPCC build on the card (one launch
     of its kernel) against its plain version on the same CUDA tensors,
-    field by field (``compare_qp``), with the kernel's time, the plain
-    version's, the bound and the launch count. A single race is compared
-    as a batch of two (the race twice, the first kept)."""
+    field by field (``compare_qp``); fails on any entry whose bits differ.
+    With the kernel's time, the plain version's, the bound, the launch
+    count and the wrapper's host microseconds per call (host clock over
+    calls queued without a synchronise, the best of 5 batches of 20). A
+    single race is compared as a batch of two (the race twice, the first
+    kept)."""
     from colaborativempc_tpu_torch.ops import cuda_sqp
     from colaborativempc_tpu_torch.planners import mpcc, nl
+    from colaborativempc_tpu_torch.scripts import clock_split
     if family == "nl":
         build, plain, wrapper = (nl.build_nl_qp, nl.build_nl_qp_plain,
                                  cuda_sqp.nl_qp_batched)
@@ -705,6 +634,10 @@ def check_sqp_build(dev, tag, family, args, reps, batch_of_two=False):
     ref64 = plain(**a64)
     torch.cuda.synchronize()
     out = compare_qp(f"phase 3d {tag}", got, ref, ref64, P)
+    if out["entries_differing"]:
+        fail(f"phase 3d {tag}: {out['entries_differing']} entries differ in "
+             f"their bits from the plain version {out['differing_by_field']}"
+             f" (torch {torch.__version__}, CUDA {torch.version.cuda})")
     nb = args["neigh_xy"].shape[-2] if family == "nl" else 0
     track = args["track"]
     if family == "nl":
@@ -714,22 +647,24 @@ def check_sqp_build(dev, tag, family, args, reps, batch_of_two=False):
     else:
         nc, m = 2, cuda_sqp.MPCC_ROWS
         traffic = cuda_sqp.mpcc_traffic(P, N, *track.s0.shape)
+    host_us = clock_split.host_us(lambda: build(**args), calls=20,
+                                  batches=5)
     out.update(P=P, N=N, nc=nc, m=m, compared_as_batch=2 * P if batch_of_two
                else P, matvec_order=cuda_sqp.matvec_order(
                    cargs["x_bar"].shape[0] * N,
                    "row" if family == "nl" else "col"),
-               ms=cuda_ms(lambda: build(**args), reps),
+               host_us=host_us, ms=cuda_ms(lambda: build(**args), reps),
                plain_ms=cuda_ms(lambda: plain(**args), 2))
     out["bound_ms"], out["bound_by"] = sqp_qp_bound(*traffic)
     out["roofline_share"] = out["bound_ms"] / out["ms"]
     print(f"phase 3d {tag} P={P} N={N} nc={nc} m={m}: build kernel "
           f"{out['ms']:.4f} ms (bound {out['bound_ms']:.3g} by "
-          f"{out['bound_by']}, share {out['roofline_share']:.3f}) vs plain "
+          f"{out['bound_by']}, share {out['roofline_share']:.3f}; "
+          f"wrapper {host_us:.1f} us of host per call) vs plain "
           f"{out['plain_ms']:.3f} ms (max |err| {out['max_abs_err']:.3g}, "
           f"{out['max_rel_err']:.3g} of scale, tol {TOL_SQP_QP}; "
-          f"{out['entries_differing']} entries differ in their bits "
-          f"{out['differing_by_field']}; compared at batch "
-          f"{out['compared_as_batch']}; vs float64 "
+          f"{out['entries_differing']} entries differ in their bits; "
+          f"compared at batch {out['compared_as_batch']}; vs float64 "
           f"{out['max_rel_err_vs_f64']:.3g} of scale, the float32 plain "
           f"version {out['plain_max_rel_err_vs_f64']:.3g})", flush=True)
     return out
@@ -737,22 +672,40 @@ def check_sqp_build(dev, tag, family, args, reps, batch_of_two=False):
 
 def check_sqp_builds(dev):
     """Phase 3d: both build kernels against their plain versions at the
-    main paths' shapes and at the branch edges."""
+    main paths' shapes, the branch edges, either side of each boundary of
+    the card's batched matrix-vector order (``cuda_sqp.MATVEC_ORDERS``),
+    hp_opt with 3, 4 and 8 neighbours and a fitted track of more segments
+    than the kernels stage (``scripts/sqp_qp_split.py``'s inputs)."""
+    from colaborativempc_tpu_torch.scripts.sqp_qp_split import (
+        mpcc_build_args, nl_build_args,
+    )
     out = {}
-    for tag, B, n, N, coupling, kw in (
-            ("nl eu", 64, 3, 20, "eu", {}),
-            ("nl hp", 64, 3, 20, "hp", {}),
-            ("nl hp_opt", 64, 3, 20, "hp_opt", {}),
-            ("nl eu N=125", 1, 3, 125, "eu", {}),
-            ("nl eu Oval2 lanes", 16, 3, 20, "eu",
+    for tag, P, n, N, coupling, kw in (
+            ("nl eu", 192, 3, 20, "eu", {}),
+            ("nl hp", 192, 3, 20, "hp", {}),
+            ("nl hp_opt", 192, 3, 20, "hp_opt", {}),
+            ("nl eu N=125", 3, 3, 125, "eu", {}),
+            ("nl eu Oval2 lanes", 48, 3, 20, "eu",
              dict(map_type="Oval2", lanes=True)),
-            ("nl eu edges", 2, 3, 20, "eu", dict(edges=True)),
-            ("nl hp_opt edges", 2, 3, 20, "hp_opt", dict(edges=True))):
+            ("nl eu edges", 6, 3, 20, "eu", dict(edges=True)),
+            ("nl hp_opt edges", 6, 3, 20, "hp_opt", dict(edges=True)),
+            ("nl eu P=649", 649, 3, 20, "eu", {}),
+            ("nl eu P=650", 650, 3, 20, "eu", {}),
+            ("nl eu P=1864", 1864, 3, 20, "eu", {}),
+            ("nl eu P=1865", 1865, 3, 20, "eu", {}),
+            ("nl hp_opt 4 agents", 256, 4, 20, "hp_opt", {}),
+            ("nl hp_opt 5 agents", 320, 5, 20, "hp_opt", {}),
+            ("nl hp_opt 9 agents", 144, 9, 20, "hp_opt", {}),
+            ("nl eu 3000 segments", 48, 3, 20, "eu", dict(segments=3000))):
         out[tag] = check_sqp_build(
-            dev, tag, "nl", nl_build_args(dev, B, n, N, coupling, **kw), 20)
+            dev, tag, "nl", nl_build_args(dev, P, n, N, coupling, **kw), 20)
     for tag, P, N, kw in (("mpcc P=1 N=60", 1, 60, {}),
                           ("mpcc P=18 N=20", 18, 20, {}),
-                          ("mpcc edges", 2, 20, dict(edges=True))):
+                          ("mpcc edges", 2, 20, dict(edges=True)),
+                          *((f"mpcc P={P}", P, 20, {})
+                            for P in (9, 10, 66, 67, 142, 143)),
+                          ("mpcc 3000 segments", 18, 20,
+                           dict(segments=3000))):
         out[tag] = check_sqp_build(dev, tag, "mpcc",
                                    mpcc_build_args(dev, P, N, **kw), 20,
                                    batch_of_two=P == 1)
@@ -2557,7 +2510,7 @@ def main():
     sqp_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
                 "max_abs_err", "max_rel_err", "entries_differing",
                 "max_rel_err_vs_f64", "plain_max_rel_err_vs_f64",
-                "compared_as_batch", "matvec_order")
+                "compared_as_batch", "matvec_order", "host_us")
     for fam, name, head, main_run, replaces in (
             ("nl", "nl_qp_batched", "nl eu", "phase 6 (NL path)",
              "colaborativempc_tpu/planners/nl.py:80-94 _linearize_horizon, "

@@ -11,10 +11,12 @@ sources and the flags, so a changed source is rebuilt and an unchanged one
 is reused. Nothing is built at import: the first CUDA launch builds.
 
 On request, :func:`load_epoch_data_clocks` builds ``epoch_data.cu`` alone
-with ``-DCMPC_EPOCH_DATA_CLOCKS`` into a second library of its own hashed
-name: the kernel then stamps ``clock64()`` at each of its barriers
-(``scripts/epoch_data_split.py`` reads the stamps). The default library
-is compiled without the macro and does not depend on it.
+with ``-DCMPC_EPOCH_DATA_CLOCKS``, and :func:`load_sqp_qp_clocks` builds
+``sqp_qp.cu`` alone with ``-DCMPC_SQP_QP_CLOCKS``, each into a library of
+its own hashed name: the kernels then stamp ``clock64()`` at fixed points
+of each block (``scripts/epoch_data_split.py`` and
+``scripts/sqp_qp_split.py`` read the stamps). The default library is
+compiled without either macro and does not depend on them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 CLOCKS_FLAG = "-DCMPC_EPOCH_DATA_CLOCKS"
+SQP_CLOCKS_FLAG = "-DCMPC_SQP_QP_CLOCKS"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +48,11 @@ _F = ctypes.c_float
 # cmpc_epoch_data: 22 pointers, P, N, nz, nc, mr, rho, reg, threads, chunk,
 # smem_bytes, stream
 _EPOCH_DATA_ARGS = [_P] * 22 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P]
+# cmpc_nl_qp / cmpc_mpcc_qp: the address of the pointer array (inputs,
+# track tables, outputs, slots), the constants, the slots' numbers, the
+# ints, the stream
+_PD = ctypes.POINTER(ctypes.c_double)
+_SQP_QP_ARGS = [_P, _PD, _PD, ctypes.POINTER(_I), _P]
 
 
 def nvcc_path() -> str:
@@ -130,12 +138,9 @@ def load() -> ctypes.CDLL:
     lib.cmpc_lqr_affine.restype = _I
     lib.cmpc_epoch_data.argtypes = _EPOCH_DATA_ARGS
     lib.cmpc_epoch_data.restype = _I
-    pp = ctypes.POINTER(ctypes.c_void_p)
     for name in ("cmpc_nl_qp", "cmpc_mpcc_qp"):
-        fn = getattr(lib, name)
-        fn.argtypes = [pp, pp, pp, pp, ctypes.POINTER(ctypes.c_double),
-                       ctypes.POINTER(_I), _P]
-        fn.restype = _I
+        getattr(lib, name).argtypes = _SQP_QP_ARGS
+        getattr(lib, name).restype = _I
     return lib
 
 
@@ -159,3 +164,32 @@ def load_epoch_data_clocks(source: Optional[str] = None) -> ctypes.CDLL:
     lib.cmpc_epoch_data_clock_names.restype = ctypes.c_char_p
     return lib
 
+
+
+def build_sqp_qp_clocks(source: Optional[str] = None) -> dict:
+    """:func:`build` of the clock-stamped SQP build kernels alone
+    (``source``, default ``csrc/sqp_qp.cu``)."""
+    src = Path(source) if source else _PKG / "csrc" / "sqp_qp.cu"
+    return build((src,), (*NVCC_FLAGS, SQP_CLOCKS_FLAG),
+                 "cmpc_sqp_qp_clocks")
+
+
+@functools.cache
+def load_sqp_qp_clocks(source: Optional[str] = None) -> ctypes.CDLL:
+    """The clock-stamped SQP build kernels: ``source`` (default
+    ``csrc/sqp_qp.cu``) alone, built with :data:`SQP_CLOCKS_FLAG` into a
+    library of its own. It exports ``cmpc_nl_qp_clocked`` and
+    ``cmpc_mpcc_qp_clocked`` (the arguments of ``cmpc_nl_qp`` /
+    ``cmpc_mpcc_qp``, then the stamp buffer and its stamps per block),
+    ``cmpc_sqp_qp_clock_stamps()`` (stamps per block) and
+    ``cmpc_sqp_qp_clock_names()`` (the labels' names, separated by
+    ``;``)."""
+    lib = ctypes.CDLL(build_sqp_qp_clocks(source)["path"])
+    for name in ("cmpc_nl_qp_clocked", "cmpc_mpcc_qp_clocked"):
+        getattr(lib, name).argtypes = _SQP_QP_ARGS + [_P, _I]
+        getattr(lib, name).restype = _I
+    lib.cmpc_sqp_qp_clock_stamps.argtypes = []
+    lib.cmpc_sqp_qp_clock_stamps.restype = _I
+    lib.cmpc_sqp_qp_clock_names.argtypes = []
+    lib.cmpc_sqp_qp_clock_names.restype = ctypes.c_char_p
+    return lib

@@ -20,22 +20,31 @@ The wrappers pass the gains and limits (numbers, or tensors shared or per
 problem) to the kernel as slots (:func:`pack_slots`: a pointer and a
 per-problem stride into the caller's tensor, or the number itself), the
 lane as a number or a per-problem tensor and the track's tables as they
-are, and allocate the outputs with ``torch.empty``. The slot
-packing, the order of the batched matrix-vector products
-(:func:`matvec_order`) and the traffic counts (:func:`sqp_qp_traffic`) are
-plain Python, so the CPU tests reach them.
+are, and allocate the outputs at once (:func:`_outputs`: one
+``torch.empty``, each field a contiguous view of it; a returned QP belongs
+to its caller, nothing is reused). The arrays of numbers the kernel takes
+(the model's constants, the slots' numbers, the ints) are built once per
+distinct value and kept. The slot packing, the output layout, the order of
+the batched matrix-vector products (:func:`matvec_order`) and the traffic
+counts (:func:`sqp_qp_traffic`) are plain Python, so the CPU tests reach
+them.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
+import math
+import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from colaborativempc_tpu_torch.ops.admm import StageQP
 from colaborativempc_tpu_torch.ops.cuda_lqr import (
-    _check, _cuda_device, _raise_on,
+    _check, _cuda_device, _on, _raise_on,
 )
 from colaborativempc_tpu_torch.ops.lqr import LQRCost, LQRDynamics
 
@@ -134,6 +143,34 @@ def mpcc_traffic(P: int, N: int, lanes: int = 1, nseg: int = 1):
 # --- the kernels' arguments -------------------------------------------------
 
 NL_SLOTS, MPCC_SLOTS = 16 + 9, 10   # csrc/sqp_qp.cu kNLSlots, kMPCCSlots
+# csrc/sqp_qp.cu kThreads, kStages, kMaxSeg: a block of 256 threads builds
+# 8 stages of one problem; a lane's track rows are staged in shared memory
+# up to 2048 segments
+THREADS, STAGES_PER_BLOCK, MAX_STAGED_SEGMENTS = 256, 8, 2048
+
+
+class SqpPlan(NamedTuple):
+    threads: int      # per block
+    stages: int       # per block
+    blocks: int       # stage groups x problems
+    smem_bytes: int   # dynamic shared memory per block
+
+
+def image_floats(nc: int, m: int) -> int:
+    """Floats of a block's output image in shared memory (the source's
+    ``image_floats``): every StageQP field of its 8 stages."""
+    return STAGES_PER_BLOCK * (2 * NZ * NZ + 2 * NZ + 2 * NZ * nc + nc * nc
+                               + nc + m * (NZ + nc + 4))
+
+
+def sqp_qp_plan(P: int, N: int, nc: int, m: int, nseg: int) -> SqpPlan:
+    """The launch of one build: the image and, where they fit, the lane's
+    three track rows in dynamic shared memory (the source's
+    ``smem_bytes``)."""
+    staged = 3 * nseg if nseg <= MAX_STAGED_SEGMENTS else 0
+    return SqpPlan(THREADS, STAGES_PER_BLOCK,
+                   -(-N // STAGES_PER_BLOCK) * P,
+                   4 * (image_floats(nc, m) + staged))
 
 
 def nl_fields(gains, limits):
@@ -157,26 +194,40 @@ def pack_slots(fields, P: int, device):
     the stride from one problem to the next in floats (0: shared) and the
     float32 number a missing pointer stands for; and the tensors the
     pointers point into. A tensor is moved to ``device`` in float32, as the
-    plain versions take it; nothing is packed into a new tensor."""
-    ptrs, strides, values, keep = [], [], [], []
+    plain versions take it (one already there is taken as it is); nothing
+    is packed into a new tensor."""
+    device = torch.device(device)
+    ptrs, strides, numbers, keep = [], [], [], []
     for v, k in fields:
         if isinstance(v, torch.Tensor):
-            t = v.to(device=device, dtype=torch.float32).contiguous()
-            rows = t.numel() // k
-            if t.numel() != rows * k or rows not in (1, P):
+            t = v if (v.dtype is torch.float32 and v.is_contiguous()
+                      and v.device == device) else v.to(
+                device=device, dtype=torch.float32).contiguous()
+            n = t.numel()
+            if n == k:                    # one row, shared
+                keep.append(t)
+                base = t.data_ptr()
+                ptrs += [base + 4 * j for j in range(k)]
+                strides += [0] * k
+            elif n == P * k:              # a row per problem
+                keep.append(t)
+                base = t.data_ptr()
+                ptrs += [base + 4 * j for j in range(k)]
+                strides += [k] * k
+            else:
                 raise ValueError(f"a per-problem value of shape "
                                  f"{tuple(v.shape)}: {k} entries for 1 or "
                                  f"{P} problems expected")
-            keep.append(t)
-            ptrs += [t.data_ptr() + 4 * j for j in range(k)]
-            strides += [k if rows > 1 else 0] * k
-            values += [0.0] * k
+            numbers += [0.0] * k
         else:
-            vals = ([v] if isinstance(v, (int, float)) else
-                    np.asarray(v, np.float64).reshape(k).tolist())
             ptrs += [None] * k
             strides += [0] * k
-            values += [float(np.float32(x)) for x in vals]
+            if k == 1 and isinstance(v, (int, float)):
+                numbers.append(v)
+            else:
+                numbers += np.asarray(v, np.float64).reshape(k).tolist()
+    # float32 values, as float() of np.float32 gives them
+    values = array.array("f", numbers).tolist()
     return ptrs, strides, values, keep
 
 
@@ -204,14 +255,21 @@ def nl_consts(model, dt, coupling: str, u_trust) -> list:
             PLANE_TRUST_THETA, PLANE_TRUST_B, 2.0 * PLANE_REG]
 
 
+def _rcp32(v) -> float:
+    """1 / v as the card's float32 division of 1 by v in float32 rounds
+    it."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
 def mpcc_consts(p, dt, bounds) -> list:
     """The MPCC kernel's constants (``MPCCConst`` of the source)."""
     return [p.lf, p.lr, p.Bf, p.Cf, p.Df, p.Br, p.Cr, p.Dr, p.Cm1, p.Cm2,
-            p.Cr0, p.Cr2, p.m, p.I, p.p_long, (p.p_ell * p.Dr) ** 2,
+            p.Cr0, p.Cr2, p.m, p.p_long, (p.p_ell * p.Dr) ** 2,
             p.max_alpha, -p.max_alpha, float(dt), bounds.trust_delta,
             bounds.trust_drive, -bounds.delta_max, bounds.delta_max,
             bounds.drive_min, bounds.drive_max, bounds.vx_min,
-            SLIP_VX_FLOOR, MPCC_HALFWIDTH_SM]
+            SLIP_VX_FLOOR, MPCC_HALFWIDTH_SM, 1.0 / p.m, 1.0 / p.I,
+            _rcp32(p.m), _rcp32(p.I)]
 
 
 # --- the launches -----------------------------------------------------------
@@ -229,15 +287,30 @@ def _track_args(track, device):
     return tables + [track.open_flag], ns
 
 
+@functools.lru_cache(maxsize=256)
+def output_layout(P: int, N: int, nc: int, m: int):
+    """The StageQP's fields in the kernel's order (F, G, d, Q, q, R, r, S,
+    D, E, lo, hi, soft_lo, soft_hi), back to back in one allocation: per
+    field its shape, its contiguous strides and its offset in floats, and
+    the floats of them all."""
+    shapes = ((P, N, NZ, NZ), (P, N, NZ, nc), (P, N, NZ),
+              (P, N + 1, NZ, NZ), (P, N + 1, NZ), (P, N, nc, nc), (P, N, nc),
+              (P, N, NZ, nc), (P, N, m, NZ), (P, N, m, nc), (P, N, m),
+              (P, N, m), (P, N, m), (P, N, m))
+    fields, at = [], 0
+    for sh in shapes:
+        strides = tuple(math.prod(sh[i + 1:]) for i in range(len(sh)))
+        fields.append((sh, strides, at))
+        at += math.prod(sh)
+    return tuple(fields), at
+
+
 def _outputs(P, N, nc, m, device):
-    """The StageQP's fields in the kernel's order, allocated empty."""
-    def out(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    return [out(P, N, NZ, NZ), out(P, N, NZ, nc), out(P, N, NZ),
-            out(P, N + 1, NZ, NZ), out(P, N + 1, NZ), out(P, N, nc, nc),
-            out(P, N, nc), out(P, N, NZ, nc), out(P, N, m, NZ),
-            out(P, N, m, nc), out(P, N, m), out(P, N, m), out(P, N, m),
-            out(P, N, m)]
+    """The StageQP's fields in the kernel's order: views of one new
+    allocation, each contiguous, none overlapping another."""
+    fields, total = output_layout(P, N, nc, m)
+    flat = torch.empty(total, dtype=torch.float32, device=device)
+    return [flat.as_strided(sh, st, at) for sh, st, at in fields]
 
 
 def _stage_qp(outs) -> StageQP:
@@ -247,23 +320,63 @@ def _stage_qp(outs) -> StageQP:
                    hi=hi, soft_lo=slo, soft_hi=shi)
 
 
-def _addresses(ps):
-    """Addresses (None: null) as the kernel's pointer array."""
-    return (ctypes.c_void_p * len(ps))(*ps)
+# The arrays of numbers the kernels take, built once per distinct value and
+# kept. Floats are keyed by their bits: Python holds 0.0 and -0.0 equal,
+# with one hash, but the kernel tells them apart.
+_KEPT: dict = {}
 
 
-def _pointers(ts):
-    """Tensors' device pointers for the kernel; None stands for null."""
-    return _addresses([None if t is None else t.data_ptr() for t in ts])
+def _kept(key, make):
+    """``make()``, built once per ``key`` and kept (up to 512 keys, then
+    the store starts again)."""
+    got = _KEPT.get(key)
+    if got is None:
+        if len(_KEPT) >= 512:
+            _KEPT.clear()
+        got = _KEPT[key] = make()
+    return got
 
 
-def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
-                  lambdas, neigh_xy, master_mask, u_trust=(0.06, 0.6),
-                  coupling: str = "eu", lane=0, planes0=None) -> StageQP:
-    """The NL SQP stage QPs of P problems on the card, in one launch of
-    ``cmpc_nl_qp``: the arguments and the result as
-    ``planners/nl.py build_nl_qp`` (float32, contiguous CUDA tensors;
-    ``planes0`` for hp_opt only). Limits are taken in float32."""
+def _bits(values) -> bytes:
+    return struct.pack(f"{len(values)}d", *values)
+
+
+def _doubles(values):
+    return _kept(("doubles", _bits(values)),
+                 lambda: (ctypes.c_double * len(values))(*values))
+
+
+def _ints(values: tuple):
+    return _kept(("ints", values),
+                 lambda: (ctypes.c_int * len(values))(*values))
+
+
+def _nl_consts_array(model, dt: float, coupling: str, u_trust):
+    key = ("nl", coupling, u_trust is None,
+           _bits((*model, dt, *(u_trust or ()))))
+    return _kept(key, lambda: _doubles(nl_consts(model, dt, coupling,
+                                                 u_trust)))
+
+
+def _mpcc_consts_array(p, dt: float, bounds):
+    return _kept(("mpcc", _bits((*p, dt, *bounds))),
+                 lambda: _doubles(mpcc_consts(p, dt, bounds)))
+
+
+def _pointers(tensors, addresses):
+    """The kernel's pointer array: the tensors' device pointers (None:
+    null), then the addresses (None: null), as 64-bit integers (the array
+    must live until the launch has read it)."""
+    return array.array("Q", [0 if t is None else t.data_ptr()
+                             for t in tensors]
+                       + [0 if a is None else a for a in addresses])
+
+
+def _nl_args(track, gains, limits, model, N, dt, x_bar, u_bar, lambdas,
+             neigh_xy, master_mask, u_trust, coupling, lane, planes0):
+    """Check the arguments of one NL build and allocate its outputs.
+    Returns the arguments of ``cmpc_nl_qp`` up to the stream, the outputs,
+    the device and the tensors the pointers point into."""
     nb = neigh_xy.shape[-2]
     if nb > MAX_NEIGHBOURS:
         raise ValueError(f"{nb} neighbours: the kernel takes at most "
@@ -279,27 +392,58 @@ def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
     _check("master_mask", master_mask, (P, nb), dev)
     if hp_opt:
         _check("planes0", planes0, (P, nb, N, 2), dev)
-    # `alive` holds the tensors the slot pointers point into
     sp, ss, sv, alive = pack_slots(nl_fields(gains, limits), P, dev)
     ln = pack_lane(lane, P, dev)
+    lane_t = ln if isinstance(ln, torch.Tensor) else None
     tr, nseg = _track_args(track, dev)
     outs = _outputs(P, N, nc, m, dev)
-    ins = [x_bar, u_bar, lambdas, neigh_xy, master_mask,
-           planes0 if hp_opt else None,
-           ln if isinstance(ln, torch.Tensor) else None]
-    ints = [P, N, nb, COUPLINGS.index(coupling), int(u_trust is not None),
+    ptrs = _pointers([x_bar, u_bar, lambdas, neigh_xy, master_mask,
+                      planes0 if hp_opt else None, lane_t, *tr, *outs], sp)
+    if u_trust is not None:
+        u_trust = tuple(float(v) for v in u_trust)
+    ints = (P, N, nb, COUPLINGS.index(coupling), int(u_trust is not None),
             matvec_order(P * N, "row"), nseg,
-            0 if isinstance(ln, torch.Tensor) else ln] + ss
-    consts = nl_consts(model, dt, coupling, u_trust) + sv
+            0 if lane_t is not None else ln,
+            sqp_qp_plan(P, N, nc, m, nseg).smem_bytes, *ss)
+    args = (ptrs, _nl_consts_array(model, float(dt), coupling, u_trust),
+            _doubles(sv), _ints(ints))
+    return args, outs, dev, alive + [lane_t, tr]
+
+
+def _mpcc_args(track, gains, p, N, dt, x_bar, u_bar, bounds):
+    """Check the arguments of one MPCC build and allocate its outputs, as
+    :func:`_nl_args`."""
+    dev = _cuda_device(x_bar)
+    P = x_bar.shape[0]
+    _check("x_bar", x_bar, (P, N + 1, NX), dev)
+    _check("u_bar", u_bar, (P, N, NU), dev)
+    sp, ss, sv, alive = pack_slots(mpcc_fields(gains), P, dev)
+    tr, nseg = _track_args(track, dev)
+    outs = _outputs(P, N, NC, MPCC_ROWS, dev)
+    ints = (P, N, matvec_order(P * N, "col"), nseg,
+            sqp_qp_plan(P, N, NC, MPCC_ROWS, nseg).smem_bytes, *ss)
+    args = (_pointers([x_bar, u_bar, *tr, *outs], sp),
+            _mpcc_consts_array(p, float(dt), bounds),
+            _doubles(sv), _ints(ints))
+    return args, outs, dev, alive + [tr]
+
+
+def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
+                  lambdas, neigh_xy, master_mask, u_trust=(0.06, 0.6),
+                  coupling: str = "eu", lane=0, planes0=None) -> StageQP:
+    """The NL SQP stage QPs of P problems on the card, in one launch of
+    ``cmpc_nl_qp``: the arguments and the result as
+    ``planners/nl.py build_nl_qp`` (float32, contiguous CUDA tensors;
+    ``planes0`` for hp_opt only). Limits are taken in float32."""
     from colaborativempc_tpu_torch.ops import _build
+    args, outs, dev, alive = _nl_args(
+        track, gains, limits, model, N, dt, x_bar, u_bar, lambdas, neigh_xy,
+        master_mask, u_trust, coupling, lane, planes0)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cmpc_nl_qp(_pointers(ins), _pointers(tr), _pointers(outs),
-                             _addresses(sp),
-                             (ctypes.c_double * len(consts))(*consts),
-                             (ctypes.c_int * len(ints))(*ints),
-                             ctypes.c_void_p(stream))
+    ptrs, *rest = args
+    with _on(dev):
+        err = lib.cmpc_nl_qp(ptrs.buffer_info()[0], *rest,
+                             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "nl_qp_batched")
     nl_qp_batched.launches += 1
     return _stage_qp(outs)
@@ -314,27 +458,50 @@ def mpcc_qp_batched(track, gains, p, N: int, dt, x_bar, u_bar,
     ``cmpc_mpcc_qp``: the arguments and the result as
     ``planners/mpcc.py build_mpcc_qp`` (float32, contiguous CUDA
     tensors)."""
-    dev = _cuda_device(x_bar)
-    P = x_bar.shape[0]
-    _check("x_bar", x_bar, (P, N + 1, NX), dev)
-    _check("u_bar", u_bar, (P, N, NU), dev)
-    sp, ss, sv, alive = pack_slots(mpcc_fields(gains), P, dev)
-    tr, nseg = _track_args(track, dev)
-    outs = _outputs(P, N, NC, MPCC_ROWS, dev)
-    ints = [P, N, matvec_order(P * N, "col"), nseg] + ss
-    consts = mpcc_consts(p, dt, bounds) + sv
     from colaborativempc_tpu_torch.ops import _build
+    args, outs, dev, alive = _mpcc_args(track, gains, p, N, dt, x_bar, u_bar,
+                                        bounds)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cmpc_mpcc_qp(_pointers([x_bar, u_bar]), _pointers(tr),
-                               _pointers(outs), _addresses(sp),
-                               (ctypes.c_double * len(consts))(*consts),
-                               (ctypes.c_int * len(ints))(*ints),
-                               ctypes.c_void_p(stream))
+    ptrs, *rest = args
+    with _on(dev):
+        err = lib.cmpc_mpcc_qp(ptrs.buffer_info()[0], *rest,
+                               torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "mpcc_qp_batched")
     mpcc_qp_batched.launches += 1
     return _stage_qp(outs)
 
 
 mpcc_qp_batched.launches = 0
+
+
+def sqp_qp_clocked(family: str, source=None, **kw):
+    """:func:`nl_qp_batched` (``family`` ``nl``) or :func:`mpcc_qp_batched`
+    (``mpcc``) on the keyword arguments ``kw``, through the clock-stamped
+    build of the kernels (``ops/_build.py load_sqp_qp_clocks``; ``source``
+    another copy of ``sqp_qp.cu`` with the same entries). A measurement
+    tool, not counted in the wrappers' launches. Returns the
+    StageQP, the stamps ``(P * stage groups, stamps, 3)`` int64 (label,
+    thread 0's clock, the last warp's clock at each stamp of a block, in
+    order) and the labels' names."""
+    from colaborativempc_tpu_torch.ops import _build
+    if family == "nl":
+        kw = dict(dict(u_trust=(0.06, 0.6), coupling="eu", lane=0,
+                       planes0=None), **kw)
+        args, outs, dev, alive = _nl_args(**kw)
+    else:
+        args, outs, dev, alive = _mpcc_args(**kw)
+    lib = _build.load_sqp_qp_clocks(source)
+    P, N = kw["x_bar"].shape[0], kw["N"]
+    n = lib.cmpc_sqp_qp_clock_stamps()
+    blocks = P * ((N + STAGES_PER_BLOCK - 1) // STAGES_PER_BLOCK)
+    clocks = torch.full((blocks, n, 3), -1, dtype=torch.int64, device=dev)
+    entry = (lib.cmpc_nl_qp_clocked if family == "nl"
+             else lib.cmpc_mpcc_qp_clocked)
+    ptrs, *rest = args
+    with _on(dev):
+        err = entry(ptrs.buffer_info()[0], *rest,
+                    torch.cuda.current_stream(dev).cuda_stream,
+                    clocks.data_ptr(), n)
+    _raise_on(err, f"sqp_qp_clocked ({family})")
+    names = lib.cmpc_sqp_qp_clock_names().decode().split(";")
+    return _stage_qp(outs), clocks, names

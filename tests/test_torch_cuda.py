@@ -495,81 +495,80 @@ def test_cuda_epoch_data_refuses_what_the_kernel_does_not_take(cuda):
 
 # --- the SQP build kernels (csrc/sqp_qp.cu) ----------------------------------
 
-def nl_build_args(dev, B, N, coupling, map_type="Highway", lanes=False,
-                  edges=False, seed=7):
-    """``build_nl_qp``'s arguments for B perturbed 3-agent fleets as the
-    Jacobi sweep hands them to it, with random prices; ``lanes`` puts every
-    other problem on lane 1, ``edges`` vx below and at the velocity gate
-    and a NaN into the linearisation point (as ``chip_smoke.py`` phase
-    3d)."""
-    from colaborativempc_tpu_torch.config import SysLimits
-    from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.runtime.ocd import _bisector_planes
-    from colaborativempc_tpu_torch.runtime.simulate import (
-        _neighbour_index, _per_agent_limits,
+def sqp_build_case(dev, case):
+    """``(family, arguments)`` of a build case: ``chip_smoke.py`` phase
+    3d's inputs (``scripts/sqp_qp_split.py nl_build_args`` /
+    ``mpcc_build_args``: perturbed 3-agent fleets as the Jacobi sweep hands
+    them to the build, cold-started races), at the case's shape."""
+    from colaborativempc_tpu_torch.scripts.sqp_qp_split import (
+        mpcc_build_args, nl_build_args,
     )
-    from colaborativempc_tpu_torch.scripts import monte_carlo
-    n = 3
-    cfg, _, st = monte_carlo.setup("nl", scenarios=B, agents=n, N=N,
-                                   steps=1, device=dev, coupling=coupling,
-                                   map_type=map_type)
-    ns = torch.as_tensor(_neighbour_index(n), device=dev)
-    ids = torch.arange(n, device=dev)
-    rng = np.random.default_rng(seed)
-    lam = torch.tensor(rng.uniform(0.0, 1.0, size=(B, n, n - 1, N)),
-                       dtype=F32, device=dev)
-    x_bar = torch.cat([st.x0[:, :, None], st.x_pred[:, :, 1:]], dim=2)
-    planes = _bisector_planes(x_bar)[:, torch.minimum(ids[:, None], ns),
-                                     torch.maximum(ids[:, None], ns)]
-    neigh = x_bar[:, ns][..., 7:9].transpose(2, 3)
-
-    def flat(t):
-        return t.reshape((B * n,) + t.shape[2:]).contiguous()
-    x_bar = flat(x_bar)
-    if edges:
-        x_bar[:, 2:N:4, 0] = 0.1
-        x_bar[:, 3:N:4, 0] = 0.2
-        x_bar[0, 1, 0] = float("nan")
-    P = B * n
-    return dict(
-        track=make_track(map_type, device=dev), gains=cfg.gains,
-        limits=SysLimits(*(v.repeat(B) for v in _per_agent_limits(cfg, dev))),
-        model=cfg.model, N=N, dt=cfg.dt, x_bar=x_bar, u_bar=flat(st.u_pred),
-        lambdas=flat(lam), neigh_xy=flat(neigh),
-        master_mask=flat((ids[:, None] < ns).float().expand(B, n, n - 1)),
-        coupling=coupling, lane=torch.arange(P, device=dev) % 2 if lanes
-        else 0, planes0=flat(planes) if coupling == "hp_opt" else None)
+    family, P, n, N, opts = SQP_CASES[case]
+    if family == "nl":
+        args = nl_build_args(dev, P, n, N, **{
+            k: v for k, v in opts.items() if k not in ("gains", "trust")})
+        if opts.get("trust") is False:
+            args["u_trust"] = None
+        if opts.get("gains") == "per_problem":
+            # every gain and limit a per-problem tensor, each problem its own
+            rng = np.random.default_rng(P)
+            g, lim = args["gains"], args["limits"]
+            args["gains"] = g._replace(**{
+                k: torch.tensor(np.asarray(v, np.float64) * rng.uniform(
+                    0.5, 2.0, size=(P, np.size(v))), dtype=F32, device=dev)
+                for k, v in g._asdict().items()})
+            args["limits"] = type(lim)(*(
+                torch.as_tensor(v, dtype=F32, device=dev).expand(P)
+                * torch.tensor(rng.uniform(0.9, 1.1, size=P), dtype=F32,
+                               device=dev) for v in lim))
+        elif opts.get("gains") == "shared":
+            # every limit a number, shared by every problem
+            args["limits"] = type(args["limits"])(
+                *(float(v[0]) for v in args["limits"]))
+        return family, args
+    return family, mpcc_build_args(dev, P, N, **opts)
 
 
-def mpcc_build_args(dev, P, N, edges=False, seed=11):
-    """``build_mpcc_qp``'s arguments for P cold-started races with noise;
-    ``edges`` vx at and below the slip floor and a NaN."""
-    from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.geometry.frenet import frenet_to_cartesian
-    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
-    from colaborativempc_tpu_torch.runtime import racing
-    cfg = MPCCConfig(N=N)
-    track = make_track(cfg.map_type, device=dev)
-    s = torch.arange(P, dtype=F32, device=dev) * (
-        float(track.track_length[0]) / P)
-    px, py, th = frenet_to_cartesian(track, s, 0.0)
-    zero = torch.zeros_like(s)
-    x0 = torch.stack([0.5 + 0.05 * torch.arange(P, device=dev), zero, zero,
-                      zero, zero, th, s, px, py], dim=-1)
-    x_bar, u_bar = racing._cold_guess(track, cfg, x0)
-    rng = np.random.default_rng(seed)
-    x_bar = x_bar + torch.tensor(
-        rng.normal(size=x_bar.shape) * [0.1, 0.05, 0.3, 0.05, 0.05, 0, 0, 0,
-                                        0], dtype=F32, device=dev)
-    u_bar = u_bar + torch.tensor(rng.normal(size=u_bar.shape) * [0.05, 0.1],
-                                 dtype=F32, device=dev)
-    if edges:
-        x_bar[:, 2:N:4, 0] = 0.3
-        x_bar[:, 3:N:4, 0] = 0.1
-        x_bar[0, 1, 0] = float("nan")
-    return dict(track=track, gains=cfg.gains, p=cfg.model, N=N, dt=cfg.dt,
-                x_bar=x_bar.contiguous(), u_bar=u_bar.contiguous(),
-                bounds=cfg.bounds)
+# case: (family, problems, agents per fleet, N, options)
+SQP_CASES = {
+    "nl_eu": ("nl", 12, 3, 20, {}),
+    "nl_hp_opt_edges": ("nl", 6, 3, 20, dict(coupling="hp_opt",
+                                             edges=True)),
+    "nl_eu_oval2_lanes_n40": ("nl", 6, 3, 40, dict(map_type="Oval2",
+                                                    lanes=True)),
+    "mpcc_edges": ("mpcc", 4, 0, 20, dict(edges=True)),
+    # either side of each boundary of the batched matrix-vector order
+    "nl_eu_p649": ("nl", 649, 3, 20, {}),
+    "nl_eu_p650": ("nl", 650, 3, 20, {}),
+    "nl_eu_p1864": ("nl", 1864, 3, 20, {}),
+    "nl_eu_p1865": ("nl", 1865, 3, 20, {}),
+    "mpcc_p9": ("mpcc", 9, 0, 20, {}),
+    "mpcc_p10": ("mpcc", 10, 0, 20, {}),
+    "mpcc_p66": ("mpcc", 66, 0, 20, {}),
+    "mpcc_p67": ("mpcc", 67, 0, 20, {}),
+    "mpcc_p142": ("mpcc", 142, 0, 20, {}),
+    "mpcc_p143": ("mpcc", 143, 0, 20, {}),
+    # hp_opt at 4 and 5 agents and at the kernel's 8 neighbours
+    "nl_hp_opt_4_agents": ("nl", 64, 4, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_5_agents": ("nl", 80, 5, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_9_agents": ("nl", 36, 9, 20, dict(coupling="hp_opt")),
+    "nl_hp": ("nl", 12, 3, 20, dict(coupling="hp")),
+    "nl_eu_no_trust": ("nl", 12, 3, 20, dict(trust=False)),
+    "nl_hp_opt_no_trust": ("nl", 12, 3, 20, dict(coupling="hp_opt",
+                                                 trust=False)),
+    "nl_eu_per_problem_gains": ("nl", 12, 3, 20, dict(gains="per_problem")),
+    "nl_hp_opt_per_problem_gains": ("nl", 12, 3, 20, dict(
+        coupling="hp_opt", gains="per_problem")),
+    "nl_eu_shared_limits": ("nl", 12, 3, 20, dict(gains="shared")),
+    # N not a multiple of the 8 stages of a block
+    "nl_eu_ragged_n13": ("nl", 6, 3, 13, {}),
+    "nl_hp_opt_ragged_n5": ("nl", 6, 3, 5, dict(coupling="hp_opt")),
+    "mpcc_ragged_n13": ("mpcc", 3, 0, 13, {}),
+    # a fitted track of more segments than the kernels stage in shared
+    # memory: the lookups read the track's tables where they lie
+    "nl_eu_3000_segments": ("nl", 12, 3, 20, dict(segments=3000)),
+    "mpcc_3000_segments": ("mpcc", 4, 0, 20, dict(segments=3000)),
+}
 
 
 def qp_close_to_scale(got, ref, tol):
@@ -594,32 +593,65 @@ def _field_close(f, g, r, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["nl_eu", "nl_hp_opt_edges",
-                                  "nl_eu_oval2_lanes_n40", "mpcc_edges"])
+@pytest.mark.parametrize("case", sorted(SQP_CASES))
 def test_cuda_build_kernels_match_plain_versions(cuda, case):
     """``build_nl_qp`` / ``build_mpcc_qp`` on the card (one launch of the
-    build kernel) against their plain versions on the same CUDA tensors,
-    every field within 1e-4 of its scale (as ``chip_smoke.py`` phase 3d),
-    NaN and infinities in the same places."""
+    build kernel) against their plain versions on the same CUDA tensors:
+    no entry whose bits differ, every field within 1e-4 of its scale (as
+    ``chip_smoke.py`` phase 3d), NaN and infinities in the same places."""
     from colaborativempc_tpu_torch.ops import cuda_sqp
     from colaborativempc_tpu_torch.planners import mpcc, nl
-    if case == "mpcc_edges":
-        args = mpcc_build_args(cuda, 4, 20, edges=True)
-        build, plain = mpcc.build_mpcc_qp, mpcc.build_mpcc_qp_plain
-        wrapper = cuda_sqp.mpcc_qp_batched
-    else:
-        args = {"nl_eu": lambda: nl_build_args(cuda, 4, 20, "eu"),
-                "nl_hp_opt_edges": lambda: nl_build_args(
-                    cuda, 2, 20, "hp_opt", edges=True),
-                "nl_eu_oval2_lanes_n40": lambda: nl_build_args(
-                    cuda, 2, 40, "eu", map_type="Oval2", lanes=True)}[case]()
+    family, args = sqp_build_case(cuda, case)
+    if family == "nl":
         build, plain = nl.build_nl_qp, nl.build_nl_qp_plain
         wrapper = cuda_sqp.nl_qp_batched
+    else:
+        build, plain = mpcc.build_mpcc_qp, mpcc.build_mpcc_qp_plain
+        wrapper = cuda_sqp.mpcc_qp_batched
     before = wrapper.launches
     got = build(**args)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    qp_close_to_scale(got, plain(**args), 1e-4)
+    ref = plain(**args)
+    assert bits_differing(qp_leaves(got), qp_leaves(ref)) == 0
+    qp_close_to_scale(got, ref, 1e-4)
+
+
+def qp_leaves(qp):
+    return [*qp.dyn, *qp.cost, qp.D, qp.E, qp.lo, qp.hi, qp.soft_lo,
+            qp.soft_hi]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nl_eu", "nl_hp_opt_edges", "mpcc_edges",
+                                  "nl_hp_opt_9_agents"])
+def test_cuda_clocked_sqp_build_matches_default_build(cuda, case):
+    """The clock-stamped build of the SQP kernels (``-DCMPC_SQP_QP_CLOCKS``,
+    a library of its own) gives the default build's outputs bit for bit
+    and counts no launch; every block stamps its start, barriers and end in
+    order, the last warp never before thread 0, and its last row holds its
+    SM and its start and end on the global timer."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import mpcc, nl
+    family, args = sqp_build_case(cuda, case)
+    wrapper = (cuda_sqp.nl_qp_batched if family == "nl"
+               else cuda_sqp.mpcc_qp_batched)
+    before = wrapper.launches
+    got, stamps, names = cuda_sqp.sqp_qp_clocked(family, **args)
+    assert wrapper.launches == before
+    ref = (nl.build_nl_qp if family == "nl" else mpcc.build_mpcc_qp)(**args)
+    torch.cuda.synchronize()
+    assert bits_differing(qp_leaves(got), qp_leaves(ref)) == 0
+    P, N = args["x_bar"].shape[0], args["N"]
+    assert stamps.shape[0] == P * -(-N // cuda_sqp.STAGES_PER_BLOCK)
+    st, block = stamps[:, :-1].cpu(), stamps[:, -1].cpu()
+    used = st[0, :, 0] >= 0
+    st = st[:, used]
+    assert bool((st[..., 0] < len(names)).all())
+    assert bool((st[..., 2] >= st[..., 1]).all())
+    assert bool((st[:, 1:, 2] > st[:, :-1, 2]).all())
+    assert bool((block[:, 0] <= -2).all())
+    assert bool((block[:, 2] > block[:, 1]).all())
 
 
 @pytest.mark.cuda
@@ -686,7 +718,10 @@ def test_cuda_build_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     version."""
     from colaborativempc_tpu_torch.geometry import make_track
     from colaborativempc_tpu_torch.ops import cuda_sqp
-    args = nl_build_args(cuda, 1, 8, "eu")
+    from colaborativempc_tpu_torch.scripts.sqp_qp_split import (
+        nl_build_args,
+    )
+    args = nl_build_args(cuda, 3, 3, 8, "eu")
     before = cuda_sqp.nl_qp_batched.launches
     with pytest.raises(TypeError, match="float32"):
         cuda_sqp.nl_qp_batched(**dict(args, x_bar=args["x_bar"].double()))

@@ -298,12 +298,13 @@ def test_cuda_request_without_card_raises():
 SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
            "lpv_main", "experiment_battery", "stress_study", "eval_lpv_model",
            "compare_reference", "eval_exp", "paper_figs", "show_maps",
-           "test_planes", "epoch_data_split"]
+           "test_planes", "epoch_data_split", "sqp_qp_split", "clock_split"]
 # the scripts that compute (and so run on the card): they must import
 # where matplotlib is missing, as on the card's machine
 COMPUTE_SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
                    "lpv_main", "experiment_battery", "stress_study",
-                   "eval_lpv_model", "compare_reference", "epoch_data_split"]
+                   "eval_lpv_model", "compare_reference", "epoch_data_split",
+                   "sqp_qp_split", "clock_split"]
 
 
 def _import_blocked(blocked, modules, checks=""):

@@ -524,3 +524,116 @@ def test_epoch_data_float_division_is_exact_where_the_kernel_divides():
         got = ((o.astype(f32) + f32(0.5)) * (f32(1) / f32(n))).astype(
             np.int64)
         assert np.array_equal(got, o // n), n
+
+
+# --- the SQP build kernels' launch (csrc/sqp_qp.cu) -------------------------
+
+def _sqp_source() -> str:
+    from pathlib import Path
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    return (Path(cuda_sqp.__file__).resolve().parent.parent / "csrc"
+            / "sqp_qp.cu").read_text()
+
+
+def _c_int(src: str, name: str) -> int:
+    import re
+    return int(re.search(r"constexpr int " + name + r" = (\d+);",
+                         src).group(1))
+
+
+def _c_return(src: str, name: str) -> str:
+    """The return expression of the source's function ``name``, with its
+    C conditionals written as Python's."""
+    import re
+    m = re.search(name + r"\([^)]*\) \{\s*return ([^;]+);", src)
+    expr = " ".join(m.group(1).split())
+    return re.sub(r"\(([^()?]+)\?([^():]+):([^()]+)\)",
+                  r"((\2) if (\1) else (\3))", expr)
+
+
+def test_sqp_qp_plan_mirrors_the_source():
+    """``cuda_sqp``'s threads, stages per block and staged track segments
+    are the source's ``kThreads``, ``kStages`` and ``kMaxSeg``; its
+    ``image_floats`` and the plan's shared memory are the source's
+    ``image_floats`` and ``smem_bytes`` (their return expressions, read
+    from ``csrc/sqp_qp.cu``), which the entry requires of the caller, for
+    every (nc, m) the NL couplings take with up to 8 neighbours and
+    MPCC's, on tracks of one segment to beyond the staged rows."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    src = _sqp_source()
+    assert cuda_sqp.THREADS == _c_int(src, "kThreads") == 256
+    assert cuda_sqp.STAGES_PER_BLOCK == _c_int(src, "kStages") == 8
+    assert cuda_sqp.MAX_STAGED_SEGMENTS == _c_int(src, "kMaxSeg")
+    image, smem = _c_return(src, "image_floats"), _c_return(src, "smem_bytes")
+    shapes = {cuda_sqp.nl_shape(nb, c) for nb in range(9)
+              for c in cuda_sqp.COUPLINGS}
+    shapes.add((cuda_sqp.NC, cuda_sqp.MPCC_ROWS))
+    for nc, m in sorted(shapes):
+        env = dict(kStages=8, kNZ=11, nc=nc, m=m, kMaxSeg=2048,
+                   image_floats=cuda_sqp.image_floats)
+        assert eval(image, env) == cuda_sqp.image_floats(nc, m), (nc, m)
+        for nseg in (1, 10, 1000, 2048, 2049, 20_000):
+            plan = cuda_sqp.sqp_qp_plan(5, 13, nc, m, nseg)
+            assert eval(smem, dict(env, nseg=nseg)) == plan.smem_bytes
+            assert plan.threads == 256 and plan.stages == 8
+            assert plan.blocks == 2 * 5
+    # the largest block the port launches: hp_opt with 8 neighbours on a
+    # fitted track of 2048 segments, within the 227 KB a block may take
+    assert cuda_sqp.sqp_qp_plan(1, 20, *cuda_sqp.nl_shape(8, "hp_opt"),
+                                2048).smem_bytes < 227 * 1024
+
+
+def test_sqp_qp_launch_bounds_mirror_the_source():
+    """The kernels' ``__launch_bounds__`` (threads, blocks per SM), read
+    from the source: the NL kernel's 5 blocks of 256 threads cap it at 51
+    registers and run the NL Monte-Carlo's 192 QPs x N=20 (3 stage groups
+    each) in one wave on the H100's 132 SMs; MPCC's 4 blocks cap it at 64
+    registers; both within the SM's 2048 threads."""
+    import re
+    src = _sqp_source().replace("__global__ void ", "")
+    bounds = {}
+    for name in ("nl_qp_kernel", "mpcc_qp_kernel"):
+        m = re.search(r"__launch_bounds__\((\w+), (\d+)\)\s*" + name, src)
+        assert m is not None, name
+        threads = _c_int(src, m.group(1)) if m.group(1).startswith("k") \
+            else int(m.group(1))
+        bounds[name] = (threads, int(m.group(2)))
+    assert bounds == {"nl_qp_kernel": (256, 5), "mpcc_qp_kernel": (256, 4)}
+    for threads, blocks in bounds.values():
+        assert threads * blocks <= 2048
+    assert 65536 // (256 * 5) == 51 and 65536 // (256 * 4) == 64
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    assert cuda_sqp.sqp_qp_plan(192, 20, 2, 6, 10).blocks <= 5 * H100_SMS
+
+
+def test_sqp_row_threads_build_every_row_once():
+    """The NL kernel deals the nine rows of the linearisation to groups of
+    eight threads (a thread per stage) on four warps (``row_of``, a table
+    of nibbles in the source): every row once, at most three rows per warp
+    (so a warp runs at most three cases of the row switch), the heavy rows
+    0, 1 and 2 on no more than two warps."""
+    import re
+    table = int(re.search(r"kRows = 0x([0-9a-f]+)ull", _sqp_source()).group(1),
+                16)
+    rows = [((table >> (4 * g)) & 15) - 1 for g in range(16)]
+    assert sorted(r for r in rows if r >= 0) == list(range(9))
+    warps = [[r for r in rows[4 * w:4 * w + 4] if r >= 0] for w in range(4)]
+    assert all(len(w) <= 3 for w in warps)
+    assert sum(any(r in (0, 1, 2) for r in w) for w in warps) <= 2
+
+
+def test_sqp_task_division_is_exact_where_the_kernels_divide():
+    """The build kernels split a task index into (stage, row) with
+    ``div_small``, the epoch-data kernel's float reciprocal: exact for
+    every divisor they use (11, nc up to 18, m up to 28) over the block's
+    8 stages."""
+    import re
+    body = re.search(r"int div_small\(int e, float rcp\) \{\s*return ([^;]+);",
+                     _sqp_source()).group(1)
+    assert " ".join(body.split()) == "__float2int_rz(((float)e + 0.5f) * rcp)"
+    f32 = np.float32
+    for d in [11] + list(range(2, 19)) + list(range(4, 29)):
+        e = np.arange(8 * d, dtype=np.int64)
+        got = ((e.astype(f32) + f32(0.5)) * (f32(1) / f32(d))).astype(
+            np.int64)
+        assert np.array_equal(got, e // d), d

@@ -21,6 +21,7 @@ mode in both).
 """
 
 import re
+import struct
 from pathlib import Path
 
 import jax
@@ -667,3 +668,116 @@ def test_matvec_order_candidates_compute_the_product(k):
     for name, f in matvec_order.candidates(k).items():
         np.testing.assert_allclose(f(A, x), ref, rtol=0, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("P,N,nc,m", [(3, 5, 6, 10), (1, 60, 2, 7),
+                                      (192, 20, 2, 6), (2, 13, 18, 28)])
+def test_outputs_are_views_of_one_allocation(P, N, nc, m):
+    """The wrapper allocates the 14 output fields at once: views of one
+    tensor, each contiguous with the StageQP field's shape, back to back in
+    the kernel's field order, none overlapping another and all of it
+    used."""
+    outs = cuda_sqp._outputs(P, N, nc, m, "cpu")
+    storage = outs[0].untyped_storage()
+    assert all(t.untyped_storage().data_ptr() == storage.data_ptr()
+               for t in outs)
+    assert all(t.is_contiguous() and t.dtype == F32 for t in outs)
+    expect = [(P, N, 11, 11), (P, N, 11, nc), (P, N, 11), (P, N + 1, 11, 11),
+              (P, N + 1, 11), (P, N, nc, nc), (P, N, nc), (P, N, 11, nc),
+              (P, N, m, 11), (P, N, m, nc)] + [(P, N, m)] * 4
+    assert [tuple(t.shape) for t in outs] == expect
+    at = 0
+    for t in outs:
+        assert (t.data_ptr() - storage.data_ptr()) // 4 == at
+        at += t.numel()
+    assert at * 4 == storage.nbytes()
+    # a returned QP belongs to its caller: every call allocates anew
+    again = cuda_sqp._outputs(P, N, nc, m, "cpu")
+    assert again[0].untyped_storage().data_ptr() != storage.data_ptr()
+
+
+def test_mpcc_reciprocals_are_the_divisions_the_plain_version_makes():
+    """MPCC's 1 / m and 1 / I reach the kernel from the host: in float64
+    the correctly rounded quotient, in float32 the float32 division of 1
+    by the float32 number (the card's ``t / number`` multiplies by it)."""
+    p = tpac.PacejkaParams()
+    consts = cuda_sqp.mpcc_consts(p, 0.05, tmpcc.MPCCBounds())
+    rm, ri, rm32, ri32 = consts[-4:]
+    assert rm == 1.0 / p.m and ri == 1.0 / p.I
+    for r32, v in ((rm32, p.m), (ri32, p.I)):
+        want = torch.tensor(1.0, dtype=F32) / torch.tensor(v, dtype=F32)
+        assert r32 == float(want)
+
+
+def test_kept_arrays_keep_the_sign_of_zero():
+    """The arrays of numbers the kernels take are kept per value by the
+    values' bits: a -0.0 limit, ``u_trust`` entry or bound after a 0.0 one
+    (equal in Python, with one hash) reaches the kernel as -0.0, and 0.0
+    after -0.0 as 0.0; each kept array holds the bits of the numbers it
+    was asked for."""
+    def bits(values):
+        return struct.pack(f"{len(values)}d", *values)
+    g, lim = tcfg.nl_gains(), tcfg.SysLimits()
+    model, p = tcfg.ModelParams(), tpac.PacejkaParams()
+    for order in ((0.0, -0.0), (-0.0, 0.0)):
+        for z in order:
+            _, _, vals, _ = cuda_sqp.pack_slots(cuda_sqp.nl_fields(
+                g, lim._replace(max_ls=z)), 3, "cpu")
+            kept = cuda_sqp._doubles(tuple(vals))
+            assert bits(kept) == bits(vals)
+            assert bits([kept[16 + lim._fields.index("max_ls")]]) == bits(
+                [z])
+            ut = (z, 0.6)
+            kept = cuda_sqp._nl_consts_array(model, 0.1, "eu", ut)
+            assert bits(kept) == bits(cuda_sqp.nl_consts(model, 0.1, "eu",
+                                                         ut))
+            b = tmpcc.MPCCBounds(vx_min=z)
+            kept = cuda_sqp._mpcc_consts_array(p, 0.05, b)
+            assert bits(kept) == bits(cuda_sqp.mpcc_consts(p, 0.05, b))
+    assert cuda_sqp._nl_consts_array(model, 0.1, "eu", None)[17] == 0.0
+
+
+def test_sqp_split_script_imports_here_and_raises_without_a_card():
+    """The SQP split script imports on the CPU and raises without a card,
+    before it builds. Its shapes are phase 3d's: each pair on either side
+    of a boundary of the batched matrix-vector order takes the two orders,
+    hp_opt reaches 3, 4 and 8 neighbours, and each family has a track of
+    more segments than the kernels stage."""
+    from colaborativempc_tpu_torch.scripts import sqp_qp_split
+    shapes = sqp_qp_split.SHAPES
+
+    def order(name):
+        family, P, _, N, _ = shapes[name]
+        return cuda_sqp.matvec_order(P * N, "row" if family == "nl"
+                                     else "col")
+    for a, b in (("nl_eu_p649", "nl_eu_p650"), ("nl_eu_p1864", "nl_eu_p1865"),
+                 ("mpcc_p9", "mpcc_p10"), ("mpcc_p66", "mpcc_p67"),
+                 ("mpcc_p142", "mpcc_p143")):
+        assert order(a) != order(b), (a, b)
+    assert {shapes[f"nl_hp_opt_{n}_agents"][2] - 1 for n in (4, 5, 9)} == {
+        3, 4, 8}
+    for name in ("nl_eu_3000_segments", "mpcc_3000_segments"):
+        assert shapes[name][4]["segments"] > cuda_sqp.MAX_STAGED_SEGMENTS
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        sqp_qp_split.main([])
+
+
+def test_clocked_sqp_wrapper_refuses_cpu_tensors_before_building(
+        monkeypatch):
+    """``sqp_qp_clocked`` checks the device before it asks for the
+    clock-stamped library, and counts no launch of the main path's
+    kernels."""
+    from colaborativempc_tpu_torch.ops import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("built the clocked library for CPU tensors")
+    monkeypatch.setattr(_build, "load_sqp_qp_clocks", no_build)
+    before = (cuda_sqp.nl_qp_batched.launches,
+              cuda_sqp.mpcc_qp_batched.launches)
+    for family, args in (("nl", port_nl_args()), ("mpcc", port_mpcc_args())):
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            cuda_sqp.sqp_qp_clocked(family, **args)
+    assert (cuda_sqp.nl_qp_batched.launches,
+            cuda_sqp.mpcc_qp_batched.launches) == before
