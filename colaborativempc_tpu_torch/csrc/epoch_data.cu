@@ -40,38 +40,54 @@
 //   on warps of its own (no warp runs two kinds one after the other):
 //   (1) P F, P G and m = P d (192 threads at nz=11, nc=2);
 //   (2) Qxx, Qxu and Quu, each one sum added to its precomputed base;
-//   (3) every thread that needs K factors the small Quu itself, in the same
-//       order (so the same bits): the thread of P_k's entry (i, j), i <= j,
-//       solves K's columns i and j and writes P_k (i, j) and (j, i) (the
-//       two are the same sum); the diagonal thread writes K's column; nc
-//       more threads solve Quu_inv's columns. The factor, the right-hand
-//       sides and the solves live in registers: the kernel is instantiated
-//       for nc <= 2, nc <= 8 and nc <= 32, the loops over nc unrolled to
-//       that bound (above 8 they are not: nc > 8 comes only from NL
-//       hp_opt with five or more agents).
+//   (3) up to nc = 8, every thread that needs K factors the small Quu
+//       itself, in the same order (so the same bits): the thread of P_k's
+//       entry (i, j), i <= j, solves K's columns i and j and writes P_k
+//       (i, j) and (j, i) (the two are the same sum); the diagonal thread
+//       writes K's column; nc more threads solve Quu_inv's columns. The
+//       factor, the right-hand sides and the solves live in registers: the
+//       kernel is instantiated for nc <= 2 and nc <= 8, the loops over nc
+//       unrolled to that bound. Above nc = 8 (NL hp_opt from five agents)
+//       the factor lives in shared memory: warp 0 factors Quu in place
+//       (the rows of a column on its lanes), then a thread per gain column
+//       and per Quu_inv column solves it in the stage's R and S slots
+//       (consumed by then), then a thread per entry of P_k's upper
+//       triangle forms it: three barriers where the small case has one.
 // * Every product is a sum along two rows of shared memory: P, F', G',
 //   (P F)', (P G)', D', E' and their weighted copies are kept a row per
-//   vector, 12 floats wide (32 when nz or mr exceeds 12), the entries at
-//   the row's end after zeros. A row is read as three float4s, and the
-//   leading zeros add fmaf(0, 0, +0) = +0 to a sum that is still +0, so the
-//   sums need no select. m's two halves are sums along P's rows and d kept
-//   a second time split into halves the same way.
+//   vector, the entries at the row's end after zeros. Up to 32 in every
+//   dimension a row is 12 floats wide (nz, mr <= 12) or 32, both kinds
+//   alike; beyond, a vector of nz entries takes 12 floats (nz <= 12) or
+//   nz rounded up to whole float4s, and one of mr entries mr rounded up
+//   (the widths are then runtime values). A row is read as float4s, and
+//   the leading zeros add fmaf(0, 0, +0) = +0 to a sum that is still +0,
+//   so the sums need no select. m's two halves are sums along P's rows and
+//   d kept a second time split into halves the same way.
 // * __launch_bounds__ hold the nc <= 2 kernel to 72 registers (4 blocks of
-//   192 threads per SM) and the nc <= 8 one to 96.
+//   192 threads per SM) and the nc <= 8 one to 96 (rows of 12 floats).
 // * Order of operations: bit for bit the plain version's on the card. In
 //   float32 the MPCC planner's QPs cancel so much (Qxu ~ 7e4 out of far
 //   larger terms) that two summation orders land ~1e-3 of scale apart, so
 //   only the same order agrees with the plain version. The kernel follows
 //   the order of the card's batched library routines that the plain
-//   version calls (cuBLAS batched GEMM, cuSOLVER / MAGMA batched Cholesky
-//   and solve), read off this build's results on the H100
-//   (PERF.md): a matrix product sums its terms as fused multiply-adds in
-//   index order from zero (dot_row); a matrix-vector product (m = P d)
-//   sums two halves, [0, ceil(n/2)) and the rest, and adds them; the
-//   Cholesky factor goes column by column, L_jj = sqrt(a_jj - ...) with
-//   the updates as fused multiply-adds, L_ij = (a_ij - ...) * (1 / L_jj);
-//   the solves go forward with the terms in index order and back with
-//   them in reverse, each row times 1 / L_ii. Separate terms are added as
+//   version calls (cuBLAS batched GEMM, cuSOLVER batched Cholesky, MAGMA
+//   batched solves), read off this build's results on the H100
+//   (scripts/library_order.py, PERF.md): a matrix product sums its terms
+//   as fused multiply-adds in index order from zero (dot_row; also over
+//   more than 32 rows); a matrix-vector product (m = P d) sums two halves,
+//   [0, ceil(n/2)) and the rest, and adds them; the Cholesky factor goes
+//   column by column, L_jj = sqrt(a_jj - ...), L_ij = (a_ij - ...) * (1 /
+//   L_jj), where the earlier columns' terms come in panels: the columns of
+//   the current panel of 16 as fused multiply-adds onto a_ij, each earlier
+//   panel of 16 within the current block of 64, and each earlier block of
+//   64, as a sum of its own from zero, subtracted (up to nc = 16: one
+//   chain); the solves split the rows recursively, a bottom part of the
+//   largest 16 * 2^k below the rows, down to blocks of at most 16 rows,
+//   which go forward with the terms in index order and back with them in
+//   reverse, each row times 1 / L_ii; a part's rows take the other part's
+//   terms as a sum of their own from zero in index order, subtracted. (At
+//   nc = 17 the library's back solve orders row 0 otherwise; nc is 2 or
+//   even in every family.) Separate terms are added as
 //   the plain formulas group them: rv = (rho * mask) * rho_scale; Dw = Dm
 //   * rv, Ew = Em * rv; Qxx = (Q + Dw'Dm) + F'(P F); Quu = (R + Ew'Em) +
 //   G'(P G); Qxu = (S + Dw'Em) + F'(P G); Quu <- 0.5 (Quu + Quu') + reg I;
@@ -94,14 +110,13 @@
 // (P, mr); soft_lo / soft_hi may be null (every row hard). Plain C
 // interface for ctypes; the entry checks the launch plan (ops/cuda_lqr.py
 // epoch_data_plan: threads, chunk, shared bytes), launches on the given
-// stream and returns cudaGetLastError(). nz, nc, mr <= 32.
+// stream and returns cudaGetLastError(). Any nz, nc and mr whose block fits
+// in shared memory (the plan's check).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
-
-constexpr int kMaxDim = 32;
 
 #ifdef CMPC_EPOCH_DATA_CLOCKS
 struct Clocks {
@@ -168,30 +183,57 @@ struct DataArgs {
 // starts on 16 bytes.
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
-// The width of a row in shared memory (a vector of nz or mr entries): 12
-// floats when nz, mr <= 12, else 32; the entries sit at its end, after
-// zeros (the kernel's DIM).
-__host__ __device__ inline int data_width(int nz, int mr) {
-  return nz <= 12 && mr <= 12 ? 12 : 32;
+// Controls up to which the factor and the solves live in registers; above,
+// in shared memory.
+constexpr int kRegNC = 8;
+
+// The widths of the rows in shared memory, in floats: wz for a vector of
+// nz entries, wr for one of mr entries; the entries sit at the row's end,
+// after zeros. Up to 32 in every dimension both are 12 (nz, mr <= 12) or
+// 32 (the kernel's DIM); beyond ("wide"), wz is 12 (nz <= 12) or nz and wr
+// mr, each rounded up to whole float4s.
+__host__ __device__ inline bool wide_dims(int nz, int nc, int mr) {
+  return nz > 32 || nc > 32 || mr > 32;
+}
+
+__host__ __device__ inline int width_z(int nz, int nc, int mr) {
+  if (!wide_dims(nz, nc, mr)) return nz <= 12 && mr <= 12 ? 12 : 32;
+  return nz <= 12 ? 12 : round4(nz);
+}
+
+__host__ __device__ inline int width_r(int nz, int nc, int mr) {
+  if (!wide_dims(nz, nc, mr)) return nz <= 12 && mr <= 12 ? 12 : 32;
+  return round4(mr);
 }
 
 // Floats of one stage in a chunk slot: F and G transposed (a row per
-// column), d's two halves (a row each), Q, R, S, D and E transposed and the
-// rv-weighted D' and E' (a row per column), lo, hi, soft_lo, soft_hi. Q,
-// S and R become the augmentations in place, D' and E' the masked rows.
+// column) and d's two halves (a row each), rows of wz; Q, R, S; D and E
+// transposed and the rv-weighted D' and E' (a row per column), rows of wr;
+// lo, hi, soft_lo, soft_hi. Q, S and R become the augmentations in place,
+// D' and E' the masked rows.
+__host__ __device__ inline int stage_floats_of(int nz, int nc, int mr,
+                                               int wz, int wr) {
+  return wz == wr ? (3 * (nz + nc) + 2) * wz + round4(nz * nz) +
+                        round4(nc * nc) + round4(nz * nc) + 4 * round4(mr)
+                  : (nz + nc + 2) * wz + 2 * (nz + nc) * wr + round4(nz * nz) +
+                        round4(nc * nc) + round4(nz * nc) + 4 * round4(mr);
+}
+
 __host__ __device__ inline int data_stage_floats(int nz, int nc, int mr) {
-  return (3 * (nz + nc) + 2) * data_width(nz, mr) + round4(nz * nz) +
-         round4(nc * nc) + round4(nz * nc) + 4 * round4(mr);
+  return stage_floats_of(nz, nc, mr, width_z(nz, nc, mr),
+                         width_r(nz, nc, mr));
 }
 
 // Floats of one block's shared memory: two slots of `chunk` stages, the
 // value Hessian P, the two halves of its rows, (P F)' (a row each per row
-// or column), (P G)', Qxx, Qxu, Quu and rho_scale.
+// or column), (P G)', Qxx, Qxu, Quu, rho_scale and, above kRegNC controls,
+// 1 / L_jj of the factor.
 __host__ __device__ inline int data_block_floats(int nz, int nc, int mr,
                                                  int chunk) {
   return 2 * chunk * data_stage_floats(nz, nc, mr) +
-         (4 * nz + nc) * data_width(nz, mr) + round4(nz * nz) +
-         round4(nz * nc) + round4(nc * nc) + round4(mr);
+         (4 * nz + nc) * width_z(nz, nc, mr) + round4(nz * nz) +
+         round4(nz * nc) + round4(nc * nc) + round4(mr) +
+         round4(nc > kRegNC ? nc : 0);
 }
 
 // Whole warps: each kind of entry of an interval starts on a warp of its
@@ -223,21 +265,27 @@ struct Slot {
   float *Ft, *Gt, *Q, *R, *S, *d, *Dt, *Et, *Dwt, *Ewt, *lo, *hi, *slo, *shi;
 };
 
+// The kernel's widths (width_z, width_r): fixed when it is compiled up to
+// 32 in every dimension, runtime values beyond.
+struct Widths {
+  int z, r;
+};
+
 __device__ inline Slot slot_at(float* base, int half, int C, int nz, int nc,
-                               int mr) {
-  const int W = data_width(nz, mr);
+                               int mr, Widths w) {
+  const int Wz = w.z, Wr = w.r;
   Slot s;
-  float* p = base + (size_t)half * C * data_stage_floats(nz, nc, mr);
-  s.Ft = p;   p += C * nz * W;
-  s.Gt = p;   p += C * nc * W;
+  float* p = base + (size_t)half * C * stage_floats_of(nz, nc, mr, Wz, Wr);
+  s.Ft = p;   p += C * nz * Wz;
+  s.Gt = p;   p += C * nc * Wz;
   s.Q = p;    p += C * round4(nz * nz);
   s.R = p;    p += C * round4(nc * nc);
   s.S = p;    p += C * round4(nz * nc);
-  s.d = p;    p += 2 * C * W;  // d's halves [0, ceil(nz/2)), the rest
-  s.Dt = p;   p += C * nz * W;
-  s.Et = p;   p += C * nc * W;
-  s.Dwt = p;  p += C * nz * W;
-  s.Ewt = p;  p += C * nc * W;
+  s.d = p;    p += 2 * C * Wz;  // d's halves [0, ceil(nz/2)), the rest
+  s.Dt = p;   p += C * nz * Wr;
+  s.Et = p;   p += C * nc * Wr;
+  s.Dwt = p;  p += C * nz * Wr;
+  s.Ewt = p;  p += C * nc * Wr;
   s.lo = p;   p += C * round4(mr);
   s.hi = p;   p += C * round4(mr);
   s.slo = p;  p += C * round4(mr);
@@ -306,12 +354,12 @@ __device__ inline void fill_padded(float* dst, float v, int n, int per,
 // Stages [k0, k1) of problem p into a slot, asynchronously, as one group;
 // absent soft weights are +inf (hard rows).
 __device__ inline void load_chunk(const DataArgs& a, const Slot& s, int p,
-                                  int k0, int k1) {
+                                  int k0, int k1, Widths w) {
   const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, n = k1 - k0;
-  const int W = data_width(nz, mr), lr = round4(mr);
+  const int Wz = w.z, Wr = w.r, lr = round4(mr);
   const size_t st = (size_t)p * N + k0;
-  load_transposed(s.Ft, a.F + st * nz * nz, n, nz, nz, W);
-  load_transposed(s.Gt, a.G + st * nz * nc, n, nz, nc, W);
+  load_transposed(s.Ft, a.F + st * nz * nz, n, nz, nz, Wz);
+  load_transposed(s.Gt, a.G + st * nz * nc, n, nz, nc, Wz);
   load_padded(s.Q, a.Q + ((size_t)p * (N + 1) + k0) * nz * nz, n, nz * nz,
               round4(nz * nz));
   load_padded(s.R, a.R + st * nc * nc, n, nc * nc, round4(nc * nc));
@@ -320,11 +368,11 @@ __device__ inline void load_chunk(const DataArgs& a, const Slot& s, int p,
   const float inv_nz = 1.f / nz;
   for (int o = threadIdx.x; o < n * nz; o += blockDim.x) {
     const int t = div_small(o, inv_nz), l = o - t * nz;
-    cp_async4(s.d + 2 * t * W + (l < h ? W - h + l : 2 * W - nz + l),
+    cp_async4(s.d + 2 * t * Wz + (l < h ? Wz - h + l : 2 * Wz - nz + l),
               a.d + st * nz + o);
   }
-  load_transposed(s.Dt, a.D + st * mr * nz, n, mr, nz, W);
-  load_transposed(s.Et, a.E + st * mr * nc, n, mr, nc, W);
+  load_transposed(s.Dt, a.D + st * mr * nz, n, mr, nz, Wr);
+  load_transposed(s.Et, a.E + st * mr * nc, n, mr, nc, Wr);
   load_padded(s.lo, a.lo + st * mr, n, mr, lr);
   load_padded(s.hi, a.hi + st * mr, n, mr, lr);
   if (a.slo)
@@ -349,12 +397,15 @@ __device__ __forceinline__ float row_mask(const float* lo, const float* hi,
 // per term in index order from zero (the order of the card's batched GEMM),
 // a and b rows in shared memory on 16 bytes, read as float4s. A row's
 // leading zeros add fmaf(0, 0, +0) = +0 to the sum while it is still +0,
-// so the sum is that of the entries alone, with no select.
+// so the sum is that of the entries alone, with no select. W > 0 fixes
+// the width when the kernel is compiled; W = 0 takes it from w.
 template <int W>
-__device__ __forceinline__ float dot_row(const float* a, const float* b) {
+__device__ __forceinline__ float dot_row(const float* a, const float* b,
+                                         int w) {
   float acc = 0.f;
+  const int quads = (W > 0 ? W : w) / 4;
 #pragma unroll
-  for (int q = 0; q < W / 4; ++q) {
+  for (int q = 0; q < quads; ++q) {
     const float4 u = reinterpret_cast<const float4*>(a)[q];
     const float4 v = reinterpret_cast<const float4*>(b)[q];
     acc = fmaf(u.x, v.x, acc);
@@ -367,7 +418,8 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 
 // The loops over nc below run to NC and skip what lies at or past nc; up
 // to NC = 8 they are unrolled, so the factor, the right-hand sides and the
-// solves stay in registers.
+// solves stay in registers. Up to 16 controls the card's routines take no
+// panels, so these are their order.
 
 // The Cholesky factor of 0.5 (Quu + Quu') + reg I (Quu row-major nc x nc
 // in shared memory) into registers, column by column as the card's batched
@@ -461,6 +513,111 @@ __device__ __forceinline__ float closed_loop(const float* Qxx,
   return __fadd_rn(Qxx[i * nz + j], acc);
 }
 
+// Above kRegNC controls: the factor in shared memory, in the card's
+// batched Cholesky's order (the header). Warp 0 factors 0.5 (A + A') + reg
+// I in place (A row-major nc x nc), a column at a time, its lanes on the
+// column's rows; the lower triangle becomes the factor, rcp[j] = 1 / L_jj;
+// all NaN unless every pivot is > 0. Entry (i, j) reads its own a_ij, the
+// upper a_ji and the factor's earlier columns, so the loads and stores of
+// one column never meet.
+__device__ void factor_shared(float* A, float* rcp, float reg, int nc,
+                              int lane) {
+  bool ok = true;
+  for (int j = 0; j < nc; ++j) {
+    const int O = j & ~63, J0 = j & ~15;
+    float d = 0.f;
+    for (int i0 = j; i0 < nc; i0 += 32) {
+      const int i = i0 + lane;
+      float v = 0.f;
+      if (i < nc) {
+        const float* Li = A + i * nc;
+        const float* Lj = A + j * nc;
+        v = __fmul_rn(0.5f, __fadd_rn(Li[j], A[j * nc + i]));
+        v = __fadd_rn(v, i == j ? reg : 0.f);
+        // earlier blocks of 64, then earlier panels of 16, each a sum of
+        // its own from zero; then the current panel onto the entry
+        for (int p0 = 0; p0 < J0; p0 += p0 < O ? 64 : 16) {
+          const int p1 = p0 + (p0 < O ? 64 : 16);
+          float acc = 0.f;
+          for (int l = p0; l < p1; ++l) acc = fmaf(Li[l], Lj[l], acc);
+          v = __fsub_rn(v, acc);
+        }
+        for (int l = J0; l < j; ++l) v = fmaf(-Li[l], Lj[l], v);
+      }
+      if (i0 == j) d = __shfl_sync(0xffffffffu, v, 0);
+      const float Ljj = __fsqrt_rn(d), r = __frcp_rn(Ljj);
+      if (i < nc) A[i * nc + j] = i == j ? Ljj : __fmul_rn(v, r);
+      if (i0 == j) {
+        if (!(d > 0.f)) ok = false;
+        if (lane == 0) rcp[j] = r;
+      }
+    }
+    __syncwarp();
+  }
+  if (!ok) {
+    for (int o = lane; o < nc * nc; o += 32) {
+      const int i = o / nc, j = o - i * nc;
+      if (j <= i) A[o] = NAN;
+    }
+    for (int j = lane; j < nc; j += 32) rcp[j] = NAN;
+  }
+  __syncwarp();
+}
+
+// Rows of the top part of a triangular solve of m > 16 rows: the bottom
+// part is the largest 16 * 2^k below m.
+__device__ __forceinline__ int solve_split(int m) {
+  int b = 16;
+  while (2 * b < m) b *= 2;
+  return m - b;
+}
+
+// Solve L L' x = x in place, L the factor in A's lower triangle (nc x nc)
+// and rcp its diagonal's reciprocals, x[u * ld] the thread's right-hand
+// side, in the card's batched solve's order (the header): the rows split
+// recursively down to blocks of at most 16, the other part's terms a sum
+// of their own from zero, subtracted; in a block, forward in index order,
+// back in reverse, each row times 1 / L_ii.
+__device__ void solve_shared(const float* A, const float* rcp, float* x,
+                             int ld, int nc) {
+  for (int i = 0; i < nc; ++i) {
+    float v = x[i * ld];
+    int s = 0, e = nc;
+    while (e - s > 16) {
+      const int m1 = solve_split(e - s);
+      if (i >= s + m1) {
+        float acc = 0.f;
+        for (int j = s; j < s + m1; ++j)
+          acc = fmaf(A[i * nc + j], x[j * ld], acc);
+        v = __fsub_rn(v, acc);
+        s += m1;
+      } else {
+        e = s + m1;
+      }
+    }
+    for (int j = s; j < i; ++j) v = fmaf(-A[i * nc + j], x[j * ld], v);
+    x[i * ld] = __fmul_rn(v, rcp[i]);
+  }
+  for (int i = nc - 1; i >= 0; --i) {
+    float v = x[i * ld];
+    int s = 0, e = nc;
+    while (e - s > 16) {
+      const int m1 = solve_split(e - s);
+      if (i < s + m1) {
+        float acc = 0.f;
+        for (int j = s + m1; j < e; ++j)
+          acc = fmaf(A[j * nc + i], x[j * ld], acc);
+        v = __fsub_rn(v, acc);
+        e = s + m1;
+      } else {
+        s += m1;
+      }
+    }
+    for (int j = e - 1; j > i; --j) v = fmaf(-A[j * nc + i], x[j * ld], v);
+    x[i * ld] = __fmul_rn(v, rcp[i]);
+  }
+}
+
 // The kinds of entry of one pass, each starting on a warp of its own: o
 // falls in kind 0, 1 or 2 at index q of that kind (or past every kind).
 __device__ __forceinline__ int kind_of(int o, int n0, int n1, int n2,
@@ -505,8 +662,10 @@ __device__ __forceinline__ Entry last_entry_of(int o, int nz, int nc) {
 // Stages per chunk, at most.
 constexpr int kMaxChunk = 8;
 
-// DIM >= nz, mr (a multiple of 4) bounds the loops of the products; NC >=
-// nc those of the factor and the solves.
+// DIM > 0: up to 32 in every dimension, rows of DIM floats (12 or 32) for
+// both kinds of vector; DIM = 0: rows of width_z / width_r floats, runtime
+// values. NC >= nc (2 or 8) bounds the loops of the factor and the solves
+// in registers; NC = 0: the factor in shared memory (nc > kRegNC).
 template <int NC, int DIM>
 __global__ void __launch_bounds__(
     NC == 2 && DIM == 12 ? 224 : (NC == 8 && DIM == 12 ? 320 : 1024),
@@ -516,8 +675,10 @@ __global__ void __launch_bounds__(
   const int p = blockIdx.x;
   const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, C = a.chunk;
   const int tid = threadIdx.x, T = blockDim.x;
-  constexpr int W = DIM;              // a row: zeros, then its entries
-  const int pz = W - nz, pr = W - mr, lr = round4(mr), h = (nz + 1) / 2;
+  // a row: zeros, then its entries; Wz for nz entries, Wr for mr
+  const int Wz = DIM > 0 ? DIM : width_z(nz, nc, mr);
+  const int Wr = DIM > 0 ? DIM : width_r(nz, nc, mr);
+  const int pz = Wz - nz, pr = Wr - mr, lr = round4(mr), h = (nz + 1) / 2;
 #ifdef CMPC_EPOCH_DATA_CLOCKS
   __shared__ unsigned clk_arrivals;
   int clk_n = 0;
@@ -525,19 +686,21 @@ __global__ void __launch_bounds__(
   const long long clk_t0 = global_ns();
 #endif
 
-  float* w = smem + 2 * C * data_stage_floats(nz, nc, mr);
-  float* Pm = w;   w += nz * W;            // value Hessian P_{k+1}, rows
-  float* Plo = w;  w += nz * W;            // its rows' halves, as d's
-  float* Phi = w;  w += nz * W;
-  float* PFt = w;  w += nz * W;            // (P F)', a row per column
-  float* PGt = w;  w += nc * W;            // (P G)'
+  const Widths ws = {Wz, Wr};
+  float* w = smem + 2 * C * stage_floats_of(nz, nc, mr, Wz, Wr);
+  float* Pm = w;   w += nz * Wz;           // value Hessian P_{k+1}, rows
+  float* Plo = w;  w += nz * Wz;           // its rows' halves, as d's
+  float* Phi = w;  w += nz * Wz;
+  float* PFt = w;  w += nz * Wz;           // (P F)', a row per column
+  float* PGt = w;  w += nc * Wz;           // (P G)'
   float* Qxx = w;  w += round4(nz * nz);   // row-major
   float* Qxu = w;  w += round4(nz * nc);
-  float* Quu = w;  w += round4(nc * nc);
+  float* Quu = w;  w += round4(nc * nc);   // NC = 0: then the factor
   float* rsc = w;
 
   // the rows' leading zeros: nothing writes them after this
-  for (int o = tid; o < data_block_floats(nz, nc, mr, C) / 4; o += T)
+  const int zero4 = data_block_floats(nz, nc, mr, C) / 4;
+  for (int o = tid; o < zero4; o += T)
     reinterpret_cast<float4*>(smem)[o] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
@@ -546,11 +709,12 @@ __global__ void __launch_bounds__(
   for (int o = tid; o < nz * nz; o += T) {
     const int i = div_small(o, inv_nz), j = o - i * nz;
     const float v = a.Q[((size_t)p * (N + 1) + N) * nz * nz + o];
-    Pm[i * W + pz + j] = v;
-    (j < h ? Plo : Phi)[i * W + (j < h ? W - h : W - nz) + j] = v;
+    Pm[i * Wz + pz + j] = v;
+    (j < h ? Plo : Phi)[i * Wz + (j < h ? Wz - h : Wz - nz) + j] = v;
   }
   for (int o = tid; o < mr; o += T) rsc[o] = a.rs[(size_t)p * mr + o];
-  load_chunk(a, slot_at(smem, 0, C, nz, nc, mr), p, N > C ? N - C : 0, N);
+  load_chunk(a, slot_at(smem, 0, C, nz, nc, mr, ws), p, N > C ? N - C : 0,
+             N, ws);
 
   const int chunks = (N + C - 1) / C;
   const int tri = nz * (nz + 1) / 2;
@@ -562,11 +726,11 @@ __global__ void __launch_bounds__(
   const float inv_mr = 1.f / mr;
   for (int c = 0; c < chunks; ++c) {
     const int k1 = N - c * C, k0 = k1 > C ? k1 - C : 0, n = k1 - k0;
-    const Slot s = slot_at(smem, c & 1, C, nz, nc, mr);
+    const Slot s = slot_at(smem, c & 1, C, nz, nc, mr, ws);
     // the next chunk streams into the other slot while this one runs
     if (c + 1 < chunks) {
-      load_chunk(a, slot_at(smem, (c + 1) & 1, C, nz, nc, mr), p,
-                 k0 > C ? k0 - C : 0, k0);
+      load_chunk(a, slot_at(smem, (c + 1) & 1, C, nz, nc, mr, ws), p,
+                 k0 > C ? k0 - C : 0, k0, ws);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -605,11 +769,11 @@ __global__ void __launch_bounds__(
         const int width = kind == 1 ? nz : nc;
         const int j = kind == 1 ? div_small(q, inv_nz) : q / nc;
         const int col = q - j * width;
-        float* src = (kind == 1 ? s.Dt : s.Et) + col * W + pr + j;
-        float* wgt = (kind == 1 ? s.Dwt : s.Ewt) + col * W + pr + j;
+        float* src = (kind == 1 ? s.Dt : s.Et) + col * Wr + pr + j;
+        float* wgt = (kind == 1 ? s.Dwt : s.Ewt) + col * Wr + pr + j;
         float* out = (kind == 1 ? a.Dm + st0 * mr * nz
                                 : a.Em + st0 * mr * nc) + q;
-        const int stride = width * W, gstride = mr * width;
+        const int stride = width * Wr, gstride = mr * width;
         const float rj = rsc[j];
         for (int t = 0; t < n; ++t) {
           const float mask = row_mask(s.lo, s.hi, t * lr + j);
@@ -631,10 +795,10 @@ __global__ void __launch_bounds__(
       const Entry e =
           o == tid ? e2 : entry_of(o, nz * nz, nz, nz * nc, nc, nc * nc, nc);
       if (e.kind == 3) continue;
-      const float* lhs = (e.kind == 2 ? s.Ewt : s.Dwt) + e.i * W;
-      const float* rhs = (e.kind == 0 ? s.Dt : s.Et) + e.j * W;
-      const int lw = (e.kind == 2 ? nc : nz) * W;
-      const int rw = (e.kind == 0 ? nz : nc) * W;
+      const float* lhs = (e.kind == 2 ? s.Ewt : s.Dwt) + e.i * Wr;
+      const float* rhs = (e.kind == 0 ? s.Dt : s.Et) + e.j * Wr;
+      const int lw = (e.kind == 2 ? nc : nz) * Wr;
+      const int rw = (e.kind == 0 ? nz : nc) * Wr;
       float* base = (e.kind == 0 ? s.Q : (e.kind == 1 ? s.S : s.R)) + e.q;
       const int per = e.kind == 0 ? round4(nz * nz)
                                   : (e.kind == 1 ? round4(nz * nc)
@@ -646,7 +810,7 @@ __global__ void __launch_bounds__(
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int tt = t0 + u < n ? t0 + u : n - 1;
-          r[u] = dot_row<W>(lhs + tt * lw, rhs + tt * rw);
+          r[u] = dot_row<DIM>(lhs + tt * lw, rhs + tt * rw, Wr);
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u)
@@ -660,8 +824,8 @@ __global__ void __launch_bounds__(
     for (int k = k1 - 1; k >= k0; --k) {
       const int t = k - k0;
       const size_t st = (size_t)p * N + k;
-      const float* Ft = s.Ft + t * nz * W;
-      const float* Gt = s.Gt + t * nc * W;
+      const float* Ft = s.Ft + t * nz * Wz;
+      const float* Gt = s.Gt + t * nc * Wz;
 
       // (1) P F, P G (both kept transposed) and m = P d (two halves,
       //     then their sum)
@@ -671,14 +835,16 @@ __global__ void __launch_bounds__(
         const Entry e =
             o == tid ? e1 : entry_of(o, nz * nz, nz, nz * nc, nc, nz, 1);
         if (e.kind == 0) {
-          PFt[e.j * W + pz + e.i] = dot_row<W>(Pm + e.i * W, Ft + e.j * W);
+          PFt[e.j * Wz + pz + e.i] =
+              dot_row<DIM>(Pm + e.i * Wz, Ft + e.j * Wz, Wz);
         } else if (e.kind == 1) {
-          PGt[e.j * W + pz + e.i] = dot_row<W>(Pm + e.i * W, Gt + e.j * W);
+          PGt[e.j * Wz + pz + e.i] =
+              dot_row<DIM>(Pm + e.i * Wz, Gt + e.j * Wz, Wz);
         } else if (e.kind == 2) {
-          const float* dk = s.d + 2 * t * W;
+          const float* dk = s.d + 2 * t * Wz;
           a.m[st * nz + e.q] =
-              __fadd_rn(dot_row<W>(Plo + e.q * W, dk),
-                        dot_row<W>(Phi + e.q * W, dk + W));
+              __fadd_rn(dot_row<DIM>(Plo + e.q * Wz, dk, Wz),
+                        dot_row<DIM>(Phi + e.q * Wz, dk + Wz, Wz));
         }
       }
       CLOCK_STAMP(kChain1);
@@ -693,54 +859,99 @@ __global__ void __launch_bounds__(
             o == tid ? e2 : entry_of(o, nz * nz, nz, nz * nc, nc, nc * nc, nc);
         if (e.kind == 0) {
           Qxx[e.q] = __fadd_rn(s.Q[t * round4(nz * nz) + e.q],
-                               dot_row<W>(Ft + e.i * W, PFt + e.j * W));
+                               dot_row<DIM>(Ft + e.i * Wz, PFt + e.j * Wz,
+                                            Wz));
         } else if (e.kind == 1) {
           const float v = __fadd_rn(
               s.S[t * round4(nz * nc) + e.q],
-              dot_row<W>(Ft + e.i * W, PGt + e.j * W));
+              dot_row<DIM>(Ft + e.i * Wz, PGt + e.j * Wz, Wz));
           Qxu[e.q] = v;
           a.Qxu[st * nz * nc + e.q] = v;
         } else if (e.kind == 2) {
           Quu[e.q] = __fadd_rn(s.R[t * round4(nc * nc) + e.q],
-                               dot_row<W>(Gt + e.i * W, PGt + e.j * W));
+                               dot_row<DIM>(Gt + e.i * Wz, PGt + e.j * Wz,
+                                            Wz));
         }
       }
       CLOCK_STAMP(kChain2);
       __syncthreads();
 
-      // (3) each thread factors Quu itself; P_k = 0.5 (M + M'), M = Qxx +
-      //     Qxu K, over the upper triangle (i <= j), K's columns i and j
-      //     solved by that thread (the diagonal thread writes K's column);
-      //     then Quu_inv's columns
-      for (int o = tid; o < warps_of(tri) + warps_of(nc); o += T) {
-        const Entry e = o == tid ? e3 : last_entry_of(o, nz, nc);
-        if (e.kind > 1) continue;
-        float L[NC][NC], rcp[NC], ki[NC];
-        factor<NC>(Quu, a.reg, nc, L, rcp);
-        if (e.kind == 0) {
-          const int i = e.i, j = e.j;
-          float kj[NC];
-          gain_column<NC>(L, rcp, Qxu, i, nc, ki);
-          gain_column<NC>(L, rcp, Qxu, j, nc, kj);
-          const float mij = closed_loop<NC>(Qxx, Qxu, kj, i, j, nz, nc);
-          const float mji = closed_loop<NC>(Qxx, Qxu, ki, j, i, nz, nc);
-          const float v = __fmul_rn(0.5f, __fadd_rn(mij, mji));
-          Pm[i * W + pz + j] = v;
-          Pm[j * W + pz + i] = v;
-          (j < h ? Plo : Phi)[i * W + (j < h ? W - h : W - nz) + j] = v;
-          (i < h ? Plo : Phi)[j * W + (i < h ? W - h : W - nz) + i] = v;
-          if (i == j) {
-#pragma unroll(NC <= 8 ? NC : 1)
+      if constexpr (NC > 0) {
+        // (3) each thread factors Quu itself; P_k = 0.5 (M + M'), M = Qxx +
+        //     Qxu K, over the upper triangle (i <= j), K's columns i and j
+        //     solved by that thread (the diagonal thread writes K's
+        //     column); then Quu_inv's columns
+        for (int o = tid; o < warps_of(tri) + warps_of(nc); o += T) {
+          const Entry e = o == tid ? e3 : last_entry_of(o, nz, nc);
+          if (e.kind > 1) continue;
+          float L[NC][NC], rcp[NC], ki[NC];
+          factor<NC>(Quu, a.reg, nc, L, rcp);
+          if (e.kind == 0) {
+            const int i = e.i, j = e.j;
+            float kj[NC];
+            gain_column<NC>(L, rcp, Qxu, i, nc, ki);
+            gain_column<NC>(L, rcp, Qxu, j, nc, kj);
+            const float mij = closed_loop<NC>(Qxx, Qxu, kj, i, j, nz, nc);
+            const float mji = closed_loop<NC>(Qxx, Qxu, ki, j, i, nz, nc);
+            const float v = __fmul_rn(0.5f, __fadd_rn(mij, mji));
+            Pm[i * Wz + pz + j] = v;
+            Pm[j * Wz + pz + i] = v;
+            (j < h ? Plo : Phi)[i * Wz + (j < h ? Wz - h : Wz - nz) + j] = v;
+            (i < h ? Plo : Phi)[j * Wz + (i < h ? Wz - h : Wz - nz) + i] = v;
+            if (i == j) {
+#pragma unroll
+              for (int u = 0; u < NC; ++u)
+                if (u < nc) a.K[st * nc * nz + u * nz + i] = ki[u];
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < NC; ++u) ki[u] = u == e.q ? 1.f : 0.f;
+            chol_solve<NC>(L, rcp, ki, nc);
+#pragma unroll
             for (int u = 0; u < NC; ++u)
-              if (u < nc) a.K[st * nc * nz + u * nz + i] = ki[u];
+              if (u < nc) a.Qi[st * nc * nc + u * nc + e.q] = ki[u];
           }
-        } else {
-#pragma unroll(NC <= 8 ? NC : 1)
-          for (int u = 0; u < NC; ++u) ki[u] = u == e.q ? 1.f : 0.f;
-          chol_solve<NC>(L, rcp, ki, nc);
-#pragma unroll(NC <= 8 ? NC : 1)
-          for (int u = 0; u < NC; ++u)
-            if (u < nc) a.Qi[st * nc * nc + u * nc + e.q] = ki[u];
+        }
+      } else {
+        float* rcps = rsc + round4(mr);  // 1 / L_jj
+        // (3a) warp 0 factors Quu in place
+        if (tid < 32) factor_shared(Quu, rcps, a.reg, nc, tid);
+        __syncthreads();
+        // (3b) K = -Quu^-1 Qxu' a column per thread, in the stage's S slot
+        //      (row-major nc x nz, as K), and Quu_inv a column per thread
+        //      in its R slot (row-major nc x nc); both slots are spent
+        float* Ks = s.S + t * round4(nz * nc);
+        float* Xi = s.R + t * round4(nc * nc);
+        for (int o = tid; o < nz + nc; o += T) {
+          if (o < nz) {
+            for (int u = 0; u < nc; ++u) Ks[u * nz + o] = Qxu[o * nc + u];
+            solve_shared(Quu, rcps, Ks + o, nz, nc);
+            for (int u = 0; u < nc; ++u) Ks[u * nz + o] = -Ks[u * nz + o];
+          } else {
+            const int q = o - nz;
+            for (int u = 0; u < nc; ++u) Xi[u * nc + q] = u == q ? 1.f : 0.f;
+            solve_shared(Quu, rcps, Xi + q, nc, nc);
+          }
+        }
+        __syncthreads();
+        // (3c) K and Quu_inv out; P_k over the upper triangle
+        for (int o = tid; o < nc * nz; o += T) a.K[st * nc * nz + o] = Ks[o];
+        for (int o = tid; o < nc * nc; o += T) a.Qi[st * nc * nc + o] = Xi[o];
+        for (int o = tid; o < tri; o += T) {
+          const Entry e = last_entry_of(o, nz, 0);
+          const int i = e.i, j = e.j;
+          float mij = 0.f, mji = 0.f;
+          for (int u = 0; u < nc; ++u) {
+            mij = fmaf(Qxu[i * nc + u], Ks[u * nz + j], mij);
+            mji = fmaf(Qxu[j * nc + u], Ks[u * nz + i], mji);
+          }
+          mij = __fadd_rn(Qxx[i * nz + j], mij);
+          mji = __fadd_rn(Qxx[j * nz + i], mji);
+          const float v = __fmul_rn(0.5f, __fadd_rn(mij, mji));
+          Pm[i * Wz + pz + j] = v;
+          Pm[j * Wz + pz + i] = v;
+          (j < h ? Plo : Phi)[i * Wz + (j < h ? Wz - h : Wz - nz) + j] = v;
+          (i < h ? Plo : Phi)[j * Wz + (i < h ? Wz - h : Wz - nz) + i] = v;
         }
       }
       CLOCK_STAMP(kChain3);
@@ -765,25 +976,29 @@ cudaError_t launch_with(const DataArgs& a, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// The instantiation for the dimensions: up to 32 in every dimension rows
+// of 12 or 32 floats, fixed; beyond, runtime widths. Up to kRegNC controls
+// the factor in registers (nc <= 2, nc <= 8), above in shared memory.
 int launch(const DataArgs& a, int threads, int smem_bytes, void* stream) {
   const int nz = a.nz, nc = a.nc, mr = a.mr;
-  if (a.P <= 0 || a.N <= 0 || nz <= 0 || nz > kMaxDim || nc <= 0 ||
-      nc > kMaxDim || mr <= 0 || mr > kMaxDim || a.chunk <= 0 ||
-      a.chunk > kMaxChunk || a.chunk > a.N ||
+  if (a.P <= 0 || a.N <= 0 || nz <= 0 || nc <= 0 || mr <= 0 ||
+      a.chunk <= 0 || a.chunk > kMaxChunk || a.chunk > a.N ||
       threads != data_threads(nz, nc))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (size_t)data_block_floats(nz, nc, mr, a.chunk);
   if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool narrow = data_width(nz, mr) == 12;
+  if (nc > kRegNC) return (int)launch_with<0, 0>(a, threads, smem, s);
+  const bool wide = wide_dims(nz, nc, mr);
+  const bool narrow = !wide && width_z(nz, nc, mr) == 12;
   if (nc <= 2)
-    return (int)(narrow ? launch_with<2, 12>(a, threads, smem, s)
-                        : launch_with<2, 32>(a, threads, smem, s));
-  if (nc <= 8)
-    return (int)(narrow ? launch_with<8, 12>(a, threads, smem, s)
+    return (int)(wide     ? launch_with<2, 0>(a, threads, smem, s)
+                 : narrow ? launch_with<2, 12>(a, threads, smem, s)
+                          : launch_with<2, 32>(a, threads, smem, s));
+  return (int)(wide     ? launch_with<8, 0>(a, threads, smem, s)
+               : narrow ? launch_with<8, 12>(a, threads, smem, s)
                         : launch_with<8, 32>(a, threads, smem, s));
-  return (int)launch_with<32, 32>(a, threads, smem, s);
 }
 
 }  // namespace

@@ -49,6 +49,17 @@
 //   (consecutive addresses) and the row read of F z (stride nz = 11,
 //   coprime to the 32 banks) are conflict-free; tt and z are broadcast from
 //   their hist row.
+// * Any control and row count. A control or a constraint row past the
+//   32nd goes to lane (index mod 32), which owns indices i, i + 32, i + 64,
+//   ...: the warp sums over rows take each lane's rows in turn before the
+//   shuffles, the Quu_inv Qu product and the rows' pass loop over them.
+//   Two instantiations: up to 32 controls and rows the first kernel's code
+//   (lane i alone owns index i; a lane owns row i of several stages and
+//   keeps its residual maxima in registers), so the results and the time
+//   are those of the earlier kernel; past 32 controls or rows the loops
+//   above (a lane owns its rows over every stage and keeps their maxima in
+//   the outputs). Lane i owns state row i throughout. The limits are
+//   nz <= 32 and the block's shared memory (ops/cuda_lqr.py kernel_plan).
 // * One warp per QP, `qps_per_block` warps per block, independent: warps
 //   sync with __syncwarp only, never the block, so a warp of the ragged last
 //   block returns early without deadlock. The launch plan (QPs per block,
@@ -62,7 +73,7 @@
 // with hi = +inf and must never be evaluated into the result. The max over
 // stages propagates NaN, as jnp.max does. Build without --use_fast_math: the
 // prox relies on inf comparisons and the Riccati chain is sensitive to
-// rounding. nz, nc, mr <= 32.
+// rounding. nz <= 32.
 //
 // Layout: row-major (P, N, ...) float32 tensors, contiguous, as the PyTorch
 // wrapper (ops/cuda_lqr.py) checks. Plain C interface for ctypes; each entry
@@ -244,7 +255,7 @@ struct Work {
 // Backward sweep through one resident chunk [k0, k0+n): before the chain,
 // every stage's t and q + D' t; the chain carries the costate p (lane i
 // holds row i) from p_{k0+n} down to p_{k0} and leaves kff of each stage.
-template <bool kRows>
+template <bool kRows, bool kWideR>
 __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
                                int nz, int nc, int mr, int lane, float& p) {
   const RowLane L = row_lane(lane, nz);
@@ -270,13 +281,20 @@ __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
       tt[lane] = ttl;
     }
     __syncwarp();
-    // Qu_a = r_a + sum over lanes of G[lane][a] tt_lane + E[lane][a] t_lane,
-    // two controls at a time (a lone last one sums beside a zero)
+    // Qu_a = r_a + sum over lanes of G[lane][a] tt_lane + E[j][a] t_j (each
+    // lane its rows j in turn), two controls at a time (a lone last one
+    // sums beside a zero)
     for (int a = 0; a < nc; a += 2) {
       const int b = a + 1 < nc ? a + 1 : a;
       float u = lane < nz ? sl.G[(kk * nz + lane) * nc + a] * ttl : 0.f;
       float v = lane < nz ? sl.G[(kk * nz + lane) * nc + b] * ttl : 0.f;
-      if (kRows && lane < mr) {
+      if (kRows && kWideR) {
+        for (int j = lane; j < mr; j += kWarp) {
+          const float tl = wk.t[kk * mr + j];
+          u += sl.E[(kk * mr + j) * nc + a] * tl;
+          v += sl.E[(kk * mr + j) * nc + b] * tl;
+        }
+      } else if (kRows && lane < mr) {
         const float tl = wk.t[kk * mr + lane];
         u += sl.E[(kk * mr + lane) * nc + a] * tl;
         v += sl.E[(kk * mr + lane) * nc + b] * tl;
@@ -288,12 +306,16 @@ __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
       }
     }
     __syncwarp();
-    if (lane < nc) {
+    auto kff_row = [&](int i) {
       float acc = 0.f;
       for (int b = 0; b < nc; ++b)
-        acc += sl.Qi[(kk * nc + lane) * nc + b] * wk.qu[b];
-      wk.kff[k * nc + lane] = -acc;
-    }
+        acc += sl.Qi[(kk * nc + i) * nc + b] * wk.qu[b];
+      wk.kff[k * nc + i] = -acc;
+    };
+    if (kWideR)
+      for (int i = lane; i < nc; i += kWarp) kff_row(i);
+    else if (lane < nc)
+      kff_row(lane);
     __syncwarp();
     if (lane < nz) {
       float acc = wk.g[kk * nz + lane];
@@ -309,15 +331,43 @@ __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
 }
 
 struct Out {
-  float *z, *c;  // this problem's rows of z_out, c_out
+  float *z, *c;    // this problem's rows of z_out, c_out
+  float *rp, *rd;  // its rows of rp_out, rd_out (mr > 32: the maxima)
 };
 
+// One constraint row o of the chunk (stage kk): v = D z + E c,
+// over-relaxation, prox and dual update; returns the row's primal and dual
+// residual terms through rpo, rdo.
+__device__ __forceinline__ void row_update(const Slot& sl, const Work& wk,
+                                           int k0, int kk, int o, int nz,
+                                           int nc, int mr, float alpha,
+                                           float& rpo, float& rdo) {
+  const int g = k0 * mr + o;
+  float v = 0.f;
+  for (int i = 0; i < nz; ++i) v += sl.D[o * nz + i] * wk.hist[kk * nz + i];
+  for (int a = 0; a < nc; ++a) v += sl.E[o * nc + a] * wk.c[kk * nc + a];
+  const float w = wk.w[g];
+  const float y = wk.y[g];
+  const float vhat = alpha * v + (1.f - alpha) * w;
+  const float wbar = vhat + y;
+  const float hi = sl.hi[o];
+  const float lo = sl.lo[o];
+  float wn = wbar;
+  if (wbar > hi) wn = hi + sl.fhi[o] * (wbar - hi);
+  if (wbar < lo) wn = lo + sl.flo[o] * (wbar - lo);
+  wk.y[g] = y + vhat - wn;
+  wk.w[g] = wn;
+  const float msk = sl.rv[o] > 0.f ? 1.f : 0.f;
+  rpo = fabsf(msk * (v - wn));
+  rdo = fabsf(msk * (wn - w));
+}
+
 // Forward sweep through one resident chunk: the chain carries the state z
-// from z_{k0} to z_{k0+n}, c_k = K z_k + kff_k by warp sums; after it, every
-// row's v = D z + E c, over-relaxation, prox and dual update, and in the
-// last iteration (kLast) the partial residual maxima (one per lane, over
-// its stages) and the outputs z, c.
-template <bool kRows, bool kLast>
+// from z_{k0} to z_{k0+n}, c_k = K z_k + kff_k by warp sums; after it, every row's v = D z + E c, over-relaxation,
+// prox and dual update, and in the last iteration (kLast) the partial
+// residual maxima (up to 32 rows one per lane over its stages, in rp and
+// rd; above, each row's in out.rp and out.rd) and the outputs z, c.
+template <bool kRows, bool kLast, bool kWideR>
 __device__ void forward_chunk(const Slot& sl, const Work& wk, int k0, int n,
                               int nz, int nc, int mr, int lane, float alpha,
                               float& z, const Out& out, float& rp,
@@ -350,31 +400,26 @@ __device__ void forward_chunk(const Slot& sl, const Work& wk, int k0, int n,
     }
   }
   __syncwarp();
-  if (kRows) {
+  if (kRows && !kWideR) {
     const RowLane L = row_lane(lane, mr);
     for (int kk = L.g; kk < n; kk += L.G) {
-      const int o = kk * mr + L.i, g = k0 * mr + o;
-      float v = 0.f;
-      for (int i = 0; i < nz; ++i)
-        v += sl.D[o * nz + i] * wk.hist[kk * nz + i];
-      for (int a = 0; a < nc; ++a) v += sl.E[o * nc + a] * wk.c[kk * nc + a];
-      const float w = wk.w[g];
-      const float y = wk.y[g];
-      const float vhat = alpha * v + (1.f - alpha) * w;
-      const float wbar = vhat + y;
-      const float hi = sl.hi[o];
-      const float lo = sl.lo[o];
-      float wn = wbar;
-      if (wbar > hi) wn = hi + sl.fhi[o] * (wbar - hi);
-      if (wbar < lo) wn = lo + sl.flo[o] * (wbar - lo);
-      wk.y[g] = y + vhat - wn;
-      wk.w[g] = wn;
+      float rpo, rdo;
+      row_update(sl, wk, k0, kk, kk * mr + L.i, nz, nc, mr, alpha, rpo, rdo);
       if (kLast) {
-        const float msk = sl.rv[o] > 0.f ? 1.f : 0.f;
-        rp = nan_max(rp, fabsf(msk * (v - wn)));
-        rd = nan_max(rd, fabsf(msk * (wn - w)));
+        rp = nan_max(rp, rpo);
+        rd = nan_max(rd, rdo);
       }
     }
+  } else if (kRows) {
+    for (int kk = 0; kk < n; ++kk)
+      for (int j = lane; j < mr; j += kWarp) {
+        float rpo, rdo;
+        row_update(sl, wk, k0, kk, kk * mr + j, nz, nc, mr, alpha, rpo, rdo);
+        if (kLast) {
+          out.rp[j] = nan_max(out.rp[j], rpo);
+          out.rd[j] = nan_max(out.rd[j], rdo);
+        }
+      }
   }
   if (kLast) {
     for (int o = lane; o < n * nz; o += kWarp) out.z[k0 * nz + o] = wk.hist[o];
@@ -386,7 +431,7 @@ __device__ void forward_chunk(const Slot& sl, const Work& wk, int k0, int n,
 // One problem, one warp: `epoch_len` iterations of backward then forward
 // sweeps over the chunks of the horizon, with the ring of slots fed ahead
 // of the visits. The affine solve is epoch_len = 1 without rows.
-template <bool kRows>
+template <bool kRows, bool kWideR>
 __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   const int N = a.N, nz = a.nz, nc = a.nc, mr = kRows ? a.mr : 0;
   const int S = a.ring < N ? a.ring : N;
@@ -412,8 +457,13 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   const float p_term =
       lane < nz ? a.q[((size_t)p * (N + 1) + N) * nz + lane] : 0.f;
   const float z_init = lane < nz ? a.z0[(size_t)p * nz + lane] : 0.f;
-  const Out out = {a.z_out + (size_t)p * (N + 1) * nz,
-                   a.c_out + (size_t)p * N * nc};
+  Out out = {a.z_out + (size_t)p * (N + 1) * nz,
+             a.c_out + (size_t)p * N * nc, nullptr, nullptr};
+  if (kRows && kWideR) {
+    out.rp = a.rp_out + (size_t)p * mr;
+    out.rd = a.rd_out + (size_t)p * mr;
+    for (int j = lane; j < mr; j += kWarp) out.rp[j] = out.rd[j] = 0.f;
+  }
 
   // visit v of an iteration: 0..C-1 backward over chunks C-1..0, C..2C-1
   // forward over chunks 0..C-1
@@ -445,16 +495,18 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
     const Slot sl = slot_at(slots, cur, S, nz, nc, mr);
     if (vi < C) {
       if (vi == 0) pc = p_term;
-      backward_chunk<kRows>(sl, wk, c * S, stages_of(c), nz, nc, mr, lane,
-                            pc);
+      backward_chunk<kRows, kWideR>(sl, wk, c * S, stages_of(c), nz, nc, mr,
+                                    lane, pc);
     } else {
       if (vi == C) z = z_init;
       if (it == a.epoch_len - 1)
-        forward_chunk<kRows, true>(sl, wk, c * S, stages_of(c), nz, nc, mr,
-                                   lane, a.alpha, z, out, rp, rd);
+        forward_chunk<kRows, true, kWideR>(sl, wk, c * S, stages_of(c), nz,
+                                           nc, mr, lane, a.alpha, z, out, rp,
+                                           rd);
       else
-        forward_chunk<kRows, false>(sl, wk, c * S, stages_of(c), nz, nc, mr,
-                                    lane, a.alpha, z, out, rp, rd);
+        forward_chunk<kRows, false, kWideR>(sl, wk, c * S, stages_of(c), nz,
+                                            nc, mr, lane, a.alpha, z, out, rp,
+                                            rd);
     }
     if (fed) arrive();
   }
@@ -463,7 +515,7 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
     a.w_out[(size_t)p * nw + o] = wk.w[o];
     a.y_out[(size_t)p * nw + o] = wk.y[o];
   }
-  if (kRows) {
+  if (kRows && !kWideR) {
     // row o's residual: the max of the partial maxima of lanes g * mr + o
     const RowLane L = row_lane(lane, mr);
     const float rp_lane = rp, rd_lane = rd;
@@ -479,50 +531,68 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   }
 }
 
+// kWideR: controls or rows past 32 (each lane takes indices i, i + 32,
+// ...), else the lane of index i alone, as the first kernel.
+template <bool kWideR>
 __global__ void admm_epoch_kernel(EpochArgs a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int p = blockIdx.x * a.qpb + warp;
   if (p >= a.P) return;  // whole warp leaves; no block-wide barrier exists
-  solve<true>(a,
-              smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, a.mr),
-              p, lane);
+  solve<true, kWideR>(
+      a, smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, a.mr), p,
+      lane);
 }
 
+template <bool kWideR>
 __global__ void affine_kernel(EpochArgs a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int p = blockIdx.x * a.qpb + warp;
   if (p >= a.P) return;  // whole warp leaves; no block-wide barrier exists
-  solve<false>(a, smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, 0),
-               p, lane);
+  solve<false, kWideR>(
+      a, smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, 0), p,
+      lane);
 }
 
-// Launches the epoch kernel (epoch) or the affine kernel (!epoch): one warp
-// per problem, a.qpb problems per block, smem_bytes of dynamic shared
-// memory, which must equal the carve of the plan.
-int launch(bool epoch, const EpochArgs& a, int smem_bytes, void* stream) {
-  if (a.P <= 0 || a.N <= 0 || a.nz <= 0 || a.nz > kWarp || a.nc <= 0 ||
-      a.nc > kWarp || a.mr < 0 || a.mr > kWarp || a.epoch_len <= 0 ||
-      a.qpb <= 0 || a.qpb > kWarp || a.ring <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)a.qpb *
-                      (size_t)qp_floats(a.N, a.ring, a.nz, a.nc, a.mr);
-  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
-  const void* fn = epoch ? (const void*)admm_epoch_kernel
-                         : (const void*)affine_kernel;
+// Launches kernel<kWideR> of an entry (epoch or affine) with the dynamic
+// shared memory it takes.
+template <bool kWideR>
+cudaError_t launch_with(bool epoch, const EpochArgs& a, size_t smem,
+                        cudaStream_t s) {
+  const void* fn = epoch ? (const void*)admm_epoch_kernel<kWideR>
+                         : (const void*)affine_kernel<kWideR>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
   }
   const dim3 grid((a.P + a.qpb - 1) / a.qpb);
   const dim3 block(a.qpb * kWarp);
   if (epoch)
-    admm_epoch_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
+    admm_epoch_kernel<kWideR><<<grid, block, smem, s>>>(a);
   else
-    affine_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+    affine_kernel<kWideR><<<grid, block, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Launches the epoch kernel (epoch) or the affine kernel (!epoch): one warp
+// per problem, a.qpb problems per block, smem_bytes of dynamic shared
+// memory, which must equal the carve of the plan. Up to 32 controls and
+// rows the instantiation of the first kernel's arithmetic; past 32 the
+// lanes loop over them.
+int launch(bool epoch, const EpochArgs& a, int smem_bytes, void* stream) {
+  if (a.P <= 0 || a.N <= 0 || a.nz <= 0 || a.nz > kWarp ||
+      a.nc <= 0 || a.mr < 0 || a.epoch_len <= 0 || a.qpb <= 0 ||
+      a.qpb > kWarp || a.ring <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)a.qpb *
+                      (size_t)qp_floats(a.N, a.ring, a.nz, a.nc, a.mr);
+  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a.nc > kWarp || a.mr > kWarp)
+    return (int)launch_with<true>(epoch, a, smem, s);
+  return (int)launch_with<false>(epoch, a, smem, s);
 }
 
 }  // namespace

@@ -26,7 +26,9 @@
 // chain of dependent arithmetic and the ~400 stores per stage.
 //
 // What the design does about it. One block of 256 threads per 8 stages of
-// one problem (grid: stage groups x problems), four or five phases
+// one problem (NL: fewer where the image of 8 stages does not fit in
+// shared memory, as with many neighbours; grid: stage groups x problems),
+// four or five phases
 // separated by block barriers, every stage of the block at once. (Split by
 // scripts/sqp_qp_split.py, a design that built two stages in turn per warp,
 // lane i on row i, spent 36-62% of a block's cycles in the rows, the row
@@ -41,7 +43,9 @@
 //   that a warp runs at most three cases of the row switch, each on eight
 //   stages at once, and computes only the sines its rows use. The other
 //   four warps compute each (stage, neighbour) pair's scalars (distance,
-//   gradient, price, plane) and each stage's corridor half-width. MPCC: two
+//   gradient, price, plane) and each stage's corridor half-width. The
+//   neighbour arrays are sized by the neighbour count in dynamic shared
+//   memory, after the image (neighbour_floats). MPCC: two
 //   threads per (Jacobian column, stage), one for the tyre-force rows and
 //   one for the kinematic rows, run the Pacejka model's forward-mode
 //   tangent along that column (the tangents' dtypes are types, fixed when
@@ -64,9 +68,11 @@
 //   tensor divided by a Python number is multiplied by the float32
 //   reciprocal; 1 / t is a correctly rounded reciprocal; maximum, minimum
 //   and clamp propagate NaN; searchsorted's upper bound sends NaN past the
-//   last segment. The batched matrix-vector products (A x, Ad x, Bd u, the
-//   tyre rows' gx x and gu u) follow the card's cuBLAS order, read off this
-//   build (scripts/matvec_order.py). It depends on the layout (the NL
+//   last segment; the sum over the neighbours (eu and hp's price on the
+//   position) takes torch.sum's order on the card for its layout
+//   (neighbour_sum). The batched matrix-vector products (A x, Ad x, Bd u,
+//   the tyre rows' gx x and gu u) follow the card's cuBLAS order, read off
+//   this build (scripts/library_order.py). It depends on the layout (the NL
 //   matrices are row-major, torch.func's MPCC Jacobians column-major) and
 //   on the batch size, so the wrapper names it per build (MatvecOrder
 //   below); every term is taken, zero coefficients included, so NaN
@@ -98,10 +104,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 8;  // stages per block
+// stages per block: MPCC's, and NL's where the block's image fits (the
+// wrapper's plan takes fewer where it does not)
+constexpr int kStages = 8;
 constexpr int kNX = 9, kNZ = 11;
-constexpr int kMaxNb = 8;               // neighbours, at most
-constexpr int kMaxNC = 2 + 2 * kMaxNb;  // hp_opt's controls at nb = 8
 // a lane's track rows are staged in shared memory up to this many segments
 // (24 KB beside the kernels' < 8 KB of static shared memory); a longer
 // track is searched where it lies
@@ -332,15 +338,28 @@ __host__ __device__ inline int field_floats(int f, int nc, int m) {
     default: return m;  // lo, hi, soft_lo, soft_hi
   }
 }
-// Floats of a block's image: kStages stages of every field.
-__host__ __device__ inline int image_floats(int nc, int m) {
-  return kStages * (2 * kNZ * kNZ + 2 * kNZ + 2 * kNZ * nc + nc * nc + nc +
-                    m * (kNZ + nc + 4));
+// Floats of a block's image: S stages of every field.
+__host__ __device__ inline int image_floats(int nc, int m, int S) {
+  return S * (2 * kNZ * kNZ + 2 * kNZ + 2 * kNZ * nc + nc * nc + nc +
+              m * (kNZ + nc + 4));
 }
-// Dynamic shared memory of a launch: the image, then the lane's three
-// track rows where they fit.
-__host__ __device__ inline int smem_bytes(int nc, int m, int nseg) {
-  return 4 * (image_floats(nc, m) + (nseg <= kMaxSeg ? 3 * nseg : 0));
+
+// Floats of the NL kernel's neighbour arrays for nb neighbours and S
+// stages: positions (2 per stage), prices, hp_opt's planes (2 per stage),
+// the master flags, each pair's scalars (kPair per stage) and the plane
+// controls' cost diagonal (nc = 2 + 2 nb; hp_opt only).
+constexpr int kPair = 9;
+__host__ __device__ inline int neighbour_floats(int nb, bool hp_opt, int S) {
+  return nb * (S * (3 + kPair) + 1) + (hp_opt ? 2 * nb * S + 2 * nb : 0) +
+         2;
+}
+
+// Dynamic shared memory of a launch: the image, the neighbour arrays
+// (NL), then the lane's three track rows where they fit.
+__host__ __device__ inline int smem_bytes(int nc, int m, int nseg,
+                                          int extra, int S) {
+  return 4 * (image_floats(nc, m, S) + extra +
+              (nseg <= kMaxSeg ? 3 * nseg : 0));
 }
 
 // The StageQP's fields in the kernel's order (Field).
@@ -352,13 +371,13 @@ struct Out {
 struct Layout {
   int off[kFields];
 };
-__device__ __forceinline__ Layout layout(int nc, int m) {
+__device__ __forceinline__ Layout layout(int nc, int m, int S) {
   Layout L;
   int o = 0;
 #pragma unroll
   for (int f = 0; f < kFields; ++f) {
     L.off[f] = o;
-    o += kStages * field_floats(f, nc, m);
+    o += S * field_floats(f, nc, m);
   }
   return L;
 }
@@ -493,6 +512,7 @@ struct NLArgs {
   float c[kNLConsts];
   float rcp_m, rcp_I;
   int P, N, nb, coupling, trust, order, lane_const;
+  int S;                  // stages per block
   Slots<kNLSlots> slots;  // the gains (16) and the limits (9)
 #ifdef CMPC_SQP_QP_CLOCKS
   Clocks clocks;
@@ -674,7 +694,6 @@ __device__ __forceinline__ void nl_row(const NLArgs& a, int i,
 // * hp_opt: f0, f1 the row's plane-control entries, f2 1 where the row is
 //   the master's (mrow), ra, rb the plane controls' prices.
 // The rows phase runs before the limits are in: pair_bound takes them.
-constexpr int kPair = 9;
 enum PairField { kGx, kGy, kPb, kPb2, kF0, kF1, kF2, kRa, kRb };
 
 template <bool HP_OPT>
@@ -739,29 +758,60 @@ __device__ __forceinline__ float pair_bound(const NLArgs& a,
   return fadd(fsub(lim[kMinDist], pair[kPb]), pair[kPb2]);
 }
 
+// Stage s's sum over the neighbours j of pair field f, in the order of
+// the plain version's torch.sum on the card (read off it by
+// scripts/library_order.py): the product it sums keeps the neighbours'
+// axis off the fastest stride, so each output is one thread's, over four
+// accumulators: terms 4g + i into accumulator i while whole groups of four
+// remain, the rest into accumulators 0, 1, ..., then ((a0 + a1) + a2) + a3.
+__device__ __forceinline__ float neighbour_sum(const float* pair, int s,
+                                               int nb, int f) {
+  const float* t = pair + s * nb * kPair + f;  // term j at t[j * kPair]
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  int j = 0;
+  for (; j + 3 < nb; j += 4) {
+    a0 = fadd(a0, t[j * kPair]);
+    a1 = fadd(a1, t[(j + 1) * kPair]);
+    a2 = fadd(a2, t[(j + 2) * kPair]);
+    a3 = fadd(a3, t[(j + 3) * kPair]);
+  }
+  if (j < nb) a0 = fadd(a0, t[j * kPair]);
+  if (j + 1 < nb) a1 = fadd(a1, t[(j + 1) * kPair]);
+  if (j + 2 < nb) a2 = fadd(a2, t[(j + 2) * kPair]);
+  return fadd(fadd(fadd(a0, a1), a2), a3);
+}
+
 // At most 51 registers: five blocks of 256 threads on an SM, so the NL
-// Monte-Carlo's 192 QPs x N=20 (576 blocks) run in one wave.
-template <bool HP_OPT>
+// Monte-Carlo's 192 QPs x N=20 (576 blocks) run in one wave. SF: the
+// stages per block when the kernel is compiled (kStages), or 0, a.S's.
+template <bool HP_OPT, int SF>
 __global__ void __launch_bounds__(kThreads, 5)
     nl_qp_kernel(const __grid_constant__ NLArgs a) {
-  // the output image, then the lane's track rows
+  // the output image, the neighbour arrays, then the lane's track rows
   extern __shared__ __align__(16) float dyn[];
   __shared__ float g[kNLSlots];   // this problem's gains, then its limits
-  __shared__ float Qd[kNZ], Rd[kMaxNC];
+  __shared__ float Qd[kNZ];
   __shared__ float xs[(kStages + 1) * kNX], us[kStages * 2];
-  __shared__ float nxy[kStages * kMaxNb * 2], lams[kMaxNb * kStages];
-  __shared__ float pls[HP_OPT ? kMaxNb * kStages * 2 : 1], mms[kMaxNb];
-  __shared__ float pair[kStages * kMaxNb * kPair];
   __shared__ float hws[kStages];  // the corridor's half-width per stage
   CLOCK_SETUP();
   const int N = a.N, nb = a.nb, p = blockIdx.y, tid = threadIdx.x;
+  const int S = SF > 0 ? SF : a.S;
   const int nc = HP_OPT ? 2 + 2 * nb : 2;
   const int m = 4 + (HP_OPT ? 3 * nb : nb);
-  const int k0 = blockIdx.x * kStages;
-  const int ns = min(kStages, N - k0);
+  const int k0 = blockIdx.x * S;
+  const int ns = min(S, N - k0);
   const float* c = a.c;
   float* img = dyn;
-  const Layout L = layout(nc, m);
+  const Layout L = layout(nc, m, S);
+  // the neighbour arrays (neighbour_floats): positions at stage k+1,
+  // prices and hp_opt's planes by neighbour then stage, master flags,
+  // each (stage, neighbour) pair's scalars, the cost's R diagonal
+  float* nxy = dyn + image_floats(nc, m, S);
+  float* lams = nxy + S * nb * 2;
+  float* pls = lams + nb * S;
+  float* mms = pls + (HP_OPT ? nb * S * 2 : 0);
+  float* pair = mms + nb;
+  float* Rd = pair + S * nb * kPair;
 
   // ---- load ----
   stage(xs, a.x + ((size_t)p * (N + 1) + k0) * kNX, (ns + 1) * kNX);
@@ -770,19 +820,18 @@ __global__ void __launch_bounds__(kThreads, 5)
   stage(mms, a.mmask + (size_t)p * nb, nb);
   for (int e = tid; e < nb * ns; e += kThreads) {
     const int j = e / ns, s = e - j * ns;
-    cp_async4(lams + j * kStages + s,
-              a.lam + ((size_t)p * nb + j) * N + k0 + s);
+    cp_async4(lams + j * S + s, a.lam + ((size_t)p * nb + j) * N + k0 + s);
     if (HP_OPT) {
       const float* src = a.planes + (((size_t)p * nb + j) * N + k0 + s) * 2;
-      cp_async4(pls + (j * kStages + s) * 2, src);
-      cp_async4(pls + (j * kStages + s) * 2 + 1, src + 1);
+      cp_async4(pls + (j * S + s) * 2, src);
+      cp_async4(pls + (j * S + s) * 2 + 1, src + 1);
     }
   }
   // the slots: read now, needed after the rows (threads < 25 are row
   // threads, which store them when their row is done)
   const float slot = tid < kNLSlots ? a.slots.get(tid, p) : 0.f;
   const int ln = a.lane ? a.lane[p] : a.lane_const;
-  const LaneRows tr = stage_lane(a.track, ln, dyn + image_floats(nc, m));
+  const LaneRows tr = stage_lane(a.track, ln, Rd + nc);
   cp_async_wait_all();
   __syncthreads();
   CLOCK_STAMP(kLoaded);
@@ -807,14 +856,15 @@ __global__ void __launch_bounds__(kThreads, 5)
       if (tid < kNZ) Qd[tid] = fmul(2.f, v);
       if (tid == 11 || tid == 12) Rd[tid - 11] = fmul(2.f, v);
     }
-    if (tid >= 2 && tid < nc) Rd[tid] = c[kPlaneR];
+    for (int e = tid; e < nc; e += kRowThreads)
+      if (e >= 2) Rd[e] = c[kPlaneR];
   } else if (tid < kRowThreads + kPairThreads) {
     for (int e = tid - kRowThreads; e < ns * nb; e += kPairThreads) {
       const int s = e / nb, j = e - s * nb;
       nl_pair<HP_OPT>(a, xs + s * kNX, nxy + (s * nb + j) * 2,
-                      lams[j * kStages + s], mms[j],
-                      HP_OPT ? pls + (j * kStages + s) * 2 : nullptr,
-                      pair + (s * kMaxNb + j) * kPair);
+                      lams[j * S + s], mms[j],
+                      HP_OPT ? pls + (j * S + s) * 2 : nullptr,
+                      pair + (s * nb + j) * kPair);
     }
   } else {
     const int s = tid - (kRowThreads + kPairThreads);
@@ -828,7 +878,7 @@ __global__ void __launch_bounds__(kThreads, 5)
   const float qs0 = g[13], qs2 = g[15];
   const bool trust = a.trust;
   auto pf = [&](int s, int j, int f) {
-    return pair[(s * kMaxNb + j) * kPair + f];
+    return pair[(s * nb + j) * kPair + f];
   };
   // tasks per stage: F's lifted rows 2, G 11, Q 11, R nc, S 11, q 1, r 1,
   // D m, E m, bounds m
@@ -847,13 +897,8 @@ __global__ void __launch_bounds__(kThreads, 5)
       for (int e = 1; e < kNZ; ++e) out[e] = 0.f;
       if (!HP_OPT) {
         // master coupling price on (X, Y): q += -sum_j lam_j g_hat_j
-        float sx = 0.f, sy = 0.f;
-        for (int j = 0; j < nb; ++j) {
-          sx = fadd(sx, pf(s, j, kF0));
-          sy = fadd(sy, pf(s, j, kF1));
-        }
-        out[7] = fadd(0.f, -sx);
-        out[8] = fadd(0.f, -sy);
+        out[7] = fadd(0.f, -neighbour_sum(pair, s, nb, kF0));
+        out[8] = fadd(0.f, -neighbour_sum(pair, s, nb, kF1));
       }
       continue;
     }
@@ -925,7 +970,7 @@ __global__ void __launch_bounds__(kThreads, 5)
       } else if (j < nb) {
         const float gx = pf(s, j, kGx), gy = pf(s, j, kGy);
         const float b = fsub(
-            pair_bound<HP_OPT>(a, pair + (s * kMaxNb + j) * kPair, lim),
+            pair_bound<HP_OPT>(a, pair + (s * nb + j) * kPair, lim),
             fadd(fmul(gx, rd[7]), fmul(gy, rd[8])));
         const bool flag = pf(s, j, kF2) != 0.f;
         if (HP_OPT) {  // own side of the plane, the master's row above
@@ -1266,13 +1311,14 @@ __global__ void __launch_bounds__(kThreads, 4)
   const double* c = a.c;
   const int order = a.order;
   float* img = dyn;
-  const Layout L = layout(nc, m);
+  const Layout L = layout(nc, m, kStages);
 
   // ---- load ----
   stage(xs, a.x + ((size_t)p * (N + 1) + k0) * kNX, ns * kNX);
   stage(us, a.u + ((size_t)p * N + k0) * 2, ns * 2);
   if (tid < kMPCCSlots) g[tid] = a.slots.get(tid, p);
-  const LaneRows tr = stage_lane(a.track, 0, dyn + image_floats(nc, m));
+  const LaneRows tr =
+      stage_lane(a.track, 0, dyn + image_floats(nc, m, kStages));
   cp_async_wait_all();
   __syncthreads();
   CLOCK_STAMP(kLoaded);
@@ -1428,8 +1474,18 @@ cudaError_t fit_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+template <bool HP_OPT, int SF>
+cudaError_t nl_launch_with(const NLArgs& a, dim3 grid, int smem,
+                           cudaStream_t s) {
+  const cudaError_t e = fit_smem(nl_qp_kernel<HP_OPT, SF>, smem);
+  if (e != cudaSuccess) return e;
+  nl_qp_kernel<HP_OPT, SF><<<grid, kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 // ptrs: the inputs (7), the track (5), the outputs (14), the slots (25).
-// The caller's smem_bytes must be the kernel's.
+// The caller's smem_bytes and stages per block (1..kStages) must be the
+// kernel's: the block's image takes kStages stages where it fits.
 int nl_launch(NLArgs& a, void* const* ptrs, const double* consts,
               const double* values, const int* ints, void* stream) {
   a.x = (const float*)ptrs[0];
@@ -1448,29 +1504,29 @@ int nl_launch(NLArgs& a, void* const* ptrs, const double* consts,
   a.track = track_from(ptrs + 7, ints[6]);
   a.lane_const = ints[7];
   const int smem = ints[8];
+  a.S = ints[9];
   a.out = out_from(ptrs + 12);
   for (int i = 0; i < kNLConsts; ++i) a.c[i] = (float)consts[i];
-  slots_from(a.slots, ptrs + 26, ints + 9, values);
+  slots_from(a.slots, ptrs + 26, ints + 10, values);
   a.rcp_m = 1.f / (float)consts[kM];
   a.rcp_I = 1.f / (float)consts[kI];
-  if (a.P <= 0 || a.N <= 0 || a.nb < 0 || a.nb > kMaxNb || a.coupling < 0 ||
+  if (a.P <= 0 || a.N <= 0 || a.nb < 0 || a.coupling < 0 ||
       a.coupling > 2 || (a.coupling == kHpOpt && !a.planes) ||
-      a.track.nseg <= 0)
+      a.track.nseg <= 0 || a.S < 1 || a.S > kStages)
     return (int)cudaErrorInvalidValue;
   const bool hp_opt = a.coupling == kHpOpt;
   const int nc = 2 + (hp_opt ? 2 * a.nb : 0);
   const int m = 4 + (hp_opt ? 3 * a.nb : a.nb);
-  if (smem != smem_bytes(nc, m, a.track.nseg))
+  if (smem != smem_bytes(nc, m, a.track.nseg,
+                         neighbour_floats(a.nb, hp_opt, a.S), a.S))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.N + kStages - 1) / kStages, a.P);
+  const dim3 grid((a.N + a.S - 1) / a.S, a.P);
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
-      hp_opt ? fit_smem(nl_qp_kernel<true>, smem)
-             : fit_smem(nl_qp_kernel<false>, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (hp_opt) nl_qp_kernel<true><<<grid, kThreads, smem, s>>>(a);
-  else nl_qp_kernel<false><<<grid, kThreads, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  if (a.S == kStages)
+    return (int)(hp_opt ? nl_launch_with<true, kStages>(a, grid, smem, s)
+                        : nl_launch_with<false, kStages>(a, grid, smem, s));
+  return (int)(hp_opt ? nl_launch_with<true, 0>(a, grid, smem, s)
+                      : nl_launch_with<false, 0>(a, grid, smem, s));
 }
 
 // ptrs: the inputs (2), the track (5), the outputs (14), the slots (10).
@@ -1487,7 +1543,7 @@ int mpcc_launch(MPCCArgs& a, void* const* ptrs, const double* consts,
   for (int i = 0; i < kMPCCConsts; ++i) a.c[i] = consts[i];
   slots_from(a.slots, ptrs + 21, ints + 5, values);
   if (a.P <= 0 || a.N <= 0 || a.track.nseg <= 0 ||
-      smem != smem_bytes(2, 7, a.track.nseg))
+      smem != smem_bytes(2, 7, a.track.nseg, 0, kStages))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = fit_smem(mpcc_qp_kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1512,7 +1568,7 @@ int mpcc_launch(MPCCArgs& a, void* const* ptrs, const double* consts,
 // (9), r (2), dr (2), qs (3) and the 9 limits (Slots). consts: the NLConst
 // values; values: the slots' numbers; ints: P, N, nb, coupling, trust,
 // order, nseg, the lane a null lane stands for, the dynamic shared memory
-// (smem_bytes), then the slots' strides.
+// (smem_bytes), the stages per block, then the slots' strides.
 extern "C" int cmpc_nl_qp(SQP_QP_PARAMS) {
   NLArgs a;
   return nl_launch(a, SQP_QP_FIELDS);

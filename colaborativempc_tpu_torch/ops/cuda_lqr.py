@@ -88,7 +88,12 @@ def kernel_plan(P: int, N: int, nz: int, nc: int, mr: int,
     resident horizon over a streamed ring, the deeper ring, the plan spread
     over more SMs, and more QPs per block. So the horizon stays resident
     when every QP's horizon fits on the card at once, and streams when a
-    ring saves waves. ``ring`` and ``qps_per_block`` pin a choice."""
+    ring saves waves. ``ring`` and ``qps_per_block`` pin a choice. Raises
+    past 32 states (lane i owns state row i) or where no plan fits one
+    block's shared memory."""
+    if nz > 32:
+        raise ValueError(f"nz={nz}: the ADMM epoch and affine kernels take "
+                         "at most 32 states (one lane per state row)")
     rings = ([ring] if ring is not None else
              [N] + [r for r in _RING_CANDIDATES if r < N])
     qpbs = [qps_per_block] if qps_per_block is not None else [4, 3, 2, 1]
@@ -108,10 +113,14 @@ def kernel_plan(P: int, N: int, nz: int, nc: int, mr: int,
                 best_key = key
                 best = KernelPlan(qpb, min(R, N), smem, waves)
     if best is None:
-        raise ValueError(f"no launch plan fits P={P}, N={N}, nz={nz}, "
-                         f"nc={nc}, mr={mr}, ring={ring}, "
-                         f"qps_per_block={qps_per_block} in "
-                         f"{SMEM_PER_BLOCK} bytes of shared memory")
+        least = 4 * min(qp_floats(N, R, nz, nc, mr) for R in rings)
+        raise ValueError(
+            f"no launch plan fits P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}, "
+            f"ring={ring}, qps_per_block={qps_per_block}: one QP takes at "
+            f"least {least} bytes of shared memory (w, y and kff over the "
+            f"horizon and the shortest ring), more than the "
+            f"{SMEM_PER_BLOCK} a block has (NL hp_opt with 32 agents, "
+            f"nc=64 and mr=97, is such a QP at N=125)")
     return best
 
 
@@ -279,9 +288,6 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
     nc, mr = data.G.shape[-1], data.lo.shape[-1]
     if epoch_len < 1:
         raise ValueError(f"epoch_len must be >= 1, got {epoch_len}")
-    if max(nz, nc, mr) > 32:
-        raise ValueError(f"nz={nz}, nc={nc}, mr={mr}: the kernel maps each "
-                         "onto one warp's 32 lanes")
     row = (P, N, mr)
     shapes = dict(F=(P, N, nz, nz), G=(P, N, nz, nc), d=(P, N, nz),
                   K=(P, N, nc, nz), Quu_inv=(P, N, nc, nc),
@@ -342,29 +348,43 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def epoch_data_width(nz: int, mr: int) -> int:
-    """Floats of a row in the kernel's shared memory (``data_width`` of
-    ``csrc/epoch_data.cu``): 12 when nz, mr <= 12, else 32."""
-    return 12 if nz <= 12 and mr <= 12 else 32
+EPOCH_DATA_REG_NC = 8   # csrc/epoch_data.cu kRegNC
+
+
+def epoch_data_widths(nz: int, nc: int, mr: int):
+    """Floats of a row in the kernel's shared memory (``width_z`` and
+    ``width_r`` of ``csrc/epoch_data.cu``): a vector of nz entries and one
+    of mr entries. Up to 32 in every dimension both 12 (nz, mr <= 12) or
+    32; beyond, 12 (nz <= 12) or nz, and mr, each rounded up to whole
+    float4s."""
+    if max(nz, nc, mr) <= 32:
+        w = 12 if nz <= 12 and mr <= 12 else 32
+        return w, w
+    return (12 if nz <= 12 else _round4(nz)), _round4(mr)
 
 
 def epoch_data_stage_floats(nz: int, nc: int, mr: int) -> int:
     """Floats of one stage in a chunk slot (``data_stage_floats`` of the
-    source): F and G transposed, d's two halves, D and E transposed and
-    their weighted copies (a row of :func:`epoch_data_width` each), Q, R,
-    S, lo, hi and both soft weights, every field on whole float4s."""
-    return ((3 * (nz + nc) + 2) * epoch_data_width(nz, mr) + _round4(nz * nz)
+    source): F and G transposed and d's two halves (rows of nz entries),
+    D and E transposed and their weighted copies (rows of mr entries), a
+    row of :func:`epoch_data_widths` each; Q, R, S, lo, hi and both soft
+    weights, every field on whole float4s."""
+    wz, wr = epoch_data_widths(nz, nc, mr)
+    return ((nz + nc + 2) * wz + 2 * (nz + nc) * wr + _round4(nz * nz)
             + _round4(nc * nc) + _round4(nz * nc) + 4 * _round4(mr))
 
 
 def epoch_data_floats(nz: int, nc: int, mr: int, chunk: int) -> int:
     """Floats of one block's shared memory (``data_block_floats`` of the
     source): two slots of ``chunk`` stages, P, the two halves of its rows
-    and (P F)' (a row each per row or column), (P G)', Qxx, Qxu, Quu and
-    rho_scale."""
+    and (P F)' (a row each per row or column), (P G)', Qxx, Qxu, Quu,
+    rho_scale and, above ``EPOCH_DATA_REG_NC`` controls (the factor in
+    shared memory), the reciprocals of the factor's diagonal."""
+    wz, _ = epoch_data_widths(nz, nc, mr)
     return (2 * chunk * epoch_data_stage_floats(nz, nc, mr)
-            + (4 * nz + nc) * epoch_data_width(nz, mr) + _round4(nz * nz)
-            + _round4(nz * nc) + _round4(nc * nc) + _round4(mr))
+            + (4 * nz + nc) * wz + _round4(nz * nz)
+            + _round4(nz * nc) + _round4(nc * nc) + _round4(mr)
+            + (_round4(nc) if nc > EPOCH_DATA_REG_NC else 0))
 
 
 def _warps(n: int) -> int:
@@ -386,7 +406,8 @@ def epoch_data_registers(nz: int, nc: int, mr: int) -> int:
     """Registers per thread the kernel's instantiation for these dimensions
     may use at most (its ``__launch_bounds__``): 72 for nc <= 2, 96 for
     nc <= 8 (rows of 12 floats), 64 otherwise."""
-    if epoch_data_width(nz, mr) == 12 and nc <= 8:
+    if max(nz, nc, mr) <= 32 and epoch_data_widths(nz, nc, mr)[0] == 12 \
+            and nc <= 8:
         return 72 if nc <= 2 else 96
     return 64
 
@@ -397,13 +418,11 @@ def epoch_data_plan(P: int, N: int, nz: int, nc: int, mr: int,
     :func:`epoch_data_threads` threads per block, at most
     :func:`epoch_data_registers` registers each; among chunks of 8, 4, 2
     and 1 stages (at most N) it takes the fewest waves, then the deeper
-    chunk. Raises on dimensions
-    the kernel does not take (nz, nc, mr in 1..32, P, N >= 1)."""
-    if not (P >= 1 and N >= 1 and 1 <= nz <= 32 and 1 <= nc <= 32
-            and 1 <= mr <= 32):
+    chunk. Raises where P, N, nz, nc or mr is below 1, or where the
+    block's shared memory does not fit even one stage per chunk."""
+    if min(P, N, nz, nc, mr) < 1:
         raise ValueError(f"P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}: the "
-                         "epoch-data kernel takes P, N >= 1 and nz, nc, mr "
-                         "in 1..32")
+                         "epoch-data kernel takes P, N, nz, nc, mr >= 1")
     threads = epoch_data_threads(nz, nc)
     regs = epoch_data_registers(nz, nc, mr)
     best = None
@@ -419,6 +438,12 @@ def epoch_data_plan(P: int, N: int, nz: int, nc: int, mr: int,
                              -(-P // (sms * per_sm)))
         if best is None or plan.waves < best.waves:
             best = plan
+    if best is None:
+        raise ValueError(
+            f"nz={nz}, nc={nc}, mr={mr}: the epoch-data kernel's block "
+            f"takes {4 * epoch_data_floats(nz, nc, mr, 1)} bytes of shared "
+            f"memory at one stage per chunk, more than the "
+            f"{SMEM_PER_BLOCK} a block has")
     return best
 
 

@@ -49,7 +49,6 @@ from colaborativempc_tpu_torch.ops.cuda_lqr import (
 from colaborativempc_tpu_torch.ops.lqr import LQRCost, LQRDynamics
 
 NX, NU, NZ, NC = 9, 2, 11, 2
-MAX_NEIGHBOURS = 8       # the kernel's coupling lanes and record size
 SOFT_WEIGHT_CAP = 1e4    # planners/lpv.py SOFT_WEIGHT_CAP
 LOW_VEL_THRESH = 0.2     # dynamics/bicycle.py LOW_VEL_THRESH
 DIST_EPS = 1e-6          # planners/nl.py _EPS
@@ -63,7 +62,7 @@ COUPLINGS = ("eu", "hp", "hp_opt")
 # matrices' layout (the NL build's are row-major, torch.func's MPCC
 # Jacobians column-major) and the batch size (problems x stages), read off
 # torch 2.11.0+cu128, CUDA 12.8, NVIDIA H100 80GB HBM3 by
-# scripts/matvec_order.py: HALVES, two fused multiply-add chains from zero
+# scripts/library_order.py --parts matvec: HALVES, two fused multiply-add chains from zero
 # over [0, ceil(n/2)) and the rest; EVEN_ODD, chains over the even and the
 # odd terms; QUARTERS, chains over [0, 4), [4, 8), [8, ...) summed as a
 # butterfly. Each range below is (first batch, last batch, order); the
@@ -143,10 +142,14 @@ def mpcc_traffic(P: int, N: int, lanes: int = 1, nseg: int = 1):
 # --- the kernels' arguments -------------------------------------------------
 
 NL_SLOTS, MPCC_SLOTS = 16 + 9, 10   # csrc/sqp_qp.cu kNLSlots, kMPCCSlots
-# csrc/sqp_qp.cu kThreads, kStages, kMaxSeg: a block of 256 threads builds
-# 8 stages of one problem; a lane's track rows are staged in shared memory
-# up to 2048 segments
-THREADS, STAGES_PER_BLOCK, MAX_STAGED_SEGMENTS = 256, 8, 2048
+# csrc/sqp_qp.cu kThreads, kStages, kMaxSeg, kPair: a block of 256 threads
+# builds up to 8 stages of one problem (MPCC always 8); a lane's track rows
+# are staged in shared memory up to 2048 segments; each (stage, neighbour)
+# pair keeps 9 scalars
+THREADS, STAGES_PER_BLOCK, MAX_STAGED_SEGMENTS, PAIR_FLOATS = 256, 8, 2048, 9
+# the dynamic shared memory a block may take beside the kernels' static
+# arrays (under 1 KB)
+SQP_SMEM_LIMIT = 232_448 - 2_048
 
 
 class SqpPlan(NamedTuple):
@@ -156,21 +159,39 @@ class SqpPlan(NamedTuple):
     smem_bytes: int   # dynamic shared memory per block
 
 
-def image_floats(nc: int, m: int) -> int:
+def image_floats(nc: int, m: int, stages: int = STAGES_PER_BLOCK) -> int:
     """Floats of a block's output image in shared memory (the source's
-    ``image_floats``): every StageQP field of its 8 stages."""
-    return STAGES_PER_BLOCK * (2 * NZ * NZ + 2 * NZ + 2 * NZ * nc + nc * nc
-                               + nc + m * (NZ + nc + 4))
+    ``image_floats``): every StageQP field of its stages."""
+    return stages * (2 * NZ * NZ + 2 * NZ + 2 * NZ * nc + nc * nc + nc
+                     + m * (NZ + nc + 4))
 
 
-def sqp_qp_plan(P: int, N: int, nc: int, m: int, nseg: int) -> SqpPlan:
-    """The launch of one build: the image and, where they fit, the lane's
-    three track rows in dynamic shared memory (the source's
-    ``smem_bytes``)."""
+def neighbour_floats(nb: int, hp_opt: bool, stages: int) -> int:
+    """Floats of the NL kernel's neighbour arrays (the source's
+    ``neighbour_floats``): per stage and neighbour its position, price and
+    the pair's scalars (hp_opt: its plane), the master flags and the cost's
+    R diagonal."""
+    return (nb * (stages * (3 + PAIR_FLOATS) + 1)
+            + (2 * nb * stages + 2 * nb if hp_opt else 0) + 2)
+
+
+def sqp_qp_plan(P: int, N: int, nc: int, m: int, nseg: int,
+                nb=None, hp_opt: bool = False) -> SqpPlan:
+    """The launch of one build: the image, the NL neighbour arrays (``nb``
+    neighbours; ``None`` for MPCC) and, where they fit, the lane's three
+    track rows in dynamic shared memory (the source's ``smem_bytes``). 8
+    stages per block; an NL build takes the most that fit in
+    ``SQP_SMEM_LIMIT`` bytes, and raises where one stage does not fit."""
     staged = 3 * nseg if nseg <= MAX_STAGED_SEGMENTS else 0
-    return SqpPlan(THREADS, STAGES_PER_BLOCK,
-                   -(-N // STAGES_PER_BLOCK) * P,
-                   4 * (image_floats(nc, m) + staged))
+    for S in range(STAGES_PER_BLOCK, 0 if nb is not None else 7, -1):
+        extra = 0 if nb is None else neighbour_floats(nb, hp_opt, S)
+        smem = 4 * (image_floats(nc, m, S) + extra + staged)
+        if smem <= SQP_SMEM_LIMIT:
+            return SqpPlan(THREADS, S, -(-N // S) * P, smem)
+    raise ValueError(
+        f"nc={nc}, m={m}, {nb} neighbours, {nseg} track segments: one stage "
+        f"of the build takes {smem} bytes of shared memory, more than the "
+        f"{SQP_SMEM_LIMIT} a block may take")
 
 
 def nl_fields(gains, limits):
@@ -378,9 +399,6 @@ def _nl_args(track, gains, limits, model, N, dt, x_bar, u_bar, lambdas,
     Returns the arguments of ``cmpc_nl_qp`` up to the stream, the outputs,
     the device and the tensors the pointers point into."""
     nb = neigh_xy.shape[-2]
-    if nb > MAX_NEIGHBOURS:
-        raise ValueError(f"{nb} neighbours: the kernel takes at most "
-                         f"{MAX_NEIGHBOURS}")
     dev = _cuda_device(x_bar)
     P = x_bar.shape[0]
     nc, m = nl_shape(nb, coupling)
@@ -401,13 +419,14 @@ def _nl_args(track, gains, limits, model, N, dt, x_bar, u_bar, lambdas,
                       planes0 if hp_opt else None, lane_t, *tr, *outs], sp)
     if u_trust is not None:
         u_trust = tuple(float(v) for v in u_trust)
+    plan = sqp_qp_plan(P, N, nc, m, nseg, nb, hp_opt)
     ints = (P, N, nb, COUPLINGS.index(coupling), int(u_trust is not None),
             matvec_order(P * N, "row"), nseg,
-            0 if lane_t is not None else ln,
-            sqp_qp_plan(P, N, nc, m, nseg).smem_bytes, *ss)
+            0 if lane_t is not None else ln, plan.smem_bytes, plan.stages,
+            *ss)
     args = (ptrs, _nl_consts_array(model, float(dt), coupling, u_trust),
             _doubles(sv), _ints(ints))
-    return args, outs, dev, alive + [lane_t, tr]
+    return args, outs, dev, alive + [lane_t, tr], plan
 
 
 def _mpcc_args(track, gains, p, N, dt, x_bar, u_bar, bounds):
@@ -420,12 +439,12 @@ def _mpcc_args(track, gains, p, N, dt, x_bar, u_bar, bounds):
     sp, ss, sv, alive = pack_slots(mpcc_fields(gains), P, dev)
     tr, nseg = _track_args(track, dev)
     outs = _outputs(P, N, NC, MPCC_ROWS, dev)
-    ints = (P, N, matvec_order(P * N, "col"), nseg,
-            sqp_qp_plan(P, N, NC, MPCC_ROWS, nseg).smem_bytes, *ss)
+    plan = sqp_qp_plan(P, N, NC, MPCC_ROWS, nseg)
+    ints = (P, N, matvec_order(P * N, "col"), nseg, plan.smem_bytes, *ss)
     args = (_pointers([x_bar, u_bar, *tr, *outs], sp),
             _mpcc_consts_array(p, float(dt), bounds),
             _doubles(sv), _ints(ints))
-    return args, outs, dev, alive + [tr]
+    return args, outs, dev, alive + [tr], plan
 
 
 def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
@@ -436,7 +455,7 @@ def nl_qp_batched(track, gains, limits, model, N: int, dt, x_bar, u_bar,
     ``planners/nl.py build_nl_qp`` (float32, contiguous CUDA tensors;
     ``planes0`` for hp_opt only). Limits are taken in float32."""
     from colaborativempc_tpu_torch.ops import _build
-    args, outs, dev, alive = _nl_args(
+    args, outs, dev, alive, _ = _nl_args(
         track, gains, limits, model, N, dt, x_bar, u_bar, lambdas, neigh_xy,
         master_mask, u_trust, coupling, lane, planes0)
     lib = _build.load()
@@ -459,8 +478,8 @@ def mpcc_qp_batched(track, gains, p, N: int, dt, x_bar, u_bar,
     ``planners/mpcc.py build_mpcc_qp`` (float32, contiguous CUDA
     tensors)."""
     from colaborativempc_tpu_torch.ops import _build
-    args, outs, dev, alive = _mpcc_args(track, gains, p, N, dt, x_bar, u_bar,
-                                        bounds)
+    args, outs, dev, alive, _ = _mpcc_args(track, gains, p, N, dt, x_bar,
+                                           u_bar, bounds)
     lib = _build.load()
     ptrs, *rest = args
     with _on(dev):
@@ -487,13 +506,12 @@ def sqp_qp_clocked(family: str, source=None, **kw):
     if family == "nl":
         kw = dict(dict(u_trust=(0.06, 0.6), coupling="eu", lane=0,
                        planes0=None), **kw)
-        args, outs, dev, alive = _nl_args(**kw)
+        args, outs, dev, alive, plan = _nl_args(**kw)
     else:
-        args, outs, dev, alive = _mpcc_args(**kw)
+        args, outs, dev, alive, plan = _mpcc_args(**kw)
     lib = _build.load_sqp_qp_clocks(source)
-    P, N = kw["x_bar"].shape[0], kw["N"]
     n = lib.cmpc_sqp_qp_clock_stamps()
-    blocks = P * ((N + STAGES_PER_BLOCK - 1) // STAGES_PER_BLOCK)
+    blocks = plan.blocks
     clocks = torch.full((blocks, n, 3), -1, dtype=torch.int64, device=dev)
     entry = (lib.cmpc_nl_qp_clocked if family == "nl"
              else lib.cmpc_mpcc_qp_clocked)

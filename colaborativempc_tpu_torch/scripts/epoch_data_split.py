@@ -55,7 +55,8 @@ from colaborativempc_tpu_torch.scripts.clock_split import (
 # (P, N, nz, nc, mr): the LPV headline, a ragged few QPs, the long horizon
 # at the headline's batch and at one NL fleet's 3 agents, the NL
 # Monte-Carlo's hp_opt QPs (64 fleets x 3 agents), the MPCC race and the
-# MPCC battery
+# MPCC battery; then the NL Monte-Carlo's hp_opt QPs at 5, 8 and 9 agents
+# (64 fleets; nc = 10, 16 and 18)
 SHAPES = {
     "headline": (768, 20, 11, 2, 6),
     "p7": (7, 20, 11, 2, 6),
@@ -64,6 +65,9 @@ SHAPES = {
     "nl_hp_opt": (192, 20, 11, 6, 10),
     "mpcc_p1_n60": (1, 60, 11, 2, 7),
     "mpcc_p18_n20": (18, 20, 11, 2, 7),
+    "hp_opt_5_agents": (320, 20, 11, 10, 16),
+    "hp_opt_8_agents": (512, 20, 11, 16, 25),
+    "hp_opt_9_agents": (576, 20, 11, 18, 28),
 }
 
 

@@ -43,7 +43,9 @@ Monte-Carlo's 192 QPs for each coupling, one fleet at N=125, per-problem
 lanes, the branch edges with a NaN, either side of each boundary of the
 batched matrix-vector order, hp_opt at 4, 5 and 9 agents; the MPCC race,
 the battery and the slip floor's edges; a build of each family on a
-fitted track of 3000 segments, more than the kernels stage. The inputs are
+fitted track of 3000 segments, more than the kernels stage; the large
+fleets (eu 10 agents, hp_opt 11, 16 and 32). Against a checkout that
+predates the large fleets, ``--shapes`` names the others. The inputs are
 :func:`nl_build_args` / :func:`mpcc_build_args`, from a seed.
 """
 
@@ -86,6 +88,13 @@ SHAPES = {
     "nl_hp_opt_9_agents": ("nl", 144, 9, 20, dict(coupling="hp_opt")),
     # a track of more segments than the kernels stage in shared memory
     "nl_eu_3000_segments": ("nl", 48, 3, 20, dict(segments=3000)),
+    # large fleets: 9 neighbours (eu), 10 and 15 (hp_opt), 31 (hp_opt at 4
+    # stages per block); a checkout that predates them cannot build them,
+    # so turns against one name the other shapes (--shapes)
+    "nl_eu_10_agents": ("nl", 20, 10, 20, {}),
+    "nl_hp_opt_11_agents": ("nl", 22, 11, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_16_agents": ("nl", 32, 16, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_32_agents": ("nl", 64, 32, 20, dict(coupling="hp_opt")),
     "mpcc_p1_n60": ("mpcc", 1, 0, 60, {}),
     "mpcc_p18_n20": ("mpcc", 18, 0, 20, {}),
     "mpcc_edges": ("mpcc", 2, 0, 20, dict(edges=True)),

@@ -239,6 +239,10 @@ def test_cuda_nl_rollout_matches_cpu(cuda, coupling, sweep, tol):
     (7, 20, 2, 6, 20, None, 4),       # the last block one warp short
     (37, 20, 2, 6, 1, None, None),    # epoch_len = 1
     (37, 20, 6, 10, 20, 4, None),     # hp_opt rows, streamed
+    (7, 20, 2, 35, 20, None, None),   # LPV 32 agents: rows past a warp
+    (7, 20, 33, 33, 20, 4, None),     # controls and rows of 33, streamed
+    (5, 20, 34, 52, 20, 4, None),     # NL hp_opt 17 agents, streamed
+    (3, 20, 64, 97, 20, 1, None),     # NL hp_opt 32 agents, ring of 1
 ])
 def test_cuda_epoch_kernel_plans_match_plain_twin(cuda, P, N, nc, mr,
                                                   epoch_len, ring, qpb):
@@ -260,6 +264,80 @@ def test_cuda_epoch_kernel_plans_match_plain_twin(cuda, P, N, nc, mr,
         close(g, r, 1e-3)
     for g, r in zip(got[4:], ref[4:]):
         close(g, r, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_kernel_at_hp_opt_16_agents_n125_as_near_float64(cuda):
+    """NL hp_opt's 16 agents at N=125 (nc=32, mr=49, a streamed ring):
+    z, c, w, y within 1e-3 of the float32 twin; the residuals, where the
+    float32 twin itself lies ~1.5e-4 from the twin in float64 (over the
+    1e-4 the other shapes are held to), no farther from the float64 twin
+    than 1.5 times the float32 twin is."""
+    qp, z0, w0, y0 = problems(62, P=8, N=125, nc=32, mr=49)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    kw = dict(epoch_len=20, alpha=1.6)
+    before = cuda_lqr.admm_epoch_batched.launches
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lqr.admm_epoch_batched.launches == before + 1
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0, **kw)
+    ref64 = cuda_lqr.admm_epoch_batched_plain(
+        type(data)(*(t.double() for t in data)), z0.double(), w0.double(),
+        y0.double(), **kw)
+    for g, r in zip(got[:4], ref[:4]):
+        close(g, r, 1e-3)
+    for g, r, r64 in zip(got[4:], ref[4:], ref64[4:]):
+        kernel = float((g.cpu().double() - r64).abs().max())
+        plain = float((r.double() - r64).abs().max())
+        assert kernel <= 1.5 * plain, (kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [33, 52])
+def test_cuda_affine_kernel_matches_plain_twin_past_32_controls(cuda, nc):
+    """The affine kernel with more controls than a warp has lanes: each
+    lane takes controls i, i + 32, ..."""
+    qp, z0, _, _ = problems(58 + nc, P=9, N=20, nc=nc, mr=8)
+    d = admm_epoch_inputs(qp)
+    args = (d.F, d.G, d.d, d.K, d.Quu_inv, d.Qxu, d.m, d.q, d.r, z0)
+    got = cuda_lqr.lqr_affine_solve_batched(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    ref = cuda_lqr.lqr_affine_solve_batched_plain(*args)
+    close(got[0], ref[0], 5e-5)
+    close(got[1], ref[1], 5e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_where_no_plan_fits(cuda):
+    """No fallback past the block's shared memory: the epoch kernel at NL
+    hp_opt's 32 agents and N=125 (nc=64, mr=97), the epoch data at 1200
+    rows and the NL build at 70 hp_opt neighbours raise a ValueError that
+    names the limit, and launch nothing."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import nl
+    qp, z0, w0, y0 = problems(59, P=1, N=125, nc=64, mr=97)
+    data = to(admm_epoch_inputs(qp), cuda)
+    before = cuda_lqr.admm_epoch_batched.launches
+    with pytest.raises(ValueError, match="no launch plan fits"):
+        cuda_lqr.admm_epoch_batched(data, z0.to(cuda), w0.to(cuda),
+                                    y0.to(cuda), epoch_len=5)
+    assert cuda_lqr.admm_epoch_batched.launches == before
+    big, _, _, _ = problems(60, P=1, N=2, nc=2, mr=1200)
+    before = cuda_lqr.epoch_data_batched.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_epoch_inputs(to(big, cuda))
+    assert cuda_lqr.epoch_data_batched.launches == before
+    args = sqp_build_case(cuda, "nl_hp_opt_9_agents")[1]
+    P, N = args["x_bar"].shape[0], args["N"]
+    args["neigh_xy"] = torch.zeros((P, N + 1, 70, 2), device=cuda)
+    args["lambdas"] = torch.zeros((P, 70, N), device=cuda)
+    args["master_mask"] = torch.zeros((P, 70), device=cuda)
+    args["planes0"] = torch.zeros((P, 70, N, 2), device=cuda)
+    before = cuda_sqp.nl_qp_batched.launches
+    with pytest.raises(ValueError, match="one stage of the build takes"):
+        nl.build_nl_qp(**args)
+    assert cuda_sqp.nl_qp_batched.launches == before
 
 
 @pytest.mark.cuda
@@ -388,6 +466,18 @@ EPOCH_DATA_CASES = {
     "nl_hp_opt_4_agents": (256, 20, 11, 8, 13, "random"),
     "nl_hp_opt_5_agents": (320, 20, 11, 10, 16, "random"),
     "nz16": (48, 20, 16, 2, 6, "random"),
+    # the large fleets: rows past 32 with the factor in registers (NL eu
+    # and LPV), the factor in shared memory in the libraries' panels (NL
+    # hp_opt from 9 agents), either side of 32 controls and rows
+    "nl_eu_10_agents": (20, 20, 11, 2, 13, "random"),
+    "lpv_32_agents": (256, 20, 11, 2, 35, "random"),
+    "nl_hp_opt_9_agents": (18, 20, 11, 18, 28, "random"),
+    "nl_hp_opt_11_agents": (22, 20, 11, 22, 34, "random"),
+    "nl_hp_opt_16_agents": (32, 20, 11, 32, 49, "random"),
+    "nl_hp_opt_17_agents": (34, 20, 11, 34, 52, "random"),
+    "nl_hp_opt_32_agents": (64, 20, 11, 64, 97, "random"),
+    "nc32_mr32": (7, 20, 11, 32, 32, "random"),
+    "nc33_mr33": (7, 20, 11, 33, 33, "random"),
 }
 
 
@@ -427,6 +517,39 @@ def test_cuda_epoch_data_kernel_matches_plain_version(cuda, case):
         assert bool((got.rv == 0).any())
     assert bits_differing(got, ref) == 0
     close_to_scale(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_data_at_hp_opt_11_agents_in_704_fleets_as_near_float64(
+        cuda):
+    """NL hp_opt's 11 agents at the Monte-Carlo's 64 scenarios (704 QPs,
+    N=20: 14,080 stage matrices of 22 controls), where the card's batched
+    solve takes another order than the kernel follows: each field within
+    1e-4 of its scale of the float32 plain version, and no farther from
+    the float64 plain version (as a share of the field's scale) than 1.5
+    times the float32 plain version is."""
+    qp, _, _, _ = problems(81, P=704, N=20, nc=22, mr=34)
+    qp = to(qp, cuda)
+    before = cuda_lqr.epoch_data_batched.launches
+    got = admm_epoch_inputs(qp, 10.0, 1.3)
+    torch.cuda.synchronize()
+    assert cuda_lqr.epoch_data_batched.launches == before + 1
+    ref = admm_epoch_inputs_plain(qp, 10.0, 1.3)
+    close_to_scale(got, ref, 1e-4)
+    ref64 = admm_epoch_inputs_plain(
+        type(qp)(*(type(x)(*(t.double() for t in x)) if isinstance(x, tuple)
+                   else None if x is None else x.double() for x in qp)),
+        10.0, 1.3)
+    share = {"kernel": 0.0, "plain": 0.0}
+    for g, r, r64 in zip(got, ref, ref64):
+        fin = torch.isfinite(r64)
+        if not bool(fin.any()):
+            continue
+        scale = max(1.0, float(r64[fin].abs().max()))
+        for name, x in (("kernel", g), ("plain", r)):
+            share[name] = max(share[name], float(
+                (x[fin].double() - r64[fin]).abs().max()) / scale)
+    assert share["kernel"] <= 1.5 * share["plain"], share
 
 
 @pytest.mark.cuda
@@ -548,7 +671,7 @@ SQP_CASES = {
     "mpcc_p67": ("mpcc", 67, 0, 20, {}),
     "mpcc_p142": ("mpcc", 142, 0, 20, {}),
     "mpcc_p143": ("mpcc", 143, 0, 20, {}),
-    # hp_opt at 4 and 5 agents and at the kernel's 8 neighbours
+    # hp_opt at 4, 5 and 9 agents (3, 4 and 8 neighbours)
     "nl_hp_opt_4_agents": ("nl", 64, 4, 20, dict(coupling="hp_opt")),
     "nl_hp_opt_5_agents": ("nl", 80, 5, 20, dict(coupling="hp_opt")),
     "nl_hp_opt_9_agents": ("nl", 36, 9, 20, dict(coupling="hp_opt")),
@@ -568,6 +691,16 @@ SQP_CASES = {
     # memory: the lookups read the track's tables where they lie
     "nl_eu_3000_segments": ("nl", 12, 3, 20, dict(segments=3000)),
     "mpcc_3000_segments": ("mpcc", 4, 0, 20, dict(segments=3000)),
+    # more neighbours: eu's price summed in torch.sum's order (4 agents:
+    # 3 terms), past the former 8 neighbours (eu 10 and 32 agents, hp
+    # 10, hp_opt 11 and 16), and fewer stages per block (hp_opt 32 agents)
+    "nl_eu_4_agents": ("nl", 16, 4, 20, {}),
+    "nl_eu_10_agents": ("nl", 20, 10, 20, {}),
+    "nl_hp_10_agents": ("nl", 20, 10, 20, dict(coupling="hp")),
+    "nl_eu_32_agents": ("nl", 64, 32, 20, {}),
+    "nl_hp_opt_11_agents": ("nl", 22, 11, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_16_agents": ("nl", 32, 16, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_32_agents": ("nl", 64, 32, 20, dict(coupling="hp_opt")),
 }
 
 

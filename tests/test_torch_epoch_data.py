@@ -390,14 +390,18 @@ def test_library_order_emulations_compute_the_right_values(n):
 def test_split_script_imports_here_and_raises_without_a_card():
     """The split script imports on the CPU, names the shapes it reads (the
     LPV headline, P=7, N=125 at 768 QPs and at one fleet's 3, NL hp_opt,
-    MPCC P=1/N=60 and P=18/N=20) and raises without a card, before it
+    MPCC P=1/N=60 and P=18/N=20, and NL hp_opt's 5, 8 and 9 agents at the
+    Monte-Carlo's 64 fleets) and raises without a card, before it
     builds."""
     from colaborativempc_tpu_torch.scripts import epoch_data_split
     assert epoch_data_split.SHAPES == {
         "headline": (768, 20, 11, 2, 6), "p7": (7, 20, 11, 2, 6),
         "n125": (768, 125, 11, 2, 6), "n125_fleet": (3, 125, 11, 2, 6),
         "nl_hp_opt": (192, 20, 11, 6, 10),
-        "mpcc_p1_n60": (1, 60, 11, 2, 7), "mpcc_p18_n20": (18, 20, 11, 2, 7)}
+        "mpcc_p1_n60": (1, 60, 11, 2, 7), "mpcc_p18_n20": (18, 20, 11, 2, 7),
+        "hp_opt_5_agents": (320, 20, 11, 10, 16),
+        "hp_opt_8_agents": (512, 20, 11, 16, 25),
+        "hp_opt_9_agents": (576, 20, 11, 18, 28)}
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would run")
     with pytest.raises(RuntimeError, match="needs a CUDA device"):

@@ -43,8 +43,8 @@ from colaborativempc_tpu_torch.runtime import (
     battery, ocd, racing, simulate,
 )
 from colaborativempc_tpu_torch.scripts import (
-    compare_reference, eval_lpv_model, experiment_battery, lpv_main,
-    monte_carlo, mpcc_main, nl_main, stress_study,
+    compare_reference, eval_lpv_model, experiment_battery, fleet_f64,
+    lpv_main, monte_carlo, mpcc_main, nl_main, stress_study,
 )
 
 # a small fixed thread count: the suite runs several worker processes on
@@ -183,6 +183,25 @@ def test_script_main_defaults_to_cuda_and_raises_without_a_card(
     assert not (tmp_path / "out").exists()
 
 
+def test_fleet_f64_ratios_per_scenario_and_script_without_a_card(
+        monkeypatch):
+    """``scripts/fleet_f64.py``'s ratios (phase 22's hold on LPV 32
+    agents): of the max over the batch and of the mean over the scenarios
+    of each one's max |dx| from float64; its main needs a card."""
+    f64 = torch.zeros(2, 3, 4)
+    card, cpu = f64.clone(), f64.clone()
+    card[0, 1, 2], card[1, 0, 0] = 0.3, -0.1    # per scenario 0.3, 0.1
+    cpu[0, 2, 3], cpu[1, 2, 1] = 0.1, 0.1       # per scenario 0.1, 0.1
+    r = fleet_f64.f64_ratios(card, cpu, f64.double())
+    assert r["card_vs_f64"] == pytest.approx(0.3)
+    assert r["ratio_max"] == pytest.approx(3.0)
+    assert r["card_vs_f64_mean"] == pytest.approx(0.2)
+    assert r["ratio_mean"] == pytest.approx(2.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        fleet_f64.main(["--seeds", "0"])
+
+
 # --- launch plans -----------------------------------------------------------
 
 # (P, N, nz, nc, mr): the LPV headline epoch, the NL B=64 Monte-Carlo, the
@@ -238,9 +257,24 @@ def test_kernel_plan_pins_a_ring_and_a_ragged_block():
         kernel_plan(4, 1000, 11, 2, 6, ring=1000)
 
 
+@pytest.mark.parametrize("nz, nc, mr, N, match", [
+    (33, 2, 6, 20, "nz=33"),              # one lane per state row
+    (11, 64, 97, 125, "no launch plan fits"),  # NL hp_opt 32 agents
+])
+def test_kernel_plan_refuses_what_the_epoch_kernel_does_not_take(
+        nz, nc, mr, N, match):
+    """Past 32 states, and where one QP's w, y and kff over the horizon and
+    the shortest ring pass one block's shared memory, the plan raises a
+    ValueError that names the dimensions; the wrappers never fall back."""
+    with pytest.raises(ValueError, match=match):
+        kernel_plan(8, N, nz, nc, mr)
+
+
 # (P, N, nz, nc, mr) of the epoch-data kernel: the LPV headline, NL hp_opt,
-# the MPCC race and battery, the long horizon, a batch past one wave, and
-# the widest state the kernel takes (more entries than a block's threads).
+# the MPCC race and battery, the long horizon, a batch past one wave, a
+# state of 32 (more entries than a block's threads), and the large fleets:
+# LPV 32 agents (mr = 35), NL hp_opt 11, 16, 17 and 32 agents (nc = 22,
+# 32, 34, 64; mr = 34, 49, 52, 97), hp_opt 16 at N=125 and a state of 40.
 DATA_PLAN_SHAPES = {
     "lpv_headline": (768, 20, 11, 2, 6),
     "hp_opt": (768, 20, 11, 6, 10),
@@ -249,6 +283,13 @@ DATA_PLAN_SHAPES = {
     "n125": (768, 125, 11, 2, 6),
     "p4096": (4096, 20, 11, 2, 6),
     "nz32": (64, 20, 32, 32, 32),
+    "lpv_32_agents": (256, 20, 11, 2, 35),
+    "hp_opt_11_agents": (22, 20, 11, 22, 34),
+    "hp_opt_16_agents": (32, 20, 11, 32, 49),
+    "hp_opt_17_agents": (34, 20, 11, 34, 52),
+    "hp_opt_32_agents": (64, 20, 11, 64, 97),
+    "hp_opt_16_agents_n125": (32, 125, 11, 32, 49),
+    "nz40": (8, 20, 40, 4, 12),
 }
 
 
@@ -299,25 +340,48 @@ def test_epoch_data_plan_threads_smem_and_waves(name):
         assert plan.chunk == 8 and plan.waves == 8
     if name == "nz32":
         assert plan.threads == 1024 and plan.chunk == 2
+    if name == "hp_opt_32_agents":
+        assert (plan.threads, plan.chunk, plan.waves) == (1024, 1, 1)
 
 
 def test_epoch_data_floats_mirror_the_source():
-    """``epoch_data_stage_floats`` and ``epoch_data_floats`` are the
-    source's ``data_stage_floats`` and ``data_block_floats``: their return
-    expressions, read from ``csrc/epoch_data.cu``, give the same counts."""
+    """``epoch_data_widths``, ``epoch_data_stage_floats`` and
+    ``epoch_data_floats`` are the source's ``width_z``, ``width_r``,
+    ``data_stage_floats`` and ``data_block_floats``: their return
+    expressions, read from ``csrc/epoch_data.cu``, give the same counts, up
+    to 32 in every dimension and beyond; the widths are 12 or 32 floats up
+    to 32 in every dimension, nz (12 up to 12) and mr rounded up to whole
+    float4s beyond."""
     import re
     from pathlib import Path
     src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
            / "epoch_data.cu").read_text()
-
-    def body(name):
-        m = re.search(name + r"\([^)]*\) \{\s*return ([^;]+);", src)
-        return " ".join(m.group(1).split())
+    body = lambda name: _c_return(src, name)  # noqa: E731
+    assert cuda_lqr.EPOCH_DATA_REG_NC == _c_int(src, "kRegNC")
+    widths = {(11, 2, 6): (12, 12), (11, 6, 13): (32, 32),
+              (32, 32, 32): (32, 32), (11, 2, 35): (12, 36),
+              (11, 64, 97): (12, 100), (40, 4, 12): (40, 12),
+              (33, 33, 33): (36, 36)}
+    for dims, w in widths.items():
+        assert cuda_lqr.epoch_data_widths(*dims) == w, dims
     stage, block = body("data_stage_floats"), body("data_block_floats")
+    # stage_floats_of: wz == wr ? A : B, one stage's floats with one width
+    # or two, written as Python's conditional
+    stage_of = re.sub(r"^(\w+ == \w+) \? (.+) : (.+)$",
+                      r"(\2) if (\1) else (\3)",
+                      " ".join(re.search(
+                          r"stage_floats_of\([^)]*\) \{\s*return ([^;]+);",
+                          src).group(1).split()))
     for nz, nc, mr in ((11, 2, 6), (11, 6, 10), (11, 2, 7), (32, 32, 32),
-                       (1, 1, 1)):
+                       (1, 1, 1), (11, 2, 35), (11, 22, 34), (11, 33, 33),
+                       (11, 64, 97), (40, 4, 12), (12, 9, 13)):
         env = dict(nz=nz, nc=nc, mr=mr, round4=lambda n: -(-n // 4) * 4,
-                   data_width=cuda_lqr.epoch_data_width)
+                   kRegNC=cuda_lqr.EPOCH_DATA_REG_NC)
+        env.update(width_z=lambda a, b, c: cuda_lqr.epoch_data_widths(
+            a, b, c)[0], width_r=lambda a, b, c: cuda_lqr.epoch_data_widths(
+                a, b, c)[1])
+        env["stage_floats_of"] = lambda nz, nc, mr, wz, wr: eval(
+            stage_of, dict(env, nz=nz, nc=nc, mr=mr, wz=wz, wr=wr))
         assert eval(stage, env) == epoch_data_stage_floats(nz, nc, mr)
         for chunk in (1, 2, 4, 8):
             env.update(chunk=chunk, data_stage_floats=(
@@ -343,9 +407,11 @@ def test_epoch_data_launch_bounds_mirror_the_source():
     """``epoch_data_registers`` is the cap that the kernel's
     ``__launch_bounds__`` (max threads, min blocks), read from
     ``csrc/epoch_data.cu``, set for the instantiation that ``launch``
-    picks (nc <= 2 / 8 / 32, rows of 12 or 32 floats): 64 K registers over
-    threads x blocks, down to a multiple of 8. And every nz, nc, mr in
-    1..32 launches ``epoch_data_threads`` within that bound."""
+    picks (nc <= 2 / 8 with rows of 12 or 32 floats up to 32 in every
+    dimension, of runtime widths beyond; nc > 8 the factor in shared
+    memory, runtime widths): 64 K registers over threads x blocks, down to
+    a multiple of 8. And every nz, nc, mr in 1..32, and the large fleets'
+    shapes beyond, launch ``epoch_data_threads`` within that bound."""
     import re
     from pathlib import Path
     src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
@@ -355,32 +421,48 @@ def test_epoch_data_launch_bounds_mirror_the_source():
     assert args is not None
     max_threads, min_blocks = args.group(1).split(",")
     seen = set()
-    for nz in range(1, 33):
-        for nc in range(1, 33):
-            for mr in range(1, 33):
-                width = cuda_lqr.epoch_data_width(nz, mr)
-                env = dict(NC=2 if nc <= 2 else 8 if nc <= 8 else 32,
-                           DIM=width if nc <= 8 else 32)
-                threads = c_ternary(max_threads, env)
-                blocks = c_ternary(min_blocks, env)
-                assert epoch_data_threads(nz, nc) <= threads, (nz, nc, mr)
-                cap = cuda_lqr.REGISTERS_PER_SM // (threads * blocks) // 8 * 8
-                assert cuda_lqr.epoch_data_registers(nz, nc, mr) == cap
-                seen.add((env["NC"], env["DIM"], cap))
+    dims = [(nz, nc, mr) for nz in range(1, 33) for nc in range(1, 33)
+            for mr in range(1, 33)]
+    dims += [(11, 2, 35), (11, 8, 40), (11, 22, 34), (11, 64, 97),
+             (40, 4, 12), (33, 33, 33)]
+    for nz, nc, mr in dims:
+        wide = max(nz, nc, mr) > 32
+        width = cuda_lqr.epoch_data_widths(nz, nc, mr)[0]
+        env = dict(NC=2 if nc <= 2 else 8 if nc <= 8 else 0,
+                   DIM=0 if wide or nc > 8 else width)
+        threads = c_ternary(max_threads, env)
+        blocks = c_ternary(min_blocks, env)
+        assert epoch_data_threads(nz, nc) <= threads, (nz, nc, mr)
+        cap = cuda_lqr.REGISTERS_PER_SM // (threads * blocks) // 8 * 8
+        assert cuda_lqr.epoch_data_registers(nz, nc, mr) == cap
+        seen.add((env["NC"], env["DIM"], cap))
     assert seen == {(2, 12, 72), (8, 12, 96), (2, 32, 64), (8, 32, 64),
-                    (32, 32, 64)}
+                    (0, 0, 64), (2, 0, 64), (8, 0, 64)}
 
 
 @pytest.mark.parametrize("P,N,nz,nc,mr", [(0, 20, 11, 2, 6),
                                            (8, 0, 11, 2, 6),
-                                           (8, 20, 33, 2, 6),
+                                           (8, 20, 11, 2, 1200),
                                            (8, 20, 11, 0, 6),
                                            (8, 20, 11, 2, 0),
-                                           (8, 20, 11, 2, 33)])
+                                           (8, 20, 11, 130, 193)])
 def test_epoch_data_plan_refuses_what_the_kernel_does_not_take(P, N, nz, nc,
                                                                mr):
-    with pytest.raises(ValueError, match="epoch-data kernel takes"):
+    """Sizes below 1, and a block that does not fit in shared memory at
+    one stage per chunk, raise a ValueError that names the dimensions (no
+    fallback to the plain version)."""
+    with pytest.raises(ValueError, match="epoch-data kernel") as err:
         epoch_data_plan(P, N, nz, nc, mr)
+    assert f"nc={nc}, mr={mr}" in str(err.value)
+
+
+@pytest.mark.parametrize("nz,nc,mr", [(11, 2, 33), (11, 33, 33),
+                                      (33, 2, 6), (11, 64, 97)])
+def test_epoch_data_plan_takes_every_width_that_fits(nz, nc, mr):
+    """Past 32 rows, controls or states the plan holds: one block of at
+    most 1024 threads per QP within the block's shared memory."""
+    plan = epoch_data_plan(16, 20, nz, nc, mr)
+    assert plan.threads <= 1024 and plan.smem_bytes <= SMEM_PER_BLOCK
 
 
 # --- the closed-loop algebra in float64 --------------------------------------
@@ -552,35 +634,52 @@ def _c_return(src: str, name: str) -> str:
 
 
 def test_sqp_qp_plan_mirrors_the_source():
-    """``cuda_sqp``'s threads, stages per block and staged track segments
-    are the source's ``kThreads``, ``kStages`` and ``kMaxSeg``; its
-    ``image_floats`` and the plan's shared memory are the source's
-    ``image_floats`` and ``smem_bytes`` (their return expressions, read
-    from ``csrc/sqp_qp.cu``), which the entry requires of the caller, for
-    every (nc, m) the NL couplings take with up to 8 neighbours and
-    MPCC's, on tracks of one segment to beyond the staged rows."""
+    """``cuda_sqp``'s threads, stages per block, staged track segments and
+    pair scalars are the source's ``kThreads``, ``kStages``, ``kMaxSeg``
+    and ``kPair``; its ``image_floats``, ``neighbour_floats`` and the
+    plan's shared memory are the source's ``image_floats``,
+    ``neighbour_floats`` and ``smem_bytes`` (their return expressions,
+    read from ``csrc/sqp_qp.cu``), which the entry requires of the caller,
+    for every (nc, m) the NL couplings take with up to 31 neighbours and
+    MPCC's, on tracks of one segment to beyond the staged rows. A build
+    takes 8 stages per block where they fit."""
     from colaborativempc_tpu_torch.ops import cuda_sqp
     src = _sqp_source()
     assert cuda_sqp.THREADS == _c_int(src, "kThreads") == 256
     assert cuda_sqp.STAGES_PER_BLOCK == _c_int(src, "kStages") == 8
     assert cuda_sqp.MAX_STAGED_SEGMENTS == _c_int(src, "kMaxSeg")
+    assert cuda_sqp.PAIR_FLOATS == _c_int(src, "kPair")
     image, smem = _c_return(src, "image_floats"), _c_return(src, "smem_bytes")
-    shapes = {cuda_sqp.nl_shape(nb, c) for nb in range(9)
+    nbr = _c_return(src, "neighbour_floats")
+    shapes = {(nb, c) for nb in list(range(10)) + [15, 16, 31]
               for c in cuda_sqp.COUPLINGS}
-    shapes.add((cuda_sqp.NC, cuda_sqp.MPCC_ROWS))
-    for nc, m in sorted(shapes):
-        env = dict(kStages=8, kNZ=11, nc=nc, m=m, kMaxSeg=2048,
+    shapes.add((None, "mpcc"))
+    for nb, c in sorted(shapes, key=str):
+        nc, m = ((cuda_sqp.NC, cuda_sqp.MPCC_ROWS) if nb is None
+                 else cuda_sqp.nl_shape(nb, c))
+        hp_opt = c == "hp_opt"
+        env = dict(kNZ=11, nc=nc, m=m, kMaxSeg=2048, kPair=9,
                    image_floats=cuda_sqp.image_floats)
-        assert eval(image, env) == cuda_sqp.image_floats(nc, m), (nc, m)
+        for S in range(1, 9):
+            e = dict(env, S=S)
+            assert eval(image, e) == cuda_sqp.image_floats(nc, m, S)
+            if nb is not None:
+                assert eval(nbr, dict(e, nb=nb, hp_opt=hp_opt)) == \
+                    cuda_sqp.neighbour_floats(nb, hp_opt, S)
         for nseg in (1, 10, 1000, 2048, 2049, 20_000):
-            plan = cuda_sqp.sqp_qp_plan(5, 13, nc, m, nseg)
-            assert eval(smem, dict(env, nseg=nseg)) == plan.smem_bytes
-            assert plan.threads == 256 and plan.stages == 8
-            assert plan.blocks == 2 * 5
-    # the largest block the port launches: hp_opt with 8 neighbours on a
-    # fitted track of 2048 segments, within the 227 KB a block may take
-    assert cuda_sqp.sqp_qp_plan(1, 20, *cuda_sqp.nl_shape(8, "hp_opt"),
-                                2048).smem_bytes < 227 * 1024
+            plan = cuda_sqp.sqp_qp_plan(5, 13, nc, m, nseg, nb, hp_opt)
+            S = plan.stages
+            extra = 0 if nb is None else cuda_sqp.neighbour_floats(
+                nb, hp_opt, S)
+            assert eval(smem, dict(env, nseg=nseg, extra=extra, S=S)) == \
+                plan.smem_bytes <= cuda_sqp.SQP_SMEM_LIMIT
+            assert plan.threads == 256 and plan.blocks == -(-13 // S) * 5
+            if nb is None or nb <= 16:
+                assert S == 8, (nb, c, nseg)
+    # hp_opt with 31 neighbours (32 agents) takes 3 stages per block on a
+    # staged track of 1000 segments
+    assert cuda_sqp.sqp_qp_plan(64, 20, *cuda_sqp.nl_shape(31, "hp_opt"),
+                                1000, 31, True).stages == 3
 
 
 def test_sqp_qp_launch_bounds_mirror_the_source():
@@ -625,14 +724,14 @@ def test_sqp_row_threads_build_every_row_once():
 def test_sqp_task_division_is_exact_where_the_kernels_divide():
     """The build kernels split a task index into (stage, row) with
     ``div_small``, the epoch-data kernel's float reciprocal: exact for
-    every divisor they use (11, nc up to 18, m up to 28) over the block's
-    8 stages."""
+    every divisor they use (11, nc and m up to 200, hp_opt with 65
+    neighbours) over the block's 8 stages."""
     import re
     body = re.search(r"int div_small\(int e, float rcp\) \{\s*return ([^;]+);",
                      _sqp_source()).group(1)
     assert " ".join(body.split()) == "__float2int_rz(((float)e + 0.5f) * rcp)"
     f32 = np.float32
-    for d in [11] + list(range(2, 19)) + list(range(4, 29)):
+    for d in [11] + list(range(2, 201)):
         e = np.arange(8 * d, dtype=np.int64)
         got = ((e.astype(f32) + f32(0.5)) * (f32(1) / f32(d))).astype(
             np.int64)

@@ -46,7 +46,7 @@ from colaborativempc_tpu_torch.ops import cuda_sqp
 from colaborativempc_tpu_torch.planners import mpcc as tmpcc
 from colaborativempc_tpu_torch.planners import nl as tnl
 from colaborativempc_tpu_torch.runtime import simulate as tsim
-from colaborativempc_tpu_torch.scripts import matvec_order
+from colaborativempc_tpu_torch.scripts import library_order
 
 # a small fixed thread count: the suite runs several worker processes on
 # one host
@@ -509,12 +509,27 @@ def test_wrapper_checks_raise(case):
             cuda_sqp._check("x_bar", t, (3, 9, 9), torch.device("meta"))
 
 
-def test_nl_build_refuses_more_neighbours_than_the_kernel_takes():
-    args = port_nl_args()
-    P, N = args["x_bar"].shape[:2]
-    args["neigh_xy"] = torch.zeros((P, N, cuda_sqp.MAX_NEIGHBOURS + 1, 2))
-    with pytest.raises(ValueError, match="neighbours"):
-        cuda_sqp.nl_qp_batched(**args)
+@pytest.mark.parametrize("nb,coupling,stages", [
+    (8, "hp_opt", 8), (19, "hp_opt", 8), (20, "hp_opt", 7),
+    (31, "hp_opt", 3), (63, "hp_opt", 1), (31, "eu", 8), (300, "eu", 5)])
+def test_nl_build_plan_takes_fewer_stages_where_the_image_does_not_fit(
+        nb, coupling, stages):
+    """The NL build takes any neighbour count: 8 stages per block while the
+    image, the neighbour arrays and the staged track fit in the block's
+    shared memory, fewer past that (the most that fit), and a ValueError
+    naming the limit only where one stage does not fit."""
+    nc, m = cuda_sqp.nl_shape(nb, coupling)
+    hp_opt = coupling == "hp_opt"
+    plan = cuda_sqp.sqp_qp_plan(4, 20, nc, m, 1000, nb, hp_opt)
+    assert plan.stages == stages and plan.blocks == 4 * -(-20 // stages)
+    assert plan.smem_bytes <= cuda_sqp.SQP_SMEM_LIMIT
+    if stages < 8:
+        more = 4 * (cuda_sqp.image_floats(nc, m, stages + 1) + 3000
+                    + cuda_sqp.neighbour_floats(nb, hp_opt, stages + 1))
+        assert more > cuda_sqp.SQP_SMEM_LIMIT
+    nc, m = cuda_sqp.nl_shape(70, "hp_opt")
+    with pytest.raises(ValueError, match="one stage of the build takes"):
+        cuda_sqp.sqp_qp_plan(4, 20, nc, m, 1000, 70, True)
 
 
 def test_pack_slots_numbers_and_tensors():
@@ -658,14 +673,14 @@ def test_traffic_counts_every_field(family):
 
 @pytest.mark.parametrize("k", [2, 9])
 def test_matvec_order_candidates_compute_the_product(k):
-    """The orders ``scripts/matvec_order.py`` tells apart on the card (and
-    the build kernel's ``mv`` follows) each compute ``A @ x`` to float32
-    rounding."""
+    """The orders ``scripts/library_order.py --parts matvec`` tells apart
+    on the card (and the build kernel's ``mv`` follows) each compute
+    ``A @ x`` to float32 rounding."""
     g = torch.Generator().manual_seed(k)
     A, x = torch.randn(64, 1, 3, k, generator=g), torch.randn(64, 1, k,
                                                               generator=g)
     ref = (A.double() @ x.double()[..., None])[..., 0]
-    for name, f in matvec_order.candidates(k).items():
+    for name, f in library_order.matvec_candidates(k).items():
         np.testing.assert_allclose(f(A, x), ref, rtol=0, atol=1e-5,
                                    err_msg=name)
 
