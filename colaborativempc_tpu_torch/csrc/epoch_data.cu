@@ -105,13 +105,24 @@
 // block, into a buffer the caller passes (cmpc_epoch_data_clocked). The
 // default build has no stamps.
 //
+// * Any fleet: where the block's layout does not fit in shared memory even
+//   at one stage per chunk (rows of runtime width: NL hp_opt from 36
+//   agents, LPV from ~930), the plan (ops/cuda_lqr.py epoch_data_plan)
+//   puts the whole layout (the slots, P, its halves, (P F)', (P G)', Qxx,
+//   Qxu, Quu, rho_scale, the reciprocal diagonal) into a per-block global
+//   scratch, one stage per chunk; staging is then plain loads and stores
+//   (kSpill) in place of cp.async, and __syncthreads orders them within
+//   the block as before. The arithmetic and its order are those of the
+//   shared-memory launch, so the bits are too.
+//
 // Layout: row-major (P, N, ...) float32 tensors, contiguous, as the PyTorch
 // wrapper (ops/cuda_lqr.py epoch_data_batched) checks; rho_scale is
 // (P, mr); soft_lo / soft_hi may be null (every row hard). Plain C
 // interface for ctypes; the entry checks the launch plan (ops/cuda_lqr.py
-// epoch_data_plan: threads, chunk, shared bytes), launches on the given
-// stream and returns cudaGetLastError(). Any nz, nc and mr whose block fits
-// in shared memory (the plan's check).
+// epoch_data_plan: threads, chunk, shared bytes, the spill's scratch),
+// launches on the given stream and returns cudaGetLastError(). Any nz, nc
+// and mr: the block's layout in shared memory where it fits, else in the
+// scratch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,6 +183,7 @@ enum Label { kChain1 = 1, kChain2, kChain3, kArrival, kRows, kAugment };
 struct DataArgs {
   const float *F, *G, *d, *Q, *R, *S, *D, *E, *lo, *hi, *slo, *shi, *rs;
   float *K, *Qi, *Qxu, *m, *Dm, *Em, *rv, *flo, *fhi;
+  float* scratch;  // the spill's per-block layouts (or null)
   int P, N, nz, nc, mr, chunk;
   float rho, reg;
 #ifdef CMPC_EPOCH_DATA_CLOCKS
@@ -318,9 +330,21 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
+// One float from global memory into the block's layout: asynchronously
+// into shared memory, or, where the layout is spilled (kSpill), a plain
+// load and store into the global scratch.
+template <bool kSpill>
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+  if (kSpill)
+    *dst = *src;
+  else
+    cp_async4(dst, src);
+}
+
 // n stages of a (rows x cols) row-major field into the slot as stage after
 // stage of the transpose, each column a row of W floats ending in its
 // entries.
+template <bool kSpill>
 __device__ inline void load_transposed(float* dst, const float* src, int n,
                                        int rows, int cols, int W) {
   const float inv_cols = 1.f / cols, inv_rows = 1.f / rows;
@@ -328,17 +352,18 @@ __device__ inline void load_transposed(float* dst, const float* src, int n,
   for (int o = threadIdx.x; o < n * rows * cols; o += blockDim.x) {
     const int r = div_small(o, inv_cols), c = o - r * cols;  // r = t rows + i
     const int t = div_small(r, inv_rows), i = r - t * rows;
-    cp_async4(dst + (t * cols + c) * W + i, src + o);
+    stage4<kSpill>(dst + (t * cols + c) * W + i, src + o);
   }
 }
 
 // n stages of `per` floats each into stage slots of `stride` floats.
+template <bool kSpill>
 __device__ inline void load_padded(float* dst, const float* src, int n,
                                    int per, int stride) {
   const float inv = 1.f / per;
   for (int o = threadIdx.x; o < n * per; o += blockDim.x) {
     const int t = div_small(o, inv);
-    cp_async4(dst + t * stride + (o - t * per), src + o);
+    stage4<kSpill>(dst + t * stride + (o - t * per), src + o);
   }
 }
 
@@ -351,39 +376,42 @@ __device__ inline void fill_padded(float* dst, float v, int n, int per,
   }
 }
 
-// Stages [k0, k1) of problem p into a slot, asynchronously, as one group;
-// absent soft weights are +inf (hard rows).
+// Stages [k0, k1) of problem p into a slot, asynchronously as one group
+// (kSpill: plain loads and stores); absent soft weights are +inf (hard
+// rows).
+template <bool kSpill>
 __device__ inline void load_chunk(const DataArgs& a, const Slot& s, int p,
                                   int k0, int k1, Widths w) {
   const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, n = k1 - k0;
   const int Wz = w.z, Wr = w.r, lr = round4(mr);
   const size_t st = (size_t)p * N + k0;
-  load_transposed(s.Ft, a.F + st * nz * nz, n, nz, nz, Wz);
-  load_transposed(s.Gt, a.G + st * nz * nc, n, nz, nc, Wz);
-  load_padded(s.Q, a.Q + ((size_t)p * (N + 1) + k0) * nz * nz, n, nz * nz,
-              round4(nz * nz));
-  load_padded(s.R, a.R + st * nc * nc, n, nc * nc, round4(nc * nc));
-  load_padded(s.S, a.S + st * nz * nc, n, nz * nc, round4(nz * nc));
+  load_transposed<kSpill>(s.Ft, a.F + st * nz * nz, n, nz, nz, Wz);
+  load_transposed<kSpill>(s.Gt, a.G + st * nz * nc, n, nz, nc, Wz);
+  load_padded<kSpill>(s.Q, a.Q + ((size_t)p * (N + 1) + k0) * nz * nz, n,
+                      nz * nz, round4(nz * nz));
+  load_padded<kSpill>(s.R, a.R + st * nc * nc, n, nc * nc, round4(nc * nc));
+  load_padded<kSpill>(s.S, a.S + st * nz * nc, n, nz * nc, round4(nz * nc));
   const int h = (nz + 1) / 2;
   const float inv_nz = 1.f / nz;
   for (int o = threadIdx.x; o < n * nz; o += blockDim.x) {
     const int t = div_small(o, inv_nz), l = o - t * nz;
-    cp_async4(s.d + 2 * t * Wz + (l < h ? Wz - h + l : 2 * Wz - nz + l),
-              a.d + st * nz + o);
+    stage4<kSpill>(
+        s.d + 2 * t * Wz + (l < h ? Wz - h + l : 2 * Wz - nz + l),
+        a.d + st * nz + o);
   }
-  load_transposed(s.Dt, a.D + st * mr * nz, n, mr, nz, Wr);
-  load_transposed(s.Et, a.E + st * mr * nc, n, mr, nc, Wr);
-  load_padded(s.lo, a.lo + st * mr, n, mr, lr);
-  load_padded(s.hi, a.hi + st * mr, n, mr, lr);
+  load_transposed<kSpill>(s.Dt, a.D + st * mr * nz, n, mr, nz, Wr);
+  load_transposed<kSpill>(s.Et, a.E + st * mr * nc, n, mr, nc, Wr);
+  load_padded<kSpill>(s.lo, a.lo + st * mr, n, mr, lr);
+  load_padded<kSpill>(s.hi, a.hi + st * mr, n, mr, lr);
   if (a.slo)
-    load_padded(s.slo, a.slo + st * mr, n, mr, lr);
+    load_padded<kSpill>(s.slo, a.slo + st * mr, n, mr, lr);
   else
     fill_padded(s.slo, INFINITY, n, mr, lr);
   if (a.shi)
-    load_padded(s.shi, a.shi + st * mr, n, mr, lr);
+    load_padded<kSpill>(s.shi, a.shi + st * mr, n, mr, lr);
   else
     fill_padded(s.shi, INFINITY, n, mr, lr);
-  cp_async_commit();
+  if (!kSpill) cp_async_commit();
 }
 
 // Row j's mask (a finite bound on either side), as the plain version forms
@@ -665,15 +693,18 @@ constexpr int kMaxChunk = 8;
 // DIM > 0: up to 32 in every dimension, rows of DIM floats (12 or 32) for
 // both kinds of vector; DIM = 0: rows of width_z / width_r floats, runtime
 // values. NC >= nc (2 or 8) bounds the loops of the factor and the solves
-// in registers; NC = 0: the factor in shared memory (nc > kRegNC).
-template <int NC, int DIM>
+// in registers; NC = 0: the factor in shared memory (nc > kRegNC). kSpill:
+// the block's layout in its share of a.scratch (DIM = 0 only).
+template <int NC, int DIM, bool kSpill>
 __global__ void __launch_bounds__(
     NC == 2 && DIM == 12 ? 224 : (NC == 8 && DIM == 12 ? 320 : 1024),
     NC == 2 && DIM == 12 ? 4 : (NC == 8 && DIM == 12 ? 2 : 1))
     epoch_data_kernel(DataArgs a) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float dyn[];
   const int p = blockIdx.x;
   const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr, C = a.chunk;
+  float* const smem =
+      kSpill ? a.scratch + (size_t)p * data_block_floats(nz, nc, mr, C) : dyn;
   const int tid = threadIdx.x, T = blockDim.x;
   // a row: zeros, then its entries; Wz for nz entries, Wr for mr
   const int Wz = DIM > 0 ? DIM : width_z(nz, nc, mr);
@@ -713,8 +744,8 @@ __global__ void __launch_bounds__(
     (j < h ? Plo : Phi)[i * Wz + (j < h ? Wz - h : Wz - nz) + j] = v;
   }
   for (int o = tid; o < mr; o += T) rsc[o] = a.rs[(size_t)p * mr + o];
-  load_chunk(a, slot_at(smem, 0, C, nz, nc, mr, ws), p, N > C ? N - C : 0,
-             N, ws);
+  load_chunk<kSpill>(a, slot_at(smem, 0, C, nz, nc, mr, ws), p,
+                     N > C ? N - C : 0, N, ws);
 
   const int chunks = (N + C - 1) / C;
   const int tri = nz * (nz + 1) / 2;
@@ -729,11 +760,11 @@ __global__ void __launch_bounds__(
     const Slot s = slot_at(smem, c & 1, C, nz, nc, mr, ws);
     // the next chunk streams into the other slot while this one runs
     if (c + 1 < chunks) {
-      load_chunk(a, slot_at(smem, (c + 1) & 1, C, nz, nc, mr, ws), p,
-                 k0 > C ? k0 - C : 0, k0, ws);
-      cp_async_wait<1>();
+      load_chunk<kSpill>(a, slot_at(smem, (c + 1) & 1, C, nz, nc, mr, ws), p,
+                         k0 > C ? k0 - C : 0, k0, ws);
+      if (!kSpill) cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      if (!kSpill) cp_async_wait<0>();
     }
     CLOCK_STAMP(kArrival);
     __syncthreads();
@@ -963,34 +994,43 @@ __global__ void __launch_bounds__(
 #endif
 }
 
-template <int NC, int DIM>
+template <int NC, int DIM, bool kSpill = false>
 cudaError_t launch_with(const DataArgs& a, int threads, size_t smem,
                         cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        epoch_data_kernel<NC, DIM>,
+        epoch_data_kernel<NC, DIM, kSpill>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  epoch_data_kernel<NC, DIM><<<a.P, threads, smem, stream>>>(a);
+  epoch_data_kernel<NC, DIM, kSpill><<<a.P, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // The instantiation for the dimensions: up to 32 in every dimension rows
 // of 12 or 32 floats, fixed; beyond, runtime widths. Up to kRegNC controls
 // the factor in registers (nc <= 2, nc <= 8), above in shared memory.
+// With a scratch the layout is spilled (runtime widths only; no shared
+// memory, one stage per chunk).
 int launch(const DataArgs& a, int threads, int smem_bytes, void* stream) {
   const int nz = a.nz, nc = a.nc, mr = a.mr;
   if (a.P <= 0 || a.N <= 0 || nz <= 0 || nc <= 0 || mr <= 0 ||
       a.chunk <= 0 || a.chunk > kMaxChunk || a.chunk > a.N ||
       threads != data_threads(nz, nc))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool wide = wide_dims(nz, nc, mr);
+  if (a.scratch) {
+    if (smem_bytes != 0 || a.chunk != 1 || !(wide || nc > kRegNC))
+      return (int)cudaErrorInvalidValue;
+    if (nc > kRegNC) return (int)launch_with<0, 0, true>(a, threads, 0, s);
+    return (int)(nc <= 2 ? launch_with<2, 0, true>(a, threads, 0, s)
+                         : launch_with<8, 0, true>(a, threads, 0, s));
+  }
   const size_t smem =
       sizeof(float) * (size_t)data_block_floats(nz, nc, mr, a.chunk);
   if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
   if (nc > kRegNC) return (int)launch_with<0, 0>(a, threads, smem, s);
-  const bool wide = wide_dims(nz, nc, mr);
   const bool narrow = !wide && width_z(nz, nc, mr) == 12;
   if (nc <= 2)
     return (int)(wide     ? launch_with<2, 0>(a, threads, smem, s)
@@ -1009,13 +1049,13 @@ int launch(const DataArgs& a, int threads, int smem_bytes, void* stream) {
       const float *lo, const float *hi, const float *soft_lo,               \
       const float *soft_hi, const float *rho_scale, float *K,               \
       float *Quu_inv, float *Qxu, float *m, float *D_out, float *E_out,     \
-      float *rv, float *fac_lo, float *fac_hi, int P, int N, int nz,        \
-      int nc, int mr, float rho, float reg, int threads, int chunk,         \
-      int smem_bytes, void *stream
+      float *rv, float *fac_lo, float *fac_hi, float *scratch, int P,       \
+      int N, int nz, int nc, int mr, float rho, float reg, int threads,     \
+      int chunk, int smem_bytes, void *stream
 #define EPOCH_DATA_FIELDS                                                   \
   F, G, d, Q, R, S, D, E, lo, hi, soft_lo, soft_hi, rho_scale, K, Quu_inv,  \
-      Qxu, m, D_out, E_out, rv, fac_lo, fac_hi, P, N, nz, nc, mr, chunk,    \
-      rho, reg
+      Qxu, m, D_out, E_out, rv, fac_lo, fac_hi, scratch, P, N, nz, nc, mr,  \
+      chunk, rho, reg
 
 #ifndef CMPC_EPOCH_DATA_CLOCKS
 extern "C" int cmpc_epoch_data(EPOCH_DATA_PARAMS) {

@@ -58,8 +58,18 @@
 //   keeps its residual maxima in registers), so the results and the time
 //   are those of the earlier kernel; past 32 controls or rows the loops
 //   above (a lane owns its rows over every stage and keeps their maxima in
-//   the outputs). Lane i owns state row i throughout. The limits are
-//   nz <= 32 and the block's shared memory (ops/cuda_lqr.py kernel_plan).
+//   the outputs). Lane i owns state row i throughout. The one limit is
+//   nz <= 32.
+// * Any horizon and fleet: where one QP does not fit in a block's shared
+//   memory, the plan (ops/cuda_lqr.py kernel_plan) moves arrays to global
+//   memory, level by level (Spill below): first w, y and kff over the
+//   horizon (w and y worked on in place in the w and y outputs, kff in a
+//   (P, N, nc) scratch), then the ring (a chunk's slot then points straight
+//   into the inputs, which lie in the slot's own order, and nothing is
+//   copied), last the chunk scratch (a per-QP scratch). The arithmetic and
+//   its order are the same at every level, so a spilled launch gives the
+//   bits the same launch gives from shared memory; what fits keeps the
+//   code of level 0.
 // * One warp per QP, `qps_per_block` warps per block, independent: warps
 //   sync with __syncwarp only, never the block, so a warp of the ragged last
 //   block returns early without deadlock. The launch plan (QPs per block,
@@ -92,9 +102,15 @@ struct EpochArgs {
   const float *D, *E, *lo, *hi, *rv, *fac_lo, *fac_hi;
   const float *z0, *w0, *y0;
   float *z_out, *c_out, *w_out, *y_out, *rp_out, *rd_out;
-  int P, N, nz, nc, mr, epoch_len, qpb, ring;
+  float *kff, *work;  // global scratch of the spill levels (or null)
+  int P, N, nz, nc, mr, epoch_len, qpb, ring, spill;
   float alpha;
 };
+
+// What a launch keeps in global memory (ops/cuda_lqr.py SPILLS): nothing;
+// w, y and kff over the horizon; those and the ring; those and the chunk
+// scratch (then no shared memory at all).
+enum Spill { kInShared = 0, kHorizon = 1, kRing = 2, kAll = 3 };
 
 // Floats of one stage's fixed data in a ring slot: F, G, d, K, Quu_inv,
 // Qxu, m, q, r, D, E, lo, hi, rv, fac_lo, fac_hi.
@@ -102,14 +118,16 @@ __host__ __device__ inline int stage_floats(int nz, int nc, int mr) {
   return nz * nz + 3 * nz * nc + nc * nc + 3 * nz + nc + mr * (nz + nc + 5);
 }
 
-// Floats of one QP's shared memory: w, y and kff over the horizon, one
-// chunk's scratch (hist, g, t, c, and qu) and the ring slots (one when the
-// ring holds the horizon, else two).
+// Floats of one QP's work at a spill level: w, y and kff over the horizon
+// (below kHorizon), one chunk's scratch (hist, g, t, c, and qu) and the
+// ring slots (below kRing: one when the ring holds the horizon, else two).
+// In shared memory, or in global memory at kAll.
 __host__ __device__ inline int qp_floats(int N, int ring, int nz, int nc,
-                                         int mr) {
+                                         int mr, int spill) {
   const int S = ring < N ? ring : N;
-  const int slots = ring < N ? 2 : 1;
-  return 2 * N * mr + N * nc + (S + 1) * nz + S * (nz + mr + nc) + nc +
+  const int slots = spill >= kRing ? 0 : (ring < N ? 2 : 1);
+  const int horizon = spill >= kHorizon ? 0 : 2 * N * mr + N * nc;
+  return horizon + (S + 1) * nz + S * (nz + mr + nc) + nc +
          slots * S * stage_floats(nz, nc, mr);
 }
 
@@ -141,6 +159,32 @@ __device__ inline Slot slot_at(float* slots, int i, int S, int nz, int nc,
   sl.rv = s;  s += S * mr;
   sl.flo = s; s += S * mr;
   sl.fhi = s;
+  return sl;
+}
+
+// From kRing: the slot of stages [k0, ...) of problem p where they lie in
+// the inputs, whose (stage, row, column) order is the slot's (read only).
+__device__ inline Slot input_slot(const EpochArgs& a, int p, int k0) {
+  const int N = a.N, nz = a.nz, nc = a.nc, mr = a.mr;
+  const size_t st = (size_t)p * N + k0;
+  auto at = [](const float* f, size_t o) { return const_cast<float*>(f) + o; };
+  Slot sl;
+  sl.F = at(a.F, st * nz * nz);
+  sl.G = at(a.G, st * nz * nc);
+  sl.d = at(a.d, st * nz);
+  sl.K = at(a.K, st * nc * nz);
+  sl.Qi = at(a.Quu_inv, st * nc * nc);
+  sl.Qxu = at(a.Qxu, st * nz * nc);
+  sl.m = at(a.m, st * nz);
+  sl.q = at(a.q, ((size_t)p * (N + 1) + k0) * nz);
+  sl.r = at(a.r, st * nc);
+  sl.D = at(a.D, st * mr * nz);
+  sl.E = at(a.E, st * mr * nc);
+  sl.lo = at(a.lo, st * mr);
+  sl.hi = at(a.hi, st * mr);
+  sl.rv = at(a.rv, st * mr);
+  sl.flo = at(a.fac_lo, st * mr);
+  sl.fhi = at(a.fac_hi, st * mr);
   return sl;
 }
 
@@ -430,26 +474,36 @@ __device__ void forward_chunk(const Slot& sl, const Work& wk, int k0, int n,
 
 // One problem, one warp: `epoch_len` iterations of backward then forward
 // sweeps over the chunks of the horizon, with the ring of slots fed ahead
-// of the visits. The affine solve is epoch_len = 1 without rows.
-template <bool kRows, bool kWideR>
+// of the visits (below kRing; from kRing a chunk is read where it lies).
+// The affine solve is epoch_len = 1 without rows. `base` is the QP's work
+// (qp_floats at kSpill).
+template <bool kRows, bool kWideR, int kSpill>
 __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   const int N = a.N, nz = a.nz, nc = a.nc, mr = kRows ? a.mr : 0;
   const int S = a.ring < N ? a.ring : N;
   const int n_slots = a.ring < N ? 2 : 1;
   const int C = (N + S - 1) / S;  // chunks
+  const int nw = N * mr;
 
   Work wk;
-  wk.w = base;
-  wk.y = wk.w + N * mr;
-  wk.kff = wk.y + N * mr;
-  wk.hist = wk.kff + N * nc;
+  if (kSpill >= kHorizon) {
+    // w and y in place in the outputs, kff in its scratch
+    wk.w = kRows ? a.w_out + (size_t)p * nw : nullptr;
+    wk.y = kRows ? a.y_out + (size_t)p * nw : nullptr;
+    wk.kff = a.kff + (size_t)p * N * nc;
+    wk.hist = base;
+  } else {
+    wk.w = base;
+    wk.y = wk.w + N * mr;
+    wk.kff = wk.y + N * mr;
+    wk.hist = wk.kff + N * nc;
+  }
   wk.g = wk.hist + (S + 1) * nz;
   wk.t = wk.g + S * nz;
   wk.c = wk.t + S * mr;
   wk.qu = wk.c + S * nc;
   float* const slots = wk.qu + nc;  // n_slots ring slots of S stages
 
-  const int nw = N * mr;
   for (int o = lane; o < nw; o += kWarp) {
     wk.w[o] = a.w0[(size_t)p * nw + o];
     wk.y[o] = a.y0[(size_t)p * nw + o];
@@ -471,9 +525,13 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   auto stages_of = [N, S](int c) { return c * S + S <= N ? S : N - c * S; };
   const int visits = 2 * C * a.epoch_len;
   int held0 = C - 1, held1 = -1;  // the chunk each slot holds
-  load_chunk(a, slot_at(slots, 0, S, nz, nc, mr), p, held0 * S,
-             stages_of(held0), lane);
-  arrive();
+  if (kSpill >= kRing) {
+    __syncwarp();  // w and y in place before any lane reads them
+  } else {
+    load_chunk(a, slot_at(slots, 0, S, nz, nc, mr), p, held0 * S,
+               stages_of(held0), lane);
+    arrive();
+  }
 
   float pc = 0.f, z = 0.f, rp = 0.f, rd = 0.f;
   for (int v = 0; v < visits; ++v) {
@@ -483,7 +541,7 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
     // feed the ring ahead of the sweep: the next visit's chunk goes into
     // the other slot unless a slot holds it already
     bool fed = false;
-    if (v + 1 < visits && n_slots == 2) {
+    if (kSpill < kRing && v + 1 < visits && n_slots == 2) {
       const int nxt = chunk_of((v + 1) % (2 * C));
       if (nxt != held0 && nxt != held1) {
         fed = true;
@@ -492,7 +550,8 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
                    stages_of(nxt), lane);
       }
     }
-    const Slot sl = slot_at(slots, cur, S, nz, nc, mr);
+    const Slot sl = kSpill >= kRing ? input_slot(a, p, c * S)
+                                    : slot_at(slots, cur, S, nz, nc, mr);
     if (vi < C) {
       if (vi == 0) pc = p_term;
       backward_chunk<kRows, kWideR>(sl, wk, c * S, stages_of(c), nz, nc, mr,
@@ -511,9 +570,11 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
     if (fed) arrive();
   }
   if (lane < nz) out.z[N * nz + lane] = z;
-  for (int o = lane; o < nw; o += kWarp) {
-    a.w_out[(size_t)p * nw + o] = wk.w[o];
-    a.y_out[(size_t)p * nw + o] = wk.y[o];
+  if (kSpill < kHorizon) {
+    for (int o = lane; o < nw; o += kWarp) {
+      a.w_out[(size_t)p * nw + o] = wk.w[o];
+      a.y_out[(size_t)p * nw + o] = wk.y[o];
+    }
   }
   if (kRows && !kWideR) {
     // row o's residual: the max of the partial maxima of lanes g * mr + o
@@ -531,37 +592,45 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   }
 }
 
+// The work of this warp's QP: its share of the block's shared memory, or
+// at kAll its share of the global scratch.
+template <int kSpill>
+__device__ __forceinline__ float* qp_work(const EpochArgs& a, float* smem,
+                                          int warp, int p, int mr) {
+  const size_t qpf = qp_floats(a.N, a.ring, a.nz, a.nc, mr, kSpill);
+  return kSpill == kAll ? a.work + (size_t)p * qpf : smem + (size_t)warp * qpf;
+}
+
 // kWideR: controls or rows past 32 (each lane takes indices i, i + 32,
-// ...), else the lane of index i alone, as the first kernel.
-template <bool kWideR>
+// ...), else the lane of index i alone, as the first kernel. kSpill: what
+// lies in global memory (Spill).
+template <bool kWideR, int kSpill>
 __global__ void admm_epoch_kernel(EpochArgs a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int p = blockIdx.x * a.qpb + warp;
   if (p >= a.P) return;  // whole warp leaves; no block-wide barrier exists
-  solve<true, kWideR>(
-      a, smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, a.mr), p,
-      lane);
+  solve<true, kWideR, kSpill>(a, qp_work<kSpill>(a, smem, warp, p, a.mr), p,
+                              lane);
 }
 
-template <bool kWideR>
+template <bool kWideR, int kSpill>
 __global__ void affine_kernel(EpochArgs a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int p = blockIdx.x * a.qpb + warp;
   if (p >= a.P) return;  // whole warp leaves; no block-wide barrier exists
-  solve<false, kWideR>(
-      a, smem + (size_t)warp * qp_floats(a.N, a.ring, a.nz, a.nc, 0), p,
-      lane);
+  solve<false, kWideR, kSpill>(a, qp_work<kSpill>(a, smem, warp, p, 0), p,
+                               lane);
 }
 
-// Launches kernel<kWideR> of an entry (epoch or affine) with the dynamic
-// shared memory it takes.
-template <bool kWideR>
+// Launches kernel<kWideR, kSpill> of an entry (epoch or affine) with the
+// dynamic shared memory it takes.
+template <bool kWideR, int kSpill>
 cudaError_t launch_with(bool epoch, const EpochArgs& a, size_t smem,
                         cudaStream_t s) {
-  const void* fn = epoch ? (const void*)admm_epoch_kernel<kWideR>
-                         : (const void*)affine_kernel<kWideR>;
+  const void* fn = epoch ? (const void*)admm_epoch_kernel<kWideR, kSpill>
+                         : (const void*)affine_kernel<kWideR, kSpill>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -570,29 +639,46 @@ cudaError_t launch_with(bool epoch, const EpochArgs& a, size_t smem,
   const dim3 grid((a.P + a.qpb - 1) / a.qpb);
   const dim3 block(a.qpb * kWarp);
   if (epoch)
-    admm_epoch_kernel<kWideR><<<grid, block, smem, s>>>(a);
+    admm_epoch_kernel<kWideR, kSpill><<<grid, block, smem, s>>>(a);
   else
-    affine_kernel<kWideR><<<grid, block, smem, s>>>(a);
+    affine_kernel<kWideR, kSpill><<<grid, block, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kWideR>
+cudaError_t launch_spill(bool epoch, const EpochArgs& a, size_t smem,
+                         cudaStream_t s) {
+  switch (a.spill) {
+    case kInShared: return launch_with<kWideR, kInShared>(epoch, a, smem, s);
+    case kHorizon: return launch_with<kWideR, kHorizon>(epoch, a, smem, s);
+    case kRing: return launch_with<kWideR, kRing>(epoch, a, smem, s);
+    default: return launch_with<kWideR, kAll>(epoch, a, smem, s);
+  }
 }
 
 // Launches the epoch kernel (epoch) or the affine kernel (!epoch): one warp
 // per problem, a.qpb problems per block, smem_bytes of dynamic shared
-// memory, which must equal the carve of the plan. Up to 32 controls and
-// rows the instantiation of the first kernel's arithmetic; past 32 the
-// lanes loop over them.
+// memory, which must equal the carve of the plan (0 at kAll). Up to 32
+// controls and rows the instantiation of the first kernel's arithmetic;
+// past 32 the lanes loop over them. From kHorizon a.kff, at kAll a.work
+// are the global scratch.
 int launch(bool epoch, const EpochArgs& a, int smem_bytes, void* stream) {
   if (a.P <= 0 || a.N <= 0 || a.nz <= 0 || a.nz > kWarp ||
       a.nc <= 0 || a.mr < 0 || a.epoch_len <= 0 || a.qpb <= 0 ||
-      a.qpb > kWarp || a.ring <= 0)
+      a.qpb > kWarp || a.ring <= 0 || a.spill < kInShared ||
+      a.spill > kAll || (a.spill >= kHorizon && !a.kff) ||
+      (a.spill == kAll && !a.work))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)a.qpb *
-                      (size_t)qp_floats(a.N, a.ring, a.nz, a.nc, a.mr);
+  const size_t smem =
+      a.spill == kAll ? 0
+                      : sizeof(float) * (size_t)a.qpb *
+                            (size_t)qp_floats(a.N, a.ring, a.nz, a.nc, a.mr,
+                                              a.spill);
   if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (a.nc > kWarp || a.mr > kWarp)
-    return (int)launch_with<true>(epoch, a, smem, s);
-  return (int)launch_with<false>(epoch, a, smem, s);
+    return (int)launch_spill<true>(epoch, a, smem, s);
+  return (int)launch_spill<false>(epoch, a, smem, s);
 }
 
 }  // namespace
@@ -604,28 +690,31 @@ extern "C" int cmpc_admm_epoch(
     const float* hi, const float* rv, const float* fac_lo,
     const float* fac_hi, const float* z0, const float* w0, const float* y0,
     float* z_out, float* c_out, float* w_out, float* y_out, float* rp_out,
-    float* rd_out, int P, int N, int nz, int nc, int mr, int epoch_len,
-    float alpha, int qps_per_block, int ring, int smem_bytes, void* stream) {
+    float* rd_out, float* kff, float* work, int P, int N, int nz, int nc,
+    int mr, int epoch_len, float alpha, int qps_per_block, int ring,
+    int spill, int smem_bytes, void* stream) {
   if (mr <= 0) return (int)cudaErrorInvalidValue;
   EpochArgs a = {F,      G,      d,      K,      Quu_inv, Qxu,   m,
                  q,      r,      D,      E,      lo,      hi,    rv,
                  fac_lo, fac_hi, z0,     w0,     y0,      z_out, c_out,
-                 w_out,  y_out,  rp_out, rd_out, P,       N,     nz,
-                 nc,     mr,     epoch_len, qps_per_block, ring, alpha};
+                 w_out,  y_out,  rp_out, rd_out, kff,     work,  P,
+                 N,      nz,     nc,     mr,     epoch_len, qps_per_block,
+                 ring,   spill,  alpha};
   return launch(true, a, smem_bytes, stream);
 }
 
 extern "C" int cmpc_lqr_affine(
     const float* F, const float* G, const float* d, const float* K,
     const float* Quu_inv, const float* Qxu, const float* m, const float* q,
-    const float* r, const float* z0, float* z_out, float* c_out, int P, int N,
-    int nz, int nc, int qps_per_block, int ring, int smem_bytes,
-    void* stream) {
+    const float* r, const float* z0, float* z_out, float* c_out, float* kff,
+    float* work, int P, int N, int nz, int nc, int qps_per_block, int ring,
+    int spill, int smem_bytes, void* stream) {
   EpochArgs a = {F,       G,       d,       K,       Quu_inv, Qxu,
                  m,       q,       r,       nullptr, nullptr, nullptr,
                  nullptr, nullptr, nullptr, nullptr, z0,      nullptr,
                  nullptr, z_out,   c_out,   nullptr, nullptr, nullptr,
-                 nullptr, P,       N,       nz,      nc,      0,
-                 1,       qps_per_block,    ring,    0.f};
+                 nullptr, kff,     work,    P,       N,       nz,
+                 nc,      0,       1,       qps_per_block,    ring,
+                 spill,   0.f};
   return launch(false, a, smem_bytes, stream);
 }

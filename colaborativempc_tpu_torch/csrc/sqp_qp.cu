@@ -34,6 +34,13 @@
 // lane i on row i, spent 36-62% of a block's cycles in the rows, the row
 // switch serialised nine ways, and 26-44% in an output pass that paid two
 // integer divisions per entry.)
+// * Any neighbour count: where one stage's image and neighbour arrays do
+//   not fit in shared memory (NL hp_opt from 71 agents, eu from ~1,900),
+//   the plan (ops/cuda_sqp.py sqp_qp_plan) puts them, at 8 stages per
+//   block, into a per-block global scratch; the neighbour arrays are then
+//   copied in by plain loads and stores, the copy-out pass reads the image
+//   from there, and the arithmetic and the bits are those of the shared-
+//   memory launch.
 // * Load: the block's rows of x_bar and u_bar, its neighbours' positions,
 //   prices, planes and master flags and its lane's track rows are copied
 //   into shared memory by cp.async, every copy in flight at once; the slots
@@ -290,9 +297,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// One float of src into dst: by cp.async into shared memory, or (kPlain)
+// by a plain load and store into global memory.
+template <bool kPlain>
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  if (kPlain)
+    *dst = *src;
+  else
+    cp_async4(dst, src);
+}
+
 // Copy n floats of src to dst, the block's threads in turn.
+template <bool kPlain = false>
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) cp_async4(dst + e, src + e);
+  for (int e = threadIdx.x; e < n; e += kThreads)
+    copy4<kPlain>(dst + e, src + e);
 }
 
 // Stage lane ln's track rows into `rows` (3 nseg floats) where they fit;
@@ -507,6 +526,7 @@ enum NLConst {
 struct NLArgs {
   const float *x, *u, *lam, *neigh, *mmask, *planes;
   const int* lane;  // null: every problem on lane_const
+  float* scratch;   // the spill's per-block image and neighbour arrays
   TrackArgs track;
   Out out;
   float c[kNLConsts];
@@ -784,7 +804,9 @@ __device__ __forceinline__ float neighbour_sum(const float* pair, int s,
 // At most 51 registers: five blocks of 256 threads on an SM, so the NL
 // Monte-Carlo's 192 QPs x N=20 (576 blocks) run in one wave. SF: the
 // stages per block when the kernel is compiled (kStages), or 0, a.S's.
-template <bool HP_OPT, int SF>
+// kSpill: the image and the neighbour arrays in the block's share of
+// a.scratch, the track rows alone in dynamic shared memory.
+template <bool HP_OPT, int SF, bool kSpill>
 __global__ void __launch_bounds__(kThreads, 5)
     nl_qp_kernel(const __grid_constant__ NLArgs a) {
   // the output image, the neighbour arrays, then the lane's track rows
@@ -801,12 +823,16 @@ __global__ void __launch_bounds__(kThreads, 5)
   const int k0 = blockIdx.x * S;
   const int ns = min(S, N - k0);
   const float* c = a.c;
-  float* img = dyn;
+  float* img =
+      kSpill ? a.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                               (image_floats(nc, m, S) +
+                                neighbour_floats(nb, HP_OPT, S))
+             : dyn;
   const Layout L = layout(nc, m, S);
   // the neighbour arrays (neighbour_floats): positions at stage k+1,
   // prices and hp_opt's planes by neighbour then stage, master flags,
   // each (stage, neighbour) pair's scalars, the cost's R diagonal
-  float* nxy = dyn + image_floats(nc, m, S);
+  float* nxy = img + image_floats(nc, m, S);
   float* lams = nxy + S * nb * 2;
   float* pls = lams + nb * S;
   float* mms = pls + (HP_OPT ? nb * S * 2 : 0);
@@ -816,22 +842,24 @@ __global__ void __launch_bounds__(kThreads, 5)
   // ---- load ----
   stage(xs, a.x + ((size_t)p * (N + 1) + k0) * kNX, (ns + 1) * kNX);
   stage(us, a.u + ((size_t)p * N + k0) * 2, ns * 2);
-  stage(nxy, a.neigh + ((size_t)p * (N + 1) + k0 + 1) * nb * 2, ns * nb * 2);
-  stage(mms, a.mmask + (size_t)p * nb, nb);
+  stage<kSpill>(nxy, a.neigh + ((size_t)p * (N + 1) + k0 + 1) * nb * 2,
+                ns * nb * 2);
+  stage<kSpill>(mms, a.mmask + (size_t)p * nb, nb);
   for (int e = tid; e < nb * ns; e += kThreads) {
     const int j = e / ns, s = e - j * ns;
-    cp_async4(lams + j * S + s, a.lam + ((size_t)p * nb + j) * N + k0 + s);
+    copy4<kSpill>(lams + j * S + s,
+                  a.lam + ((size_t)p * nb + j) * N + k0 + s);
     if (HP_OPT) {
       const float* src = a.planes + (((size_t)p * nb + j) * N + k0 + s) * 2;
-      cp_async4(pls + (j * S + s) * 2, src);
-      cp_async4(pls + (j * S + s) * 2 + 1, src + 1);
+      copy4<kSpill>(pls + (j * S + s) * 2, src);
+      copy4<kSpill>(pls + (j * S + s) * 2 + 1, src + 1);
     }
   }
   // the slots: read now, needed after the rows (threads < 25 are row
   // threads, which store them when their row is done)
   const float slot = tid < kNLSlots ? a.slots.get(tid, p) : 0.f;
   const int ln = a.lane ? a.lane[p] : a.lane_const;
-  const LaneRows tr = stage_lane(a.track, ln, Rd + nc);
+  const LaneRows tr = stage_lane(a.track, ln, kSpill ? dyn : Rd + nc);
   cp_async_wait_all();
   __syncthreads();
   CLOCK_STAMP(kLoaded);
@@ -1474,18 +1502,20 @@ cudaError_t fit_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <bool HP_OPT, int SF>
+template <bool HP_OPT, int SF, bool kSpill = false>
 cudaError_t nl_launch_with(const NLArgs& a, dim3 grid, int smem,
                            cudaStream_t s) {
-  const cudaError_t e = fit_smem(nl_qp_kernel<HP_OPT, SF>, smem);
+  const cudaError_t e = fit_smem(nl_qp_kernel<HP_OPT, SF, kSpill>, smem);
   if (e != cudaSuccess) return e;
-  nl_qp_kernel<HP_OPT, SF><<<grid, kThreads, smem, s>>>(a);
+  nl_qp_kernel<HP_OPT, SF, kSpill><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// ptrs: the inputs (7), the track (5), the outputs (14), the slots (25).
-// The caller's smem_bytes and stages per block (1..kStages) must be the
-// kernel's: the block's image takes kStages stages where it fits.
+// ptrs: the inputs (7), the track (5), the outputs (14), the slots (25),
+// the spill's scratch (or null). The caller's smem_bytes and stages per
+// block (1..kStages) must be the kernel's: the block's image takes kStages
+// stages where it fits; with a scratch, kStages stages and only the track
+// rows in shared memory.
 int nl_launch(NLArgs& a, void* const* ptrs, const double* consts,
               const double* values, const int* ints, void* stream) {
   a.x = (const float*)ptrs[0];
@@ -1495,6 +1525,7 @@ int nl_launch(NLArgs& a, void* const* ptrs, const double* consts,
   a.mmask = (const float*)ptrs[4];
   a.planes = (const float*)ptrs[5];
   a.lane = (const int*)ptrs[6];
+  a.scratch = (float*)ptrs[26 + kNLSlots];
   a.P = ints[0];
   a.N = ints[1];
   a.nb = ints[2];
@@ -1517,11 +1548,18 @@ int nl_launch(NLArgs& a, void* const* ptrs, const double* consts,
   const bool hp_opt = a.coupling == kHpOpt;
   const int nc = 2 + (hp_opt ? 2 * a.nb : 0);
   const int m = 4 + (hp_opt ? 3 * a.nb : a.nb);
-  if (smem != smem_bytes(nc, m, a.track.nseg,
-                         neighbour_floats(a.nb, hp_opt, a.S), a.S))
+  const int staged = a.track.nseg <= kMaxSeg ? 3 * a.track.nseg : 0;
+  if (a.scratch ? (smem != 4 * staged || a.S != kStages)
+                : smem != smem_bytes(nc, m, a.track.nseg,
+                                     neighbour_floats(a.nb, hp_opt, a.S),
+                                     a.S))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.N + a.S - 1) / a.S, a.P);
   const cudaStream_t s = (cudaStream_t)stream;
+  if (a.scratch)
+    return (int)(hp_opt ? nl_launch_with<true, kStages, true>(a, grid, smem, s)
+                        : nl_launch_with<false, kStages, true>(a, grid, smem,
+                                                               s));
   if (a.S == kStages)
     return (int)(hp_opt ? nl_launch_with<true, kStages>(a, grid, smem, s)
                         : nl_launch_with<false, kStages>(a, grid, smem, s));

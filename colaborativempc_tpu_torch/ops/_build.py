@@ -45,9 +45,9 @@ SQP_CLOCKS_FLAG = "-DCMPC_SQP_QP_CLOCKS"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# cmpc_epoch_data: 22 pointers, P, N, nz, nc, mr, rho, reg, threads, chunk,
-# smem_bytes, stream
-_EPOCH_DATA_ARGS = [_P] * 22 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P]
+# cmpc_epoch_data: 23 pointers (the last the spill's scratch), P, N, nz, nc,
+# mr, rho, reg, threads, chunk, smem_bytes, stream
+_EPOCH_DATA_ARGS = [_P] * 23 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P]
 # cmpc_nl_qp / cmpc_mpcc_qp: the address of the pointer array (inputs,
 # track tables, outputs, slots), the constants, the slots' numbers, the
 # ints, the stream
@@ -131,10 +131,10 @@ def build(sources: Sequence[Path] = SOURCES,
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     lib = ctypes.CDLL(build()["path"])
-    lib.cmpc_admm_epoch.argtypes = ([_P] * 25 + [_I] * 6 + [ctypes.c_float]
-                                    + [_I] * 3 + [_P])
+    lib.cmpc_admm_epoch.argtypes = ([_P] * 27 + [_I] * 6 + [ctypes.c_float]
+                                    + [_I] * 4 + [_P])
     lib.cmpc_admm_epoch.restype = _I
-    lib.cmpc_lqr_affine.argtypes = [_P] * 12 + [_I] * 7 + [_P]
+    lib.cmpc_lqr_affine.argtypes = [_P] * 14 + [_I] * 8 + [_P]
     lib.cmpc_lqr_affine.restype = _I
     lib.cmpc_epoch_data.argtypes = _EPOCH_DATA_ARGS
     lib.cmpc_epoch_data.restype = _I

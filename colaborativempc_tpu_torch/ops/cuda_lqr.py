@@ -24,8 +24,11 @@ Pallas kernels).
 :func:`kernel_plan` chooses each epoch or affine launch's QPs per block,
 ring depth and shared-memory bytes from the shapes and the card's SM count;
 :func:`epoch_data_plan` the epoch-data launch's threads, chunk of stages and
-shared memory.
-Both are plain Python, so the CPU tests reach them.
+shared memory. Where a block's shared memory does not hold a QP, a plan
+names what it keeps in global memory instead (``spilled``) and the
+scratch that takes (``scratch_bytes``, allocated by the wrapper with
+``torch.empty`` on the tensors' device); the kernels' arithmetic is the
+same either way. Both are plain Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -51,16 +54,33 @@ H100_SMS = 132
 _RING_CANDIDATES = (32, 16, 8, 4, 2, 1)
 
 
+# What an epoch or affine launch keeps in global memory, by level (the
+# source's Spill): nothing; w, y and kff over the horizon; those and the
+# ring of fixed data (read where it lies in the inputs); those and the
+# chunk scratch (no shared memory at all).
+SPILLS = ("", "horizon", "horizon+ring", "horizon+ring+chunk")
+
+
 class KernelPlan(NamedTuple):
     """One launch's geometry: ``qps_per_block`` warps (one QP each) per
     block; ``ring`` stages per ring slot (``>= N``: the whole horizon is
     resident and loads once per launch, else two slots stream chunks of
-    ``ring`` stages); ``smem_bytes`` of dynamic shared memory per block;
-    ``waves``, the rounds of blocks the card runs one after another."""
+    ``ring`` stages; from ``horizon+ring`` the stages of one chunk of the
+    QP's scratch); ``smem_bytes`` of dynamic shared memory per block;
+    ``waves``, the rounds of blocks the card runs one after another;
+    ``spilled``, what lies in global memory (one of :data:`SPILLS`), and
+    ``scratch_bytes``, the global scratch that takes."""
     qps_per_block: int
     ring: int
     smem_bytes: int
     waves: int
+    spilled: str = ""
+    scratch_bytes: int = 0
+
+    @property
+    def spill(self) -> int:
+        """The level of :data:`SPILLS` (the source's ``Spill``)."""
+        return SPILLS.index(self.spilled)
 
 
 def stage_floats(nz: int, nc: int, mr: int) -> int:
@@ -69,59 +89,73 @@ def stage_floats(nz: int, nc: int, mr: int) -> int:
     return nz * nz + 3 * nz * nc + nc * nc + 3 * nz + nc + mr * (nz + nc + 5)
 
 
-def qp_floats(N: int, ring: int, nz: int, nc: int, mr: int) -> int:
-    """Floats of shared memory one QP takes (``qp_floats`` of the source):
-    w, y, kff over the horizon, one chunk's scratch, one or two ring
-    slots."""
+def qp_floats(N: int, ring: int, nz: int, nc: int, mr: int,
+              spill: int = 0) -> int:
+    """Floats of one QP's work at spill level ``spill`` (``qp_floats`` of
+    the source): w, y, kff over the horizon (below level 1), one chunk's
+    scratch, one or two ring slots (below level 2). In shared memory, or
+    in the global scratch at level 3."""
     S = min(ring, N)
-    slots = 1 if ring >= N else 2
-    return (2 * N * mr + N * nc + (S + 1) * nz + S * (nz + mr + nc) + nc
+    slots = 0 if spill >= 2 else (1 if ring >= N else 2)
+    horizon = 0 if spill >= 1 else 2 * N * mr + N * nc
+    return (horizon + (S + 1) * nz + S * (nz + mr + nc) + nc
             + slots * S * stage_floats(nz, nc, mr))
 
 
 def kernel_plan(P: int, N: int, nz: int, nc: int, mr: int,
                 sms: int = H100_SMS, ring: Optional[int] = None,
-                qps_per_block: Optional[int] = None) -> KernelPlan:
+                qps_per_block: Optional[int] = None,
+                spill: Optional[int] = None) -> KernelPlan:
     """The launch plan for P QPs of horizon N (``mr = 0``: the affine
     kernel). Among the whole horizon and rings of 32, 16, 8, 4, 2 and 1
     stages, and 1 to 4 QPs per block, it takes the fewest waves; then the
     resident horizon over a streamed ring, the deeper ring, the plan spread
     over more SMs, and more QPs per block. So the horizon stays resident
     when every QP's horizon fits on the card at once, and streams when a
-    ring saves waves. ``ring`` and ``qps_per_block`` pin a choice. Raises
-    past 32 states (lane i owns state row i) or where no plan fits one
-    block's shared memory."""
+    ring saves waves. Where no plan fits one block's shared memory, it
+    takes the first spill level of :data:`SPILLS` at which one does (the
+    last needs no shared memory). ``ring``, ``qps_per_block`` and
+    ``spill`` (a level) pin a choice. Raises on dimensions below 1 (mr
+    below 0), past 32 states (lane i owns state row i), and where the
+    pinned choices fit no block."""
+    if min(P, N, nz, nc) < 1 or mr < 0:
+        raise ValueError(f"P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}: the "
+                         "ADMM epoch and affine kernels take P, N, nz, nc "
+                         ">= 1 and mr >= 0")
     if nz > 32:
         raise ValueError(f"nz={nz}: the ADMM epoch and affine kernels take "
                          "at most 32 states (one lane per state row)")
     rings = ([ring] if ring is not None else
              [N] + [r for r in _RING_CANDIDATES if r < N])
     qpbs = [qps_per_block] if qps_per_block is not None else [4, 3, 2, 1]
-    best, best_key = None, None
-    for R in rings:
-        per_qp = 4 * qp_floats(N, R, nz, nc, mr)
-        for qpb in qpbs:
-            smem = qpb * per_qp
-            if smem > SMEM_PER_BLOCK:
-                continue
-            per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // qpb,
-                         SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
-            blocks = -(-P // qpb)
-            waves = -(-blocks // (sms * per_sm))
-            key = (waves, R < N, -min(R, N), -min(sms, blocks), -qpb)
-            if best_key is None or key < best_key:
-                best_key = key
-                best = KernelPlan(qpb, min(R, N), smem, waves)
-    if best is None:
-        least = 4 * min(qp_floats(N, R, nz, nc, mr) for R in rings)
-        raise ValueError(
-            f"no launch plan fits P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}, "
-            f"ring={ring}, qps_per_block={qps_per_block}: one QP takes at "
-            f"least {least} bytes of shared memory (w, y and kff over the "
-            f"horizon and the shortest ring), more than the "
-            f"{SMEM_PER_BLOCK} a block has (NL hp_opt with 32 agents, "
-            f"nc=64 and mr=97, is such a QP at N=125)")
-    return best
+    for level in [spill] if spill is not None else range(len(SPILLS)):
+        best, best_key = None, None
+        for R in rings:
+            per_qp = 4 * qp_floats(N, R, nz, nc, mr, level)
+            for qpb in qpbs:
+                smem = 0 if level == 3 else qpb * per_qp
+                if smem > SMEM_PER_BLOCK:
+                    continue
+                per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // qpb,
+                             SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+                blocks = -(-P // qpb)
+                waves = -(-blocks // (sms * per_sm))
+                key = (waves, R < N, -min(R, N), -min(sms, blocks), -qpb)
+                if best_key is None or key < best_key:
+                    scratch = ((4 * P * N * nc if level >= 1 else 0)
+                               + (P * per_qp if level == 3 else 0))
+                    best_key = key
+                    best = KernelPlan(qpb, min(R, N), smem, waves,
+                                      SPILLS[level], scratch)
+        if best is not None:
+            return best
+    raise ValueError(
+        f"no launch plan fits P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}, "
+        f"ring={ring}, qps_per_block={qps_per_block}, spill={spill}: one QP "
+        f"takes at least "
+        f"{4 * min(qp_floats(N, R, nz, nc, mr, spill) for R in rings)} "
+        f"bytes of shared memory, more than the {SMEM_PER_BLOCK} a block "
+        "has")
 
 
 def _mv(A, x):
@@ -221,6 +255,24 @@ def _plan_for(dev, plan, P, N, nz, nc, mr) -> KernelPlan:
     return kernel_plan(P, N, nz, nc, mr, sms=sms)
 
 
+def _spill_scratch(plan: KernelPlan, P, N, nz, nc, mr, dev):
+    """The global scratch of a spilled plan, ``(kff, work)``, each a tensor
+    or None where the plan keeps it in shared memory: kff over the horizon
+    ``(P, N, nc)`` from level 1, each QP's work at level 3. Freed after the
+    launch is queued, their memory goes only to work queued after it on the
+    same stream."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    kff = empty(P, N, nc) if plan.spill >= 1 else None
+    work = (empty(P, qp_floats(N, plan.ring, nz, nc, mr, 3))
+            if plan.spill == 3 else None)
+    return kff, work
+
+
+def _ptr_or_null(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0, *,
                              plan: Optional[KernelPlan] = None):
     """Batched affine LQR solve with fixed factors.
@@ -249,12 +301,14 @@ def lqr_affine_solve_batched(F, G, d, K, Quu_inv, Qxu, m, q, r, z0, *,
     lib = _build.load()
     z = torch.empty((P, N + 1, nz), dtype=torch.float32, device=dev)
     c = torch.empty((P, N, nc), dtype=torch.float32, device=dev)
+    kff, work = _spill_scratch(plan, P, N, nz, nc, 0, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cmpc_lqr_affine(
             *[_ptr(args[k]) for k in shapes], _ptr(z), _ptr(c),
-            P, N, nz, nc, plan.qps_per_block, plan.ring, plan.smem_bytes,
-            ctypes.c_void_p(stream))
+            _ptr_or_null(kff), _ptr_or_null(work),
+            P, N, nz, nc, plan.qps_per_block, plan.ring, plan.spill,
+            plan.smem_bytes, ctypes.c_void_p(stream))
     _raise_on(err, "lqr_affine_solve_batched")
     lqr_affine_solve_batched.launches += 1
     return z, c
@@ -308,15 +362,17 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
 
     z, c, w, y = out(P, N + 1, nz), out(P, N, nc), out(*row), out(*row)
     rp, rd = out(P, mr), out(P, mr)
+    kff, work = _spill_scratch(plan, P, N, nz, nc, mr, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cmpc_admm_epoch(
             *[_ptr(getattr(data, k)) for k in _EPOCH_FIELDS],
             _ptr(z0), _ptr(w0), _ptr(y0),
             _ptr(z), _ptr(c), _ptr(w), _ptr(y), _ptr(rp), _ptr(rd),
-            P, N, nz, nc, mr, int(epoch_len), ctypes.c_float(alpha),
-            plan.qps_per_block, plan.ring, plan.smem_bytes,
-            ctypes.c_void_p(stream))
+            _ptr_or_null(kff), _ptr_or_null(work), P, N, nz, nc, mr,
+            int(epoch_len),
+            ctypes.c_float(alpha), plan.qps_per_block, plan.ring, plan.spill,
+            plan.smem_bytes, ctypes.c_void_p(stream))
     _raise_on(err, "admm_epoch_batched")
     admm_epoch_batched.launches += 1
     return z, c, w, y, rp, rd
@@ -336,12 +392,16 @@ class EpochDataPlan(NamedTuple):
     them), stages streamed in chunks
     of ``chunk`` through two slots, ``smem_bytes`` of dynamic shared
     memory per block, ``blocks_per_sm`` resident at once, and ``waves``,
-    the rounds of blocks the card runs one after another."""
+    the rounds of blocks the card runs one after another; ``spilled``,
+    ``"block"`` where the block's whole layout lies in a global scratch of
+    ``scratch_bytes`` (one per block), else empty."""
     threads: int
     chunk: int
     smem_bytes: int
     blocks_per_sm: int
     waves: int
+    spilled: str = ""
+    scratch_bytes: int = 0
 
 
 def _round4(n: int) -> int:
@@ -413,37 +473,50 @@ def epoch_data_registers(nz: int, nc: int, mr: int) -> int:
 
 
 def epoch_data_plan(P: int, N: int, nz: int, nc: int, mr: int,
-                    sms: int = H100_SMS) -> EpochDataPlan:
+                    sms: int = H100_SMS,
+                    spill: Optional[bool] = None) -> EpochDataPlan:
     """The launch plan of :func:`epoch_data_batched` for P QPs of horizon N:
     :func:`epoch_data_threads` threads per block, at most
     :func:`epoch_data_registers` registers each; among chunks of 8, 4, 2
     and 1 stages (at most N) it takes the fewest waves, then the deeper
-    chunk. Raises where P, N, nz, nc or mr is below 1, or where the
-    block's shared memory does not fit even one stage per chunk."""
+    chunk. Where the block's shared memory does not fit even one stage per
+    chunk, the block's whole layout at one stage per chunk goes into a
+    global scratch (``spilled`` ``"block"``, no dynamic shared memory).
+    ``spill`` pins the choice (True only where the kernel takes rows of
+    runtime width: a dimension past 32 or nc past ``EPOCH_DATA_REG_NC``).
+    Raises where P, N, nz, nc or mr is below 1."""
     if min(P, N, nz, nc, mr) < 1:
         raise ValueError(f"P={P}, N={N}, nz={nz}, nc={nc}, mr={mr}: the "
                          "epoch-data kernel takes P, N, nz, nc, mr >= 1")
     threads = epoch_data_threads(nz, nc)
     regs = epoch_data_registers(nz, nc, mr)
-    best = None
-    for chunk in sorted({min(c, N) for c in _CHUNK_CANDIDATES},
-                        reverse=True):
-        smem = 4 * epoch_data_floats(nz, nc, mr, chunk)
-        if smem > SMEM_PER_BLOCK:
-            continue
+
+    def plan_at(chunk, smem, spilled="", scratch=0):
         per_sm = min(MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // (threads // 32),
                      SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
                      REGISTERS_PER_SM // (regs * threads))
-        plan = EpochDataPlan(threads, chunk, smem, per_sm,
-                             -(-P // (sms * per_sm)))
-        if best is None or plan.waves < best.waves:
-            best = plan
+        return EpochDataPlan(threads, chunk, smem, per_sm,
+                             -(-P // (sms * per_sm)), spilled, scratch)
+    best = None
+    if not spill:
+        for chunk in sorted({min(c, N) for c in _CHUNK_CANDIDATES},
+                            reverse=True):
+            smem = 4 * epoch_data_floats(nz, nc, mr, chunk)
+            if smem <= SMEM_PER_BLOCK:
+                plan = plan_at(chunk, smem)
+                if best is None or plan.waves < best.waves:
+                    best = plan
+    if best is None and spill is not False:
+        if max(nz, nc, mr) <= 32 and nc <= EPOCH_DATA_REG_NC:
+            raise ValueError(f"nz={nz}, nc={nc}, mr={mr}: the epoch-data "
+                             "kernel spills only rows of runtime width")
+        best = plan_at(1, 0, "block", 4 * P * epoch_data_floats(nz, nc, mr, 1))
     if best is None:
         raise ValueError(
             f"nz={nz}, nc={nc}, mr={mr}: the epoch-data kernel's block "
             f"takes {4 * epoch_data_floats(nz, nc, mr, 1)} bytes of shared "
             f"memory at one stage per chunk, more than the "
-            f"{SMEM_PER_BLOCK} a block has")
+            f"{SMEM_PER_BLOCK} a block has, and the spill is pinned off")
     return best
 
 
@@ -486,7 +559,9 @@ _plan_cached = functools.lru_cache(maxsize=256)(epoch_data_plan)
 def _epoch_data_args(qp, rho, rho_scale, reg):
     """Check ``qp``, plan and allocate the outputs of one epoch-data launch.
     Returns the arguments of ``cmpc_epoch_data`` up to the stream, the
-    fields of ADMMEpochData, the plan and the device."""
+    fields of ADMMEpochData, the plan, the device and the spill's scratch
+    (None unless the plan spills), which the caller holds until the launch
+    is queued."""
     dev = _cuda_device(qp.lo)
     F, G, d = qp.dyn.F, qp.dyn.G, qp.dyn.d
     P, N, mr = qp.lo.shape
@@ -513,13 +588,19 @@ def _epoch_data_args(qp, rho, rho_scale, reg):
     sizes = [math.prod(sh) for sh in out_shapes]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     outs = [v.view(sh) for v, sh in zip(flat.split(sizes), out_shapes)]
+    # the spill's per-block layouts, kept by the caller until the launch is
+    # queued (then their memory goes only to work queued after it on the
+    # same stream)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.spilled else None)
     ptrs = [None if args[k] is None else args[k].data_ptr() for k in shapes]
     ptrs += [rs.data_ptr()] + [t.data_ptr() for t in outs]
+    ptrs.append(None if scratch is None else scratch.data_ptr())
     K, Qi, Qxu, m, Dm, Em, rv, flo, fhi = outs
     fields = (F, G, d, K, Qi, Qxu, m, qp.cost.q, qp.cost.r, Dm, Em, qp.lo,
               qp.hi, rv, flo, fhi)
     return ((*ptrs, P, N, nz, nc, mr, rho, reg, plan.threads, plan.chunk,
-             plan.smem_bytes), fields, plan, dev)
+             plan.smem_bytes), fields, plan, dev, scratch)
 
 
 def _on(dev: torch.device):
@@ -546,7 +627,8 @@ def epoch_data_batched(qp, rho: float = 10.0, rho_scale=1.0,
       allocation, each contiguous).
     """
     from colaborativempc_tpu_torch.ops import _build
-    args, fields, _, dev = _epoch_data_args(qp, rho, rho_scale, reg)
+    args, fields, _, dev, scratch = _epoch_data_args(qp, rho, rho_scale,
+                                                     reg)
     lib = _build.load()
     with _on(dev):
         err = lib.cmpc_epoch_data(*args,
@@ -566,7 +648,8 @@ def epoch_data_clocked(qp, rho: float = 10.0, rho_scale=1.0,
     last warp's clock at each barrier of a block, in order), the labels'
     names and the plan."""
     from colaborativempc_tpu_torch.ops import _build
-    args, fields, plan, dev = _epoch_data_args(qp, rho, rho_scale, reg)
+    args, fields, plan, dev, scratch = _epoch_data_args(qp, rho, rho_scale,
+                                                        reg)
     lib = _build.load_epoch_data_clocks(source)
     P, N = qp.lo.shape[:2]
     n = lib.cmpc_epoch_data_clock_stamps(N, plan.chunk)

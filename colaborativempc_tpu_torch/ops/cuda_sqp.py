@@ -157,6 +157,10 @@ class SqpPlan(NamedTuple):
     stages: int       # per block
     blocks: int       # stage groups x problems
     smem_bytes: int   # dynamic shared memory per block
+    # "image" where the image and the neighbour arrays of every block lie
+    # in a global scratch of scratch_bytes (NL only), else empty
+    spilled: str = ""
+    scratch_bytes: int = 0
 
 
 def image_floats(nc: int, m: int, stages: int = STAGES_PER_BLOCK) -> int:
@@ -176,22 +180,37 @@ def neighbour_floats(nb: int, hp_opt: bool, stages: int) -> int:
 
 
 def sqp_qp_plan(P: int, N: int, nc: int, m: int, nseg: int,
-                nb=None, hp_opt: bool = False) -> SqpPlan:
+                nb=None, hp_opt: bool = False, spill=None) -> SqpPlan:
     """The launch of one build: the image, the NL neighbour arrays (``nb``
     neighbours; ``None`` for MPCC) and, where they fit, the lane's three
     track rows in dynamic shared memory (the source's ``smem_bytes``). 8
     stages per block; an NL build takes the most that fit in
-    ``SQP_SMEM_LIMIT`` bytes, and raises where one stage does not fit."""
+    ``SQP_SMEM_LIMIT`` bytes. Where one stage does not fit, the image and
+    the neighbour arrays of 8 stages per block go into a global scratch
+    (``spilled`` ``"image"``) and only the track rows stay in shared
+    memory. ``spill`` pins the choice (NL only). Raises where P or N is
+    below 1, or where a pinned choice does not fit."""
+    if P < 1 or N < 1:
+        raise ValueError(f"P={P}, N={N}: a build takes P, N >= 1")
     staged = 3 * nseg if nseg <= MAX_STAGED_SEGMENTS else 0
-    for S in range(STAGES_PER_BLOCK, 0 if nb is not None else 7, -1):
-        extra = 0 if nb is None else neighbour_floats(nb, hp_opt, S)
-        smem = 4 * (image_floats(nc, m, S) + extra + staged)
-        if smem <= SQP_SMEM_LIMIT:
-            return SqpPlan(THREADS, S, -(-N // S) * P, smem)
-    raise ValueError(
-        f"nc={nc}, m={m}, {nb} neighbours, {nseg} track segments: one stage "
-        f"of the build takes {smem} bytes of shared memory, more than the "
-        f"{SQP_SMEM_LIMIT} a block may take")
+    if not spill:
+        for S in range(STAGES_PER_BLOCK, 0 if nb is not None else 7, -1):
+            extra = 0 if nb is None else neighbour_floats(nb, hp_opt, S)
+            smem = 4 * (image_floats(nc, m, S) + extra + staged)
+            if smem <= SQP_SMEM_LIMIT:
+                return SqpPlan(THREADS, S, -(-N // S) * P, smem)
+    if nb is None or spill is False:
+        least = 4 * (image_floats(nc, m, 1) + staged + (
+            0 if nb is None else neighbour_floats(nb, hp_opt, 1)))
+        raise ValueError(
+            f"nc={nc}, m={m}, {nb} neighbours, {nseg} track segments, "
+            f"spill={spill}: one stage of the build takes {least} bytes of "
+            f"shared memory, more than the {SQP_SMEM_LIMIT} a block may "
+            "take, and the spill is pinned off (MPCC has none)")
+    S = STAGES_PER_BLOCK
+    blocks = -(-N // S) * P
+    return SqpPlan(THREADS, S, blocks, 4 * staged, "image", 4 * blocks * (
+        image_floats(nc, m, S) + neighbour_floats(nb, hp_opt, S)))
 
 
 def nl_fields(gains, limits):
@@ -415,18 +434,21 @@ def _nl_args(track, gains, limits, model, N, dt, x_bar, u_bar, lambdas,
     lane_t = ln if isinstance(ln, torch.Tensor) else None
     tr, nseg = _track_args(track, dev)
     outs = _outputs(P, N, nc, m, dev)
-    ptrs = _pointers([x_bar, u_bar, lambdas, neigh_xy, master_mask,
-                      planes0 if hp_opt else None, lane_t, *tr, *outs], sp)
     if u_trust is not None:
         u_trust = tuple(float(v) for v in u_trust)
     plan = sqp_qp_plan(P, N, nc, m, nseg, nb, hp_opt)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.spilled else None)
+    ptrs = _pointers([x_bar, u_bar, lambdas, neigh_xy, master_mask,
+                      planes0 if hp_opt else None, lane_t, *tr, *outs],
+                     sp + [None if scratch is None else scratch.data_ptr()])
     ints = (P, N, nb, COUPLINGS.index(coupling), int(u_trust is not None),
             matvec_order(P * N, "row"), nseg,
             0 if lane_t is not None else ln, plan.smem_bytes, plan.stages,
             *ss)
     args = (ptrs, _nl_consts_array(model, float(dt), coupling, u_trust),
             _doubles(sv), _ints(ints))
-    return args, outs, dev, alive + [lane_t, tr], plan
+    return args, outs, dev, alive + [lane_t, tr, scratch], plan
 
 
 def _mpcc_args(track, gains, p, N, dt, x_bar, u_bar, bounds):

@@ -545,26 +545,35 @@ def main(argv=None):
     out = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda}
     if "sum" in parts:
-        out["sum"] = read_sum(list(range(1, 34)) + [48, 64, 96],
-                              [40, 440, 40_960], gen, dev)
+        # up to 200 terms: eu / hp from 49 agents (48 neighbours and more),
+        # eu 64 agents' 63, at the builds' batches (fleet x N outputs)
+        out["sum"] = read_sum(list(range(1, 34)) + [48, 49, 63, 64, 70, 96,
+                                                    99, 100, 128, 200],
+                              [40, 440, 1280, 2000, 40_960], gen, dev)
     if "gemm" in parts:
         # (P, N, nc, mr): eu / LPV 10, 32 and 64 agents, hp_opt 9, 11, 16,
         # 17 and 32 agents at the batches the paths give, and the
         # boundaries 32 / 33
+        # boundaries 32 / 33; the spilled epoch data's fleets: hp_opt 36
+        # and 48 agents (nc 72, 96), at N=125 too, LPV 1000 agents (1003
+        # rows) and hp_opt 100 agents (nc 200, mr 301)
         shapes = [(20, 20, 2, 13), (256, 20, 2, 35), (2048, 20, 2, 35),
                   (64, 20, 2, 67), (18, 20, 18, 28), (22, 20, 22, 34),
                   (32, 20, 32, 49), (34, 20, 34, 52), (64, 20, 64, 97),
                   (7, 20, 32, 32), (7, 20, 33, 33), (3, 125, 32, 49),
-                  (352, 20, 22, 34)]
+                  (352, 20, 22, 34), (36, 20, 72, 109), (48, 20, 96, 145),
+                  (36, 125, 72, 109), (1000, 20, 2, 1003),
+                  (100, 20, 200, 301)]
         out["gemm"] = read_gemm(shapes, gen, dev)
     if "solve_batches" in parts:
         out["solve_batches"] = read_solve_batches(
-            [18, 20, 22, 24, 26, 28, 30, 32, 34, 40, 64],
-            [22, 64, 256, 704, 1024, 2048], gen, dev)
+            [18, 20, 22, 24, 26, 28, 30, 32, 34, 40, 64, 72, 96, 98, 128,
+             200], [22, 64, 256, 704, 720, 960, 1024, 2048, 4500], gen, dev)
     if "cholesky" in parts:
+        # past 97 columns: hp_opt from 49 agents (nc 98 to 200)
         out["cholesky"] = read_cholesky(
-            [2, 8, 18, 22, 32, 33, 34, 40, 48, 64, 66], [2, 2048], gen,
-            dev)
+            [2, 8, 18, 22, 32, 33, 34, 40, 48, 64, 66, 72, 96, 98, 128, 144,
+             200], [2, 2048], gen, dev)
     if "matvec" in parts:
         out["matvec"] = read_matvec(
             sorted(int(v) for v in args.batches.split(",")), gen, dev)

@@ -308,26 +308,61 @@ def test_cuda_affine_kernel_matches_plain_twin_past_32_controls(cuda, nc):
     close(got[1], ref[1], 5e-5)
 
 
+def held_epoch(got, data, z0, w0, y0, **kw):
+    """An epoch launch against its plain twin on the CPU: z, c, w, y within
+    1e-3; each residual (r_prim, r_dual) within 1e-4 of the twin's, or else
+    held against the twin in float64: in the mean over the QPs of each
+    QP's max |error|, the kernel no farther from it than twice the larger
+    of the float32 twin's distance and 1e-4 (``chip_smoke.py``
+    TOL_RESID_F64: over a long horizon or many rows the kernel's
+    sequential sums part from the twin's library products past 1e-4 on
+    the residuals, up to 2.1x as far from float64 in that measure already
+    at shapes that fit shared memory: ``scripts/epoch_f64.py``)."""
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0, **kw)
+    for g, r in zip(got[:4], ref[:4]):
+        close(g, r, 1e-3)
+    ref64 = None
+    for i, (g, r) in enumerate(zip(got[4:], ref[4:])):
+        g = g.cpu()
+        if float((g - r).abs().max()) <= 1e-4:
+            continue
+        if ref64 is None:
+            ref64 = cuda_lqr.admm_epoch_batched_plain(
+                type(data)(*(t.double() for t in data)), z0.double(),
+                w0.double(), y0.double(), **kw)
+        r64 = ref64[4 + i]
+        plain = float((r.double() - r64).abs().amax(dim=1).mean())
+        kernel = float((g.double() - r64).abs().amax(dim=1).mean())
+        assert kernel <= 2.0 * max(plain, 1e-4), (i, kernel, plain)
+
+
 @pytest.mark.cuda
-def test_cuda_wrappers_raise_where_no_plan_fits(cuda):
-    """No fallback past the block's shared memory: the epoch kernel at NL
-    hp_opt's 32 agents and N=125 (nc=64, mr=97), the epoch data at 1200
-    rows and the NL build at 70 hp_opt neighbours raise a ValueError that
-    names the limit, and launch nothing."""
+def test_cuda_wrappers_spill_where_shared_memory_does_not_fit(cuda):
+    """No size limit but device memory: the inputs that raised before the
+    spill (the epoch kernel at NL hp_opt's 32 agents and N=125, nc=64 and
+    mr=97; the epoch data at 1200 rows; the NL build at 70 hp_opt
+    neighbours) now launch once each, from a plan that names what it
+    spilled, and match their plain versions (the epoch by
+    ``held_epoch``, the others bit for bit)."""
     from colaborativempc_tpu_torch.ops import cuda_sqp
     from colaborativempc_tpu_torch.planners import nl
     qp, z0, w0, y0 = problems(59, P=1, N=125, nc=64, mr=97)
-    data = to(admm_epoch_inputs(qp), cuda)
+    data = admm_epoch_inputs(qp)
+    assert cuda_lqr.kernel_plan(1, 125, 11, 64, 97).spilled == "horizon"
     before = cuda_lqr.admm_epoch_batched.launches
-    with pytest.raises(ValueError, match="no launch plan fits"):
-        cuda_lqr.admm_epoch_batched(data, z0.to(cuda), w0.to(cuda),
-                                    y0.to(cuda), epoch_len=5)
-    assert cuda_lqr.admm_epoch_batched.launches == before
-    big, _, _, _ = problems(60, P=1, N=2, nc=2, mr=1200)
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda), epoch_len=5)
+    torch.cuda.synchronize()
+    assert cuda_lqr.admm_epoch_batched.launches == before + 1
+    held_epoch(got, data, z0, w0, y0, epoch_len=5)
+    big, _, _, _ = problems(60, P=2, N=2, nc=2, mr=1200)
+    big = to(big, cuda)
+    assert cuda_lqr.epoch_data_plan(2, 2, 11, 2, 1200).spilled == "block"
     before = cuda_lqr.epoch_data_batched.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        admm_epoch_inputs(to(big, cuda))
-    assert cuda_lqr.epoch_data_batched.launches == before
+    got = admm_epoch_inputs(big)
+    torch.cuda.synchronize()
+    assert cuda_lqr.epoch_data_batched.launches == before + 1
+    assert bits_differing(got, admm_epoch_inputs_plain(big)) == 0
     args = sqp_build_case(cuda, "nl_hp_opt_9_agents")[1]
     P, N = args["x_bar"].shape[0], args["N"]
     args["neigh_xy"] = torch.zeros((P, N + 1, 70, 2), device=cuda)
@@ -335,9 +370,83 @@ def test_cuda_wrappers_raise_where_no_plan_fits(cuda):
     args["master_mask"] = torch.zeros((P, 70), device=cuda)
     args["planes0"] = torch.zeros((P, 70, N, 2), device=cuda)
     before = cuda_sqp.nl_qp_batched.launches
-    with pytest.raises(ValueError, match="one stage of the build takes"):
-        nl.build_nl_qp(**args)
-    assert cuda_sqp.nl_qp_batched.launches == before
+    got = nl.build_nl_qp(**args)
+    torch.cuda.synchronize()
+    assert cuda_sqp.nl_qp_batched.launches == before + 1
+    assert bits_differing(qp_leaves(got),
+                          qp_leaves(nl.build_nl_qp_plain(**args))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", [1, 2, 3])
+@pytest.mark.parametrize("P,N,nc,mr,ring", [
+    (7, 20, 2, 6, None),      # one lane per index, the horizon resident
+    (9, 45, 2, 6, 8),         # a streamed ring (below level 2)
+    (5, 20, 34, 52, 4),       # lanes over controls and rows past 32
+])
+def test_cuda_spilled_epoch_kernels_keep_the_bits(cuda, spill, P, N, nc, mr,
+                                                  ring):
+    """A launch whose plan spills w, y and kff (level 1), the ring too (2)
+    or all its work (3) to global memory gives the bits of the same launch
+    from shared memory, for the epoch kernel and the affine kernel."""
+    qp, z0, w0, y0 = problems(300 + nc + N, P=P, N=N, nc=nc, mr=mr)
+    d = to(admm_epoch_inputs(qp, rho=10.0), cuda)
+    z0, w0, y0 = z0.to(cuda), w0.to(cuda), y0.to(cuda)
+    pin = dict(ring=ring, qps_per_block=1)
+    for m in (mr, 0):
+        shared = cuda_lqr.kernel_plan(P, N, 11, nc, m, spill=0, **pin)
+        spilled = cuda_lqr.kernel_plan(P, N, 11, nc, m, spill=spill, **pin)
+        assert spilled.spilled == cuda_lqr.SPILLS[spill]
+        assert spilled.scratch_bytes > 0 and shared.spilled == ""
+        if m:
+            run = lambda plan: cuda_lqr.admm_epoch_batched(  # noqa: E731
+                d, z0, w0, y0, epoch_len=7, plan=plan)
+        else:
+            run = lambda plan: cuda_lqr.lqr_affine_solve_batched(  # noqa
+                d.F, d.G, d.d, d.K, d.Quu_inv, d.Qxu, d.m, d.q, d.r, z0,
+                plan=plan)
+        a, b = run(shared), run(spilled)
+        torch.cuda.synchronize()
+        assert bits_differing(a, b) == 0
+
+
+# the first fleets past one block's shared memory, (P = agents of one
+# fleet, N, nc, mr): NL hp_opt 31 and 36 agents at N=125 (w, y and kff
+# spilled), 48 agents at N=20 (the ring too), LPV 200 agents at N=125 and
+# 760 at N=20
+EPOCH_SPILL_SHAPES = {
+    "hp_opt_31_agents_n125": (31, 125, 62, 94),
+    "hp_opt_36_agents_n125": (36, 125, 72, 109),
+    "hp_opt_48_agents": (48, 20, 96, 145),
+    "lpv_200_agents_n125": (200, 125, 2, 203),
+    "lpv_760_agents": (760, 20, 2, 763),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EPOCH_SPILL_SHAPES))
+def test_cuda_epoch_kernels_at_the_spill_shapes_match_plain_twins(cuda,
+                                                                   case):
+    """The epoch kernel at the first fleets that spill, under the plan
+    ``kernel_plan`` picks (``held_epoch``), and the affine kernel there
+    (mr = 0) within 5e-5."""
+    P, N, nc, mr = EPOCH_SPILL_SHAPES[case]
+    qp, z0, w0, y0 = problems(400 + P + N, P=P, N=N, nc=nc, mr=mr)
+    data = admm_epoch_inputs(qp, rho=10.0)
+    plan = cuda_lqr.kernel_plan(P, N, 11, nc, mr)
+    assert plan.spilled in ("horizon", "horizon+ring")
+    got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
+                                      w0.to(cuda), y0.to(cuda),
+                                      epoch_len=10, alpha=1.6)
+    torch.cuda.synchronize()
+    held_epoch(got, data, z0, w0, y0, epoch_len=10, alpha=1.6)
+    args = (data.F, data.G, data.d, data.K, data.Quu_inv, data.Qxu, data.m,
+            data.q, data.r, z0)
+    got = cuda_lqr.lqr_affine_solve_batched(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    ref = cuda_lqr.lqr_affine_solve_batched_plain(*args)
+    close(got[0], ref[0], 5e-5)
+    close(got[1], ref[1], 5e-5)
 
 
 @pytest.mark.cuda
@@ -478,6 +587,12 @@ EPOCH_DATA_CASES = {
     "nl_hp_opt_32_agents": (64, 20, 11, 64, 97, "random"),
     "nc32_mr32": (7, 20, 11, 32, 32, "random"),
     "nc33_mr33": (7, 20, 11, 33, 33, "random"),
+    # past one block's shared memory, the block's layout in a global
+    # scratch: NL hp_opt 36 and 48 agents (also 36 at N=125), LPV 1000
+    "nl_hp_opt_36_agents": (36, 20, 11, 72, 109, "random"),
+    "nl_hp_opt_48_agents": (48, 20, 11, 96, 145, "random"),
+    "nl_hp_opt_36_agents_n125": (36, 125, 11, 72, 109, "random"),
+    "lpv_1000_agents": (1000, 20, 11, 2, 1003, "random"),
 }
 
 
@@ -520,6 +635,27 @@ def test_cuda_epoch_data_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P,N,nc,mr", [(256, 20, 2, 35), (16, 20, 6, 40),
+                                       (22, 20, 22, 34)])
+def test_cuda_spilled_epoch_data_keeps_the_bits(cuda, P, N, nc, mr, monkeypatch):
+    """The epoch data with its block's layout spilled to a global scratch
+    (pinned) gives the bits of the launch from shared memory, for each
+    instantiation that spills (nc <= 2, nc <= 8 with rows of runtime
+    width, the factor in shared memory)."""
+    qp, _, _, _ = problems(500 + nc, P=P, N=N, nc=nc, mr=mr)
+    qp = to(qp, cuda)
+    shared = admm_epoch_inputs(qp, 10.0, 1.3)
+    plain_plan = cuda_lqr.epoch_data_plan
+    monkeypatch.setattr(cuda_lqr, "_plan_cached", lambda *a: plain_plan(
+        *a, spill=True))
+    before = cuda_lqr.epoch_data_batched.launches
+    spilled = admm_epoch_inputs(qp, 10.0, 1.3)
+    torch.cuda.synchronize()
+    assert cuda_lqr.epoch_data_batched.launches == before + 1
+    assert bits_differing(spilled, shared) == 0
+
+
+@pytest.mark.cuda
 def test_cuda_epoch_data_at_hp_opt_11_agents_in_704_fleets_as_near_float64(
         cuda):
     """NL hp_opt's 11 agents at the Monte-Carlo's 64 scenarios (704 QPs,
@@ -549,6 +685,42 @@ def test_cuda_epoch_data_at_hp_opt_11_agents_in_704_fleets_as_near_float64(
         for name, x in (("kernel", g), ("plain", r)):
             share[name] = max(share[name], float(
                 (x[fin].double() - r64[fin]).abs().max()) / scale)
+    assert share["kernel"] <= 1.5 * share["plain"], share
+
+
+def share_from_f64(got, ref, ref64):
+    """The kernel's and the float32 plain version's largest distance from
+    the float64 plain version, each as a share of the field's scale."""
+    share = {"kernel": 0.0, "plain": 0.0}
+    for g, r, r64 in zip(got, ref, ref64):
+        fin = torch.isfinite(r64)
+        if not bool(fin.any()):
+            continue
+        scale = max(1.0, float(r64[fin].abs().max()))
+        for name, x in (("kernel", g), ("plain", r)):
+            share[name] = max(share[name], float(
+                (x[fin].double() - r64[fin]).abs().max()) / scale)
+    return share
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_data_at_hp_opt_100_agents_as_near_float64(cuda):
+    """NL hp_opt's 100 agents (nc=200, mr=301; the block spilled), past the
+    widths whose library order the kernel follows (cuBLAS's Qxu K over 200
+    terms, MAGMA's K solves at 128-200 controls in small batches): each
+    field within 1e-4 of its scale of the float32 plain version, and no
+    farther from the float64 plain version than 1.5 times it is."""
+    qp, _, _, _ = problems(82, P=100, N=20, nc=200, mr=301)
+    qp = to(qp, cuda)
+    assert cuda_lqr.epoch_data_plan(100, 20, 11, 200, 301).spilled == "block"
+    got = admm_epoch_inputs(qp, 10.0, 1.3)
+    ref = admm_epoch_inputs_plain(qp, 10.0, 1.3)
+    close_to_scale(got, ref, 1e-4)
+    ref64 = admm_epoch_inputs_plain(
+        type(qp)(*(type(x)(*(t.double() for t in x)) if isinstance(x, tuple)
+                   else None if x is None else x.double() for x in qp)),
+        10.0, 1.3)
+    share = share_from_f64(got, ref, ref64)
     assert share["kernel"] <= 1.5 * share["plain"], share
 
 
@@ -701,6 +873,11 @@ SQP_CASES = {
     "nl_hp_opt_11_agents": ("nl", 22, 11, 20, dict(coupling="hp_opt")),
     "nl_hp_opt_16_agents": ("nl", 32, 16, 20, dict(coupling="hp_opt")),
     "nl_hp_opt_32_agents": ("nl", 64, 32, 20, dict(coupling="hp_opt")),
+    # past one block's shared memory, the image in a global scratch:
+    # hp_opt 72 and 100 agents; and eu 64 agents (63 terms in the sum)
+    "nl_hp_opt_72_agents": ("nl", 72, 72, 20, dict(coupling="hp_opt")),
+    "nl_hp_opt_100_agents": ("nl", 100, 100, 20, dict(coupling="hp_opt")),
+    "nl_eu_64_agents": ("nl", 64, 64, 20, {}),
 }
 
 
@@ -842,6 +1019,54 @@ def test_cuda_build_kernels_launch_once_per_sqp_build(cuda, family):
     assert solves and not forbidden
     assert launched == ((len(solves), 0) if family == "nl"
                         else (0, len(solves)))
+
+
+@pytest.mark.cuda
+def test_cuda_nl_build_past_63_neighbours_as_near_float64(cuda):
+    """NL eu 66 agents (65 neighbours, 1,320 outputs of the price sum),
+    where torch.sum splits the terms over four warps, an order the kernel
+    does not follow: every field within 1e-4 of its scale of the float32
+    plain version, the entries off the price sum bit for bit, and the
+    kernel no farther from the float64 plain version than 1.5 times it
+    is."""
+    from colaborativempc_tpu_torch.planners import nl
+    from colaborativempc_tpu_torch.scripts.sqp_qp_split import (
+        nl_build_args,
+    )
+    args = nl_build_args(cuda, 66, 66, 20, "eu")
+    got = nl.build_nl_qp(**args)
+    ref = nl.build_nl_qp_plain(**args)
+    qp_close_to_scale(got, ref, 1e-4)
+    g, r = qp_leaves(got), qp_leaves(ref)
+    assert bits_differing(g[:4] + g[5:], r[:4] + r[5:]) == 0   # q aside
+    a64 = {k: (v.double() if isinstance(v, torch.Tensor)
+               and v.is_floating_point() and k in ("x_bar", "u_bar",
+                                                   "lambdas", "neigh_xy",
+                                                   "master_mask") else v)
+           for k, v in args.items()}
+    share = share_from_f64(g, r, qp_leaves(nl.build_nl_qp_plain(**a64)))
+    assert share["kernel"] <= 1.5 * share["plain"], share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nl_eu_10_agents", "nl_hp_opt_9_agents",
+                                  "nl_eu_3000_segments"])
+def test_cuda_spilled_nl_build_keeps_the_bits(cuda, case, monkeypatch):
+    """The NL build with its image and neighbour arrays spilled to a global
+    scratch (pinned) gives the bits of the launch from shared memory, on
+    a staged track and on one searched where it lies."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    from colaborativempc_tpu_torch.planners import nl
+    args = sqp_build_case(cuda, case)[1]
+    shared = nl.build_nl_qp(**args)
+    plain_plan = cuda_sqp.sqp_qp_plan
+    monkeypatch.setattr(cuda_sqp, "sqp_qp_plan", lambda *a: plain_plan(
+        *a, spill=True))
+    before = cuda_sqp.nl_qp_batched.launches
+    spilled = nl.build_nl_qp(**args)
+    torch.cuda.synchronize()
+    assert cuda_sqp.nl_qp_batched.launches == before + 1
+    assert bits_differing(qp_leaves(spilled), qp_leaves(shared)) == 0
 
 
 @pytest.mark.cuda

@@ -43,8 +43,9 @@ from colaborativempc_tpu_torch.runtime import (
     battery, ocd, racing, simulate,
 )
 from colaborativempc_tpu_torch.scripts import (
-    compare_reference, eval_lpv_model, experiment_battery, fleet_f64,
-    lpv_main, monte_carlo, mpcc_main, nl_main, stress_study,
+    bench_suite, compare_reference, epoch_f64, eval_lpv_model,
+    experiment_battery, fleet_f64, lpv_main, monte_carlo, mpcc_main, nl_main,
+    stress_study,
 )
 
 # a small fixed thread count: the suite runs several worker processes on
@@ -171,6 +172,7 @@ def test_builder_defaults_to_cuda_and_raises_without_a_card(
     (stress_study, ["latency", "--n", "6", "--steps", "1"]),
     (eval_lpv_model, ["{out}"]),
     (compare_reference, ["--ref", "{out}", "--steps", "1"]),
+    (bench_suite, ["--tiny"]),
 ])
 def test_script_main_defaults_to_cuda_and_raises_without_a_card(
         script, argv, monkeypatch, tmp_path):
@@ -200,6 +202,27 @@ def test_fleet_f64_ratios_per_scenario_and_script_without_a_card(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         fleet_f64.main(["--seeds", "0"])
+
+
+def test_epoch_f64_distances_and_script_without_a_card(monkeypatch):
+    """``scripts/epoch_f64.py``'s distances (chip_smoke.py's float64 hold
+    on the epoch's residuals at the spill shapes): the kernel's from the
+    twin, and each one's from float64 over the batch and in the mean over
+    the QPs of each QP's max; its main needs a card."""
+    f64 = [torch.zeros(2, 3) for _ in epoch_f64.FIELDS]
+    twin = [t.clone() for t in f64]
+    kernel = [t.clone() for t in f64]
+    kernel[5][0, 1], kernel[5][1, 2] = 0.3, -0.1      # r_dual per QP
+    twin[5][0, 0] = 0.1
+    d = epoch_f64.f64_distances(kernel, twin, f64)
+    assert set(d) == set(epoch_f64.FIELDS) and d["z"]["kernel_f64"] == 0
+    assert d["rd"]["kernel_twin"] == pytest.approx(0.3)
+    assert d["rd"]["kernel_f64"] == pytest.approx(0.3)
+    assert d["rd"]["kernel_f64_mean"] == pytest.approx(0.2)
+    assert d["rd"]["twin_f64_mean"] == pytest.approx(0.05)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        epoch_f64.main(["--seeds", "0"])
 
 
 # --- launch plans -----------------------------------------------------------
@@ -253,21 +276,187 @@ def test_kernel_plan_pins_a_ring_and_a_ragged_block():
         125, 8, 11, 2, 6)
     rag = kernel_plan(7, 20, 11, 2, 6, qps_per_block=4)
     assert rag.qps_per_block == 4 and 7 % rag.qps_per_block != 0
+    # a pinned ring of the whole 1000-stage horizon fits only with the
+    # ring read where it lies; pinned in shared memory, it raises
+    assert kernel_plan(4, 1000, 11, 2, 6, ring=1000).spilled == \
+        "horizon+ring"
     with pytest.raises(ValueError, match="no launch plan fits"):
-        kernel_plan(4, 1000, 11, 2, 6, ring=1000)
+        kernel_plan(4, 1000, 11, 2, 6, ring=1000, spill=0)
 
 
 @pytest.mark.parametrize("nz, nc, mr, N, match", [
     (33, 2, 6, 20, "nz=33"),              # one lane per state row
-    (11, 64, 97, 125, "no launch plan fits"),  # NL hp_opt 32 agents
+    (11, 0, 6, 20, "nc=0"),               # a dimension below 1
 ])
 def test_kernel_plan_refuses_what_the_epoch_kernel_does_not_take(
         nz, nc, mr, N, match):
-    """Past 32 states, and where one QP's w, y and kff over the horizon and
-    the shortest ring pass one block's shared memory, the plan raises a
-    ValueError that names the dimensions; the wrappers never fall back."""
+    """Past 32 states and below one control the plan raises a ValueError
+    that names the dimensions; the wrappers never fall back. (Past the
+    block's shared memory it spills: the test below.)"""
     with pytest.raises(ValueError, match=match):
         kernel_plan(8, N, nz, nc, mr)
+
+
+# The plans the kernels took before the plans could spill (kernel_plan,
+# epoch_data_plan and sqp_qp_plan of the parent commit, at the shapes this
+# file lists), as tuples of their fields then: every one is kept, field
+# for field, with nothing spilled.
+PARENT_KERNEL_PLANS = {
+    "lpv_headline": (3, 20, 90876, 1), "nl_b64": (1, 20, 30292, 1),
+    "hp_opt": (4, 4, 89616, 1), "n125": (3, 8, 88164, 1),
+    "p1": (4, 20, 121168, 1), "p7": (1, 20, 30292, 1),
+    "affine_n125": (3, 16, 94548, 1), "hp_opt_n125": (3, 4, 99972, 1),
+}
+PARENT_DATA_PLANS = {
+    "lpv_headline": (192, 8, 46112, 4, 2), "hp_opt": (288, 8, 61728, 2, 3),
+    "mpcc_race": (192, 8, 46112, 4, 1), "mpcc_battery": (192, 8, 46112, 4, 1),
+    "n125": (192, 8, 46112, 4, 2), "p4096": (192, 8, 46112, 4, 8),
+    "nz32": (1024, 2, 183552, 1, 1), "lpv_32_agents": (192, 8, 93328, 2, 1),
+    "hp_opt_11_agents": (896, 4, 128160, 1, 1),
+    "hp_opt_16_agents": (1024, 4, 225024, 1, 1),
+    "hp_opt_17_agents": (1024, 2, 124448, 1, 1),
+    "hp_opt_32_agents": (1024, 1, 195520, 1, 1),
+    "hp_opt_16_agents_n125": (1024, 4, 225024, 1, 1),
+    "nz40": (1024, 4, 184432, 1, 1),
+}
+# (nb, coupling) of 4 problems at N=20 on a track of 1000 segments; MPCC
+# (18 races); NL eu at the Monte-Carlo's 192 QPs on a 10-segment track
+PARENT_SQP_PLANS = {
+    (8, "hp_opt"): (256, 8, 12, 77320), (19, "hp_opt"): (256, 8, 12, 217196),
+    (20, "hp_opt"): (256, 7, 12, 206064), (31, "hp_opt"): (256, 3, 28, 179528),
+    (63, "hp_opt"): (256, 1, 80, 205056), (31, "eu"): (256, 8, 12, 53124),
+    (300, "eu"): (256, 5, 16, 194848), "mpcc": (256, 8, 54, 25856),
+    "nl_eu_192": (256, 8, 576, 14216),
+}
+
+
+def test_plans_that_fit_keep_the_parent_plans():
+    """Where a launch fits in shared memory, each plan is the one the
+    kernels took before the spill, field for field, and spills nothing."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    for name, old in PARENT_KERNEL_PLANS.items():
+        assert tuple(kernel_plan(*PLAN_SHAPES[name])) == old + ("", 0), name
+    for name, old in PARENT_DATA_PLANS.items():
+        assert tuple(epoch_data_plan(*DATA_PLAN_SHAPES[name])) == \
+            old + ("", 0), name
+    for key, old in PARENT_SQP_PLANS.items():
+        if key == "mpcc":
+            plan = cuda_sqp.sqp_qp_plan(18, 20, 2, 7, 1000)
+        elif key == "nl_eu_192":
+            plan = cuda_sqp.sqp_qp_plan(192, 20, 2, 6, 10, 2, False)
+        else:
+            nb, coupling = key
+            plan = cuda_sqp.sqp_qp_plan(4, 20, *cuda_sqp.nl_shape(
+                nb, coupling), 1000, nb, coupling == "hp_opt")
+        assert tuple(plan) == old + ("", 0), key
+
+
+# Past one block's shared memory, (P = agents of one fleet, N, nc, mr) and
+# the spill level the epoch plan takes: NL hp_opt 31 and 36 agents at
+# N=125 and 45 at N=20 (w, y and kff), 48 at N=20 (the ring too), hp_opt
+# 32 agents at N=125 (which raised before), LPV 200 agents at N=125 and
+# 760 at N=20, hp_opt 100 agents at N=125, and a row count no chunk of
+# shared memory holds
+EPOCH_SPILLS = {
+    "hp_opt_31_agents_n125": ((31, 125, 62, 94), "horizon"),
+    "hp_opt_36_agents_n125": ((36, 125, 72, 109), "horizon"),
+    "hp_opt_45_agents": ((45, 20, 90, 136), "horizon"),
+    "hp_opt_48_agents": ((48, 20, 96, 145), "horizon+ring"),
+    "hp_opt_32_agents_n125": ((32, 125, 64, 97), "horizon"),
+    "lpv_200_agents_n125": ((200, 125, 2, 203), "horizon"),
+    "lpv_760_agents": ((760, 20, 2, 763), "horizon"),
+    "hp_opt_100_agents_n125": ((100, 125, 200, 301), "horizon+ring"),
+    "rows_60000": ((8, 20, 2, 60_000), "horizon+ring+chunk"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EPOCH_SPILLS))
+def test_kernel_plan_spills_past_shared_memory(name):
+    """Where no plan fits a block's shared memory, the plan keeps the
+    first spill level at which one fits and names it; its shared memory
+    is the source's carve at that level, and its scratch kff over the
+    horizon (and each QP's work at the last level). No level below fits.
+    The affine kernel (mr = 0) spills no further than the epoch."""
+    (P, N, nc, mr), level = EPOCH_SPILLS[name]
+    plan = kernel_plan(P, N, 11, nc, mr)
+    assert plan.spilled == level
+    L = cuda_lqr.SPILLS.index(level)
+    assert plan.spill == L
+    per_qp = 4 * qp_floats(N, plan.ring, 11, nc, mr, L)
+    assert plan.smem_bytes == (0 if L == 3 else plan.qps_per_block * per_qp)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.scratch_bytes == 4 * P * N * nc + (P * per_qp if L == 3
+                                                   else 0)
+    for lower in range(L):
+        with pytest.raises(ValueError, match="no launch plan fits"):
+            kernel_plan(P, N, 11, nc, mr, spill=lower)
+    assert kernel_plan(P, N, 11, nc, 0).spill <= L
+
+
+@pytest.mark.parametrize("N", [20, 125])
+def test_every_plan_takes_the_fleets_past_shared_memory(N):
+    """No size limit on the card but device memory: the epoch and affine
+    plans, the epoch-data plan and the NL build's plan each return a plan
+    that fits its block, spilled where it must, for NL hp_opt fleets of 31
+    to 100 agents and LPV / NL eu fleets of 700 to 1,000 agents (one
+    fleet's QPs, on a staged track of 1000 segments)."""
+    from colaborativempc_tpu_torch.ops import cuda_sqp
+    fleets = [(a, "hp_opt") for a in range(31, 101)]
+    fleets += [(a, "eu") for a in range(700, 1001, 60)]
+    spilled = set()
+    for agents, coupling in fleets:
+        nb = agents - 1
+        nc, m = cuda_sqp.nl_shape(nb, coupling)
+        if coupling == "eu":
+            nc, m = 2, agents + 3      # LPV's rows: 4 + the neighbours
+        for mr in (m, 0):
+            plan = kernel_plan(agents, N, 11, nc, mr)
+            assert plan.smem_bytes <= SMEM_PER_BLOCK
+            spilled.add(plan.spilled)
+        plan = epoch_data_plan(agents, N, 11, nc, m)
+        assert plan.smem_bytes <= SMEM_PER_BLOCK
+        spilled.add(plan.spilled)
+        nc, m = cuda_sqp.nl_shape(nb, coupling)
+        plan = cuda_sqp.sqp_qp_plan(agents, N, nc, m, 1000, nb,
+                                    coupling == "hp_opt")
+        assert plan.smem_bytes <= cuda_sqp.SQP_SMEM_LIMIT
+        spilled.add(plan.spilled)
+    assert {"horizon", "horizon+ring", "block", "image"} <= spilled
+
+
+def test_qp_floats_mirror_the_source():
+    """``qp_floats`` is the source's ``qp_floats`` (its three statements,
+    read from ``csrc/lqr_kernels.cu``) at every spill level, resident and
+    streamed rings, with rows and without (the affine solve), and the
+    levels are the source's ``Spill``."""
+    import re
+    from pathlib import Path
+    src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
+           / "lqr_kernels.cu").read_text()
+    body = re.search(r"inline int qp_floats\([^)]*\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    stmts = [" ".join(x.split()) for x in body.split(";") if x.strip()]
+    names = re.search(r"enum Spill \{([^}]*)\}", src).group(1)
+    levels = {k.strip(): int(v) for k, v in
+              (x.split("=") for x in names.split(","))}
+    assert list(levels.values()) == list(range(len(cuda_lqr.SPILLS)))
+
+    for N, ring in ((20, 20), (20, 8), (125, 4), (7, 32)):
+        for nc, mr in ((2, 6), (34, 52), (2, 0), (96, 145)):
+            for spill in range(len(cuda_lqr.SPILLS)):
+                env = dict(levels, N=N, ring=ring, nz=11, nc=nc, mr=mr,
+                           spill=spill, stage_floats=cuda_lqr.stage_floats)
+                S = ring if ring < N else N
+                slots = 0 if spill >= 2 else (2 if ring < N else 1)
+                horizon = 0 if spill >= 1 else 2 * N * mr + N * nc
+                env.update(S=S, slots=slots, horizon=horizon)
+                for st in stmts[:3]:
+                    name, _, expr = st.partition(" = ")
+                    name = name.split()[-1]
+                    assert c_ternary(expr, env) == env[name], st
+                ret = stmts[3].replace("return ", "")
+                assert eval(ret, env) == cuda_lqr.qp_floats(
+                    N, ring, 11, nc, mr, spill)
 
 
 # (P, N, nz, nc, mr) of the epoch-data kernel: the LPV headline, NL hp_opt,
@@ -442,18 +631,55 @@ def test_epoch_data_launch_bounds_mirror_the_source():
 
 @pytest.mark.parametrize("P,N,nz,nc,mr", [(0, 20, 11, 2, 6),
                                            (8, 0, 11, 2, 6),
-                                           (8, 20, 11, 2, 1200),
                                            (8, 20, 11, 0, 6),
-                                           (8, 20, 11, 2, 0),
-                                           (8, 20, 11, 130, 193)])
+                                           (8, 20, 11, 2, 0)])
 def test_epoch_data_plan_refuses_what_the_kernel_does_not_take(P, N, nz, nc,
                                                                mr):
-    """Sizes below 1, and a block that does not fit in shared memory at
-    one stage per chunk, raise a ValueError that names the dimensions (no
-    fallback to the plain version)."""
+    """Sizes below 1 raise a ValueError that names the dimensions (no
+    fallback to the plain version); past the block's shared memory the
+    plan spills (the test below)."""
     with pytest.raises(ValueError, match="epoch-data kernel") as err:
         epoch_data_plan(P, N, nz, nc, mr)
     assert f"nc={nc}, mr={mr}" in str(err.value)
+
+
+# (P, N, nz, nc, mr) past one block's shared memory at one stage per
+# chunk: the two sizes that raised before the spill (1200 rows; 130
+# controls and 193 rows), NL hp_opt 36 and 48 agents (also 36 at N=125),
+# LPV 1000 agents, hp_opt 100 agents at N=125
+DATA_SPILLS = {
+    "rows_1200": (8, 20, 11, 2, 1200),
+    "nc130_mr193": (8, 20, 11, 130, 193),
+    "hp_opt_36_agents": (36, 20, 11, 72, 109),
+    "hp_opt_48_agents": (48, 20, 11, 96, 145),
+    "hp_opt_36_agents_n125": (36, 125, 11, 72, 109),
+    "lpv_1000_agents": (1000, 20, 11, 2, 1003),
+    "hp_opt_100_agents_n125": (100, 125, 11, 200, 301),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DATA_SPILLS))
+def test_epoch_data_plan_spills_past_shared_memory(name):
+    """Where the block does not fit in shared memory even at one stage per
+    chunk, the plan spills the block's whole layout to a global scratch:
+    one stage per chunk, no dynamic shared memory, a scratch of one
+    layout per block (the source's ``data_block_floats``), the threads
+    and register cap of the unspilled plan; pinned off, it raises. A
+    spill pinned where the kernel's rows have a fixed width raises."""
+    P, N, nz, nc, mr = DATA_SPILLS[name]
+    assert 4 * epoch_data_floats(nz, nc, mr, 1) > SMEM_PER_BLOCK
+    plan = epoch_data_plan(P, N, nz, nc, mr)
+    assert plan.spilled == "block" and plan.chunk == 1
+    assert plan.smem_bytes == 0
+    assert plan.scratch_bytes == 4 * P * epoch_data_floats(nz, nc, mr, 1)
+    assert plan.threads == epoch_data_threads(nz, nc)
+    regs = epoch_data_registers(nz, nc, mr)
+    assert plan.blocks_per_sm == min(32, 64 // (plan.threads // 32),
+                                     65_536 // (regs * plan.threads))
+    with pytest.raises(ValueError, match="pinned off"):
+        epoch_data_plan(P, N, nz, nc, mr, spill=False)
+    with pytest.raises(ValueError, match="runtime width"):
+        epoch_data_plan(P, N, 11, 2, 6, spill=True)
 
 
 @pytest.mark.parametrize("nz,nc,mr", [(11, 2, 33), (11, 33, 33),
@@ -598,14 +824,21 @@ def test_epoch_data_float_division_is_exact_where_the_kernel_divides():
     """The epoch-data kernel splits flat indices with ``div_small``:
     ``(int)((o + 0.5f) * (1.f / n))`` in single precision. It equals
     ``o // n`` wherever the kernel uses it: n up to nz * nz = 1024 with o
-    below 8 stages of n, and n up to 32 with o below 2^20."""
+    below 8 stages of n and below 2^16 (a transposed field of one stage:
+    hp_opt 100 agents' E has 301 x 200 entries), n up to 32 with o below
+    2^20, and a field of nc x nc entries (up to 200 controls) divided by
+    its own size over one stage."""
     f32 = np.float32
-    for n in range(1, 1025):
-        top = 1 << 20 if n <= 32 else 8 * n
-        o = np.arange(top, dtype=np.int64)
+
+    def exact(o, n):
         got = ((o.astype(f32) + f32(0.5)) * (f32(1) / f32(n))).astype(
             np.int64)
-        assert np.array_equal(got, o // n), n
+        return np.array_equal(got, o // n)
+    for n in range(1, 1025):
+        top = 1 << 20 if n <= 32 else max(8 * n, 1 << 16)
+        assert exact(np.arange(top, dtype=np.int64), n), n
+    for nc in range(33, 201):
+        assert exact(np.arange(nc * nc, dtype=np.int64), nc * nc), nc
 
 
 # --- the SQP build kernels' launch (csrc/sqp_qp.cu) -------------------------
@@ -724,14 +957,14 @@ def test_sqp_row_threads_build_every_row_once():
 def test_sqp_task_division_is_exact_where_the_kernels_divide():
     """The build kernels split a task index into (stage, row) with
     ``div_small``, the epoch-data kernel's float reciprocal: exact for
-    every divisor they use (11, nc and m up to 200, hp_opt with 65
-    neighbours) over the block's 8 stages."""
+    every divisor they use (11, nc and m up to 301: hp_opt with 100
+    agents, 99 neighbours) over the block's 8 stages."""
     import re
     body = re.search(r"int div_small\(int e, float rcp\) \{\s*return ([^;]+);",
                      _sqp_source()).group(1)
     assert " ".join(body.split()) == "__float2int_rz(((float)e + 0.5f) * rcp)"
     f32 = np.float32
-    for d in [11] + list(range(2, 201)):
+    for d in [11] + list(range(2, 302)):
         e = np.arange(8 * d, dtype=np.int64)
         got = ((e.astype(f32) + f32(0.5)) * (f32(1) / f32(d))).astype(
             np.int64)

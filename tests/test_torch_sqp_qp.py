@@ -516,20 +516,52 @@ def test_nl_build_plan_takes_fewer_stages_where_the_image_does_not_fit(
         nb, coupling, stages):
     """The NL build takes any neighbour count: 8 stages per block while the
     image, the neighbour arrays and the staged track fit in the block's
-    shared memory, fewer past that (the most that fit), and a ValueError
-    naming the limit only where one stage does not fit."""
+    shared memory, fewer past that (the most that fit), nothing spilled
+    while one stage fits (the test below)."""
     nc, m = cuda_sqp.nl_shape(nb, coupling)
     hp_opt = coupling == "hp_opt"
     plan = cuda_sqp.sqp_qp_plan(4, 20, nc, m, 1000, nb, hp_opt)
     assert plan.stages == stages and plan.blocks == 4 * -(-20 // stages)
     assert plan.smem_bytes <= cuda_sqp.SQP_SMEM_LIMIT
+    assert plan.spilled == "" and plan.scratch_bytes == 0
     if stages < 8:
         more = 4 * (cuda_sqp.image_floats(nc, m, stages + 1) + 3000
                     + cuda_sqp.neighbour_floats(nb, hp_opt, stages + 1))
         assert more > cuda_sqp.SQP_SMEM_LIMIT
-    nc, m = cuda_sqp.nl_shape(70, "hp_opt")
-    with pytest.raises(ValueError, match="one stage of the build takes"):
-        cuda_sqp.sqp_qp_plan(4, 20, nc, m, 1000, 70, True)
+
+
+@pytest.mark.parametrize("agents,coupling,nseg", [
+    (71, "hp_opt", 1000),    # 70 neighbours: raised before the spill
+    (72, "hp_opt", 1000), (100, "hp_opt", 1000),
+    (100, "hp_opt", 3000),   # a track searched where it lies
+    (1900, "eu", 1000)])
+def test_nl_build_plan_spills_past_shared_memory(agents, coupling, nseg):
+    """Where one stage's image and neighbour arrays do not fit, the image
+    and the neighbour arrays of 8 stages per block go into a global
+    scratch (one share per block) and only the lane's staged track rows
+    stay in shared memory; pinned off, and for MPCC, it raises; and a
+    plan raises on sizes below 1."""
+    nb = agents - 1
+    nc, m = cuda_sqp.nl_shape(nb, coupling)
+    hp_opt = coupling == "hp_opt"
+    one = 4 * (cuda_sqp.image_floats(nc, m, 1)
+               + cuda_sqp.neighbour_floats(nb, hp_opt, 1)
+               + (3 * nseg if nseg <= 2048 else 0))
+    assert one > cuda_sqp.SQP_SMEM_LIMIT
+    plan = cuda_sqp.sqp_qp_plan(agents, 20, nc, m, nseg, nb, hp_opt)
+    assert plan.spilled == "image" and plan.stages == 8
+    assert plan.blocks == agents * 3
+    assert plan.smem_bytes == (4 * 3 * nseg if nseg <= 2048 else 0)
+    assert plan.scratch_bytes == 4 * plan.blocks * (
+        cuda_sqp.image_floats(nc, m, 8)
+        + cuda_sqp.neighbour_floats(nb, hp_opt, 8))
+    with pytest.raises(ValueError, match="pinned off"):
+        cuda_sqp.sqp_qp_plan(agents, 20, nc, m, nseg, nb, hp_opt,
+                             spill=False)
+    with pytest.raises(ValueError, match="MPCC has none"):
+        cuda_sqp.sqp_qp_plan(4, 20, 2, 7, nseg, spill=True)
+    with pytest.raises(ValueError, match="P, N >= 1"):
+        cuda_sqp.sqp_qp_plan(0, 20, nc, m, nseg, nb, hp_opt)
 
 
 def test_pack_slots_numbers_and_tensors():
