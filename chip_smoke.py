@@ -171,6 +171,38 @@ Phase 22 drives fleets past the kernels' earlier limits:
    reads that ratio over seeds); the feasible
    share and min_dist_exec printed.
 
+23. ``scripts/bench_suite.py`` through its ``main``: the default rows and
+   ``--tiny``, every row feasible.
+
+Phase 24 holds the card's solutions against the repository's float64 C++
+twin of the engine (``colaborativempc_tpu_torch/native``, built from
+``native/src`` with the host's C++ compiler), an implementation that
+shares no code with the port. Each solve runs through the port's entry
+points on the card with the launch counters reset and the solver's epochs
+counted (each kernel of the path launched once per epoch or SQP build, and
+at least once), and the card's max |dx_pred| and |du_pred| from the twin
+are printed:
+
+24. (a) ``lpv_solve`` against ``lpv_solve_native``: tests/test_native.py's
+   oval 1 agent N=15 (x and u within 3e-3) and Highway 3 agents N=12 (x
+   within 5e-3); the headline QP (Highway, agent 0 of 3, N=20, 600
+   iterations, eps 1e-6), the same at N=125 and agent 0 of 197 at N=125
+   (196 neighbours, the epoch launch spilled past shared memory), each
+   also solved on the CPU's plain path and held to the larger of 3e-3 and
+   1.5x the CPU's distance (``TOL_ORACLE_FLOOR``, ``TOL_ORACLE_CPU``);
+   the ADMM iterations of the card, the CPU and the twin printed
+   (``scripts/rounding_control.py --oracle`` splits the 197-agent QP's
+   distance between the kernels and the card's float32 rounding);
+   (b) ``nl_solve`` (eu) against ``nl_solve_native``: the test's shape
+   within 1e-2 and the NL-OCD headline's N=20 QP under (a)'s rule; (c)
+   ``mpcc_solve`` against ``mpcc_solve_native`` within 5e-3, and
+   ``run_mpcc_experiment`` against ``mpcc_race_native`` (50 steps: the
+   same steps, every step feasible, progress within 2%); (d)
+   ``_sep_filter_beta`` on the card against ``sep_filter_native`` on 100
+   random fleets within 2e-3; (e) the median of 20 native headline solves
+   on the host beside the median of 20 synchronised ``lpv_solve`` calls of
+   the same QP on the card, with the host CPU's model name.
+
 Kernel times come from ``cuda_ms``: CUDA events around the calls, with a
 spin kernel queued first so that the host's queueing stays outside the
 window.
@@ -2734,6 +2766,308 @@ def bench_suite_on_card(dev, card):
     return out
 
 
+# phase 24: the oracle's bounds. tests/test_native.py's shapes keep its
+# tolerances; a shape it does not hold is held to the larger of the floor
+# and this times the CPU plain path's own distance from the oracle
+TOL_ORACLE_FLOOR = 3e-3
+TOL_ORACLE_CPU = 1.5
+ORACLE_REPS = 20
+
+
+def oracle_lpv_inputs(dev, name):
+    """Phase 24 (a)'s LPV cases on ``dev``: (track, N, dt, x0, x_lin,
+    u_lin, neighbours (1, N+1, n_nb, 2) or None) of agent 0, the port's
+    warm start of ``x0_database`` in float32."""
+    from colaborativempc_tpu_torch.config import x0_database
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.utils.warmstart import initialise_agents
+    track_name, agents, N, dt = {
+        "oval_1_agent_n15": ("oval", 1, 15, 0.025),
+        "highway_3_agents_n12": ("Highway", 3, 12, 0.025),
+        "headline_n20": ("Highway", 3, 20, 0.02),
+        "headline_n125": ("Highway", 3, 125, 0.02),
+        "lpv_197_agents_n125": ("Highway", 197, 125, 0.02)}[name]
+    track = make_track(track_name, device=dev)
+    x0s = torch.tensor(x0_database(agents), dtype=torch.float32, device=dev)
+    agents_xy, x_pred, u_pred = initialise_agents(track, x0s, N, dt)
+    neigh = agents_xy[None, :, 1:] if agents > 1 else None
+    return track, N, dt, x_pred[:1, 0], x_pred[:1], u_pred[:1], neigh
+
+
+def oracle_nl_inputs(dev, N):
+    """Phase 24 (b)'s NL case: ego agent 1 of 3 on the Highway (master
+    towards 2, slave towards 0, prices 0.3), dt 0.02."""
+    from colaborativempc_tpu_torch.config import x0_database
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.utils.warmstart import initialise_agents
+    track = make_track("Highway", device=dev)
+    x0s = torch.tensor(x0_database(3), dtype=torch.float32, device=dev)
+    agents_xy, x_pred, u_pred = initialise_agents(track, x0s, N, 0.02)
+    neigh = agents_xy[:, [0, 2], :]
+    lam = torch.full((1, 2, N), 0.3, device=dev)
+    master = torch.tensor([[0.0, 1.0]], device=dev)
+    return track, x_pred[1:2], u_pred[1:2], neigh, lam, master
+
+
+def oracle_distance(sol, x_nat, u_nat):
+    return (float(np.abs(sol.x_pred[0].double().cpu().numpy()
+                         - x_nat).max()),
+            float(np.abs(sol.u_pred[0].double().cpu().numpy()
+                         - u_nat).max()))
+
+
+def host_cpu_model():
+    """The host CPU as ``/proc/cpuinfo`` describes its first processor: the
+    model name, and the vendor, family, model and clock (a virtualised
+    host may name its model "unknown"); with the architecture and the CPU
+    count."""
+    import platform
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break                       # the first processor only
+                k, _, v = ln.partition(":")
+                fields[k.strip().lower()] = v.strip()
+    except OSError:
+        pass
+    desc = ", ".join(f"{k} {fields[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model", "cpu mhz")
+        if k in fields) or "unknown"
+    return f"{desc} ({platform.machine()}, {os.cpu_count()} CPUs)"
+
+def native_oracle(dev, card):
+    """Phase 24: the card's LPV, NL, MPCC and safety-filter results
+    against the float64 C++ twin (``colaborativempc_tpu_torch.native``),
+    one case at a time; see the module docstring."""
+    from colaborativempc_tpu_torch import native
+    from colaborativempc_tpu_torch.config import (
+        ModelParams, SysLimits, lpv_gains, nl_gains,
+    )
+    from colaborativempc_tpu_torch.dynamics.pacejka import PacejkaParams
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners import lpv, mpcc, nl
+    from colaborativempc_tpu_torch.planners.mpcc import (
+        MPCCBounds, MPCCConfig, MPCCGains,
+    )
+    from colaborativempc_tpu_torch.runtime.racing import run_mpcc_experiment
+    from colaborativempc_tpu_torch.runtime.simulate import _sep_filter_beta
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    build_s = time.perf_counter() - t0
+    native.load()
+    print(f"phase 24: native library {lib_path} ({native.compiler()} "
+          f"{' '.join(native.CXX_FLAGS)}, {build_s:.2f} s)", flush=True)
+    cpu = torch.device("cpu")
+    gl, lim, mp = lpv_gains(), SysLimits(), ModelParams()
+    out = {"cases": {}, "launches": {}}
+    lpv_kw = dict(admm_iters=600, eps=1e-6)
+    gn = nl_gains()
+    nl_kw = {"nl_eu_test_n12": (12, dict(sqp_iters=2, admm_iters=400)),
+             "nl_eu_headline_n20": (20, dict(sqp_iters=3, admm_iters=300))}
+
+    def lpv_on(dev_, tag):
+        track, N, dt, x0, xl, ul, nb = oracle_lpv_inputs(dev_, tag)
+        return lpv.lpv_solve(track, gl, lim, mp, N, dt, x0, xl, ul,
+                             torch.zeros_like(x0[:, :2]), nb, **lpv_kw)
+
+    def nl_on(dev_, tag):
+        N, kw = nl_kw[tag]
+        track, xb, ub, nb, lam, master = oracle_nl_inputs(dev_, N)
+        return nl.nl_solve(track, gn, lim, mp, N, 0.02, xb[:, 0], xb, ub,
+                           torch.zeros_like(xb[:, 0, :2]), lam, nb[None],
+                           master, sqp_mix=0.7, eps=1e-6, **kw)
+
+    # the CPU plain path's solves of the shapes held by the rule, in a
+    # thread of their own while the card's cases run
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    on_cpu = {tag: pool.submit(lpv_on, cpu, tag) for tag in (
+        "headline_n20", "headline_n125", "lpv_197_agents_n125")}
+    on_cpu["nl_eu_headline_n20"] = pool.submit(nl_on, cpu,
+                                               "nl_eu_headline_n20")
+    pool.shutdown(wait=False)
+
+    def oracle_case(tag, ok, sol, x_nat, u_nat, bounds, launches,
+                    native_its=None):
+        """Hold one solve on the card: feasible on both sides, its max
+        |dx_pred| and |du_pred| from the oracle within ``bounds`` (None:
+        not held) or, where ``bounds`` is None, within the larger of the
+        floor and TOL_ORACLE_CPU times the CPU plain path's own. The ADMM
+        iterations of the card, the CPU and the oracle (``native_its``)
+        are printed (NL and MPCC: summed over the SQP iterations)."""
+        if not (ok and bool(sol.feasible[0])):
+            fail(f"phase 24 {tag}: infeasible (native {ok}, card "
+                 f"{bool(sol.feasible[0])})")
+        cpu_dist, cpu_txt, cpu_its = (None, None), "", None
+        its = int(sol.iterations[0])
+        if bounds is None:
+            sol_cpu = on_cpu[tag].result()
+            cpu_its = int(sol_cpu.iterations[0])
+            cpu_dist = oracle_distance(sol_cpu, x_nat, u_nat)
+            bounds = tuple(max(TOL_ORACLE_FLOOR, TOL_ORACLE_CPU * d)
+                           for d in cpu_dist)
+            cpu_txt = (f"; CPU plain path {cpu_dist[0]:.3e} / "
+                       f"{cpu_dist[1]:.3e}, {cpu_its} iterations")
+        dist = oracle_distance(sol, x_nat, u_nat)
+        for what, d, b in zip(("x", "u"), dist, bounds):
+            if b is not None and not d <= b:
+                fail(f"phase 24 {tag}: max |d{what}_pred| from the oracle "
+                     f"{d:.3e} above its bound {b:.3e}")
+        out["launches"][tag] = launches
+        out["cases"][tag] = dict(
+            dx=dist[0], du=dist[1], bound_x=bounds[0], bound_u=bounds[1],
+            cpu_dx=cpu_dist[0], cpu_du=cpu_dist[1], epoch_launches=launches,
+            iterations=its, cpu_iterations=cpu_its,
+            native_iterations=native_its)
+        shown = " / ".join("not held" if b is None else f"{b:.3e}"
+                           for b in bounds)
+        print(f"phase 24 {tag}: card max |dx_pred| {dist[0]:.3e} |du_pred| "
+              f"{dist[1]:.3e} from the oracle (bounds {shown}), {its} "
+              f"iterations{cpu_txt}"
+              + ("" if native_its is None else
+                 f"; oracle {native_its} iterations")
+              + f"; epoch launches {launches} [{card}]", flush=True)
+
+    # (a) LPV
+    for tag, bounds in (("oval_1_agent_n15", (3e-3, 3e-3)),
+                        ("highway_3_agents_n12", (5e-3, None)),
+                        ("headline_n20", None), ("headline_n125", None),
+                        ("lpv_197_agents_n125", None)):
+        track, N, dt, x0, xl, ul, nb = oracle_lpv_inputs(dev, tag)
+        ok, x_nat, u_nat, res_nat = native.lpv_solve_native(
+            track, gl, lim, mp, N, dt, x0[0], xl[0], ul[0], np.zeros(2),
+            neighbours_xy=None if nb is None else nb[0])
+        sol, launches, _ = run_counted(f"phase 24 {tag}",
+                                       lambda: lpv_on(dev, tag), lpv)
+        oracle_case(tag, ok, sol, x_nat, u_nat, bounds, launches,
+                    int(res_nat[2]))
+        if tag == "lpv_197_agents_n125":
+            from colaborativempc_tpu_torch.ops import cuda_lqr
+            plan = cuda_lqr.kernel_plan(1, N, 11, 2, 4 + nb.shape[2])
+            if not plan.spilled:
+                fail("phase 24: the 197-agent epoch launch did not spill")
+            out["cases"][tag]["plan"] = plan._asdict()
+
+    # (b) NL eu
+    for tag, bounds in (("nl_eu_test_n12", (1e-2, 1e-2)),
+                        ("nl_eu_headline_n20", None)):
+        N, kw = nl_kw[tag]
+        track, xb, ub, nb, lam, master = oracle_nl_inputs(dev, N)
+        ok, x_nat, u_nat, _ = native.nl_solve_native(
+            track, gn, lim, mp, N, 0.02, xb[0, 0], xb[0], ub[0],
+            np.zeros(2), lam[0], nb[1:], master[0].to(torch.int32),
+            mix=0.7, **kw)
+        sol, launches, _ = run_counted(f"phase 24 {tag}",
+                                       lambda: nl_on(dev, tag), nl)
+        oracle_case(tag, ok, sol, x_nat, u_nat, bounds, launches)
+
+    # (c) MPCC: one SQP solve, then the closed-loop race
+    track = make_track("oval_mt", device=dev)
+    g, b, p = MPCCGains(), MPCCBounds(), PacejkaParams()
+    N, dt = 16, 0.05
+    x = torch.zeros((1, 9), device=dev)
+    x[:, 0] = 0.6
+    x_bar = x[:, None].repeat(1, N + 1, 1)
+    x_bar[..., 6] = torch.arange(N + 1, dtype=torch.float32,
+                                 device=dev) * (0.6 * dt)
+    u_bar = torch.zeros((1, N, 2), device=dev)
+    u_bar[..., 1] = 0.25
+    u_old = torch.zeros((1, 2), device=dev)
+    ok, x_nat, u_nat, _ = native.mpcc_solve_native(
+        track, g, b, p, N, dt, x[0], x_bar[0], u_bar[0], u_old[0],
+        sqp_iters=3, mix=0.7, admm_iters=300)
+    sol, launches, _ = run_counted(
+        "phase 24 mpcc_solve_n16", lambda: mpcc.mpcc_solve(
+            track, g, p, N, dt, x, x_bar, u_bar, u_old, sqp_iters=3,
+            sqp_mix=0.7, admm_iters=300, bounds=b, norm=None), mpcc)
+    oracle_case("mpcc_solve_n16", ok, sol, x_nat, u_nat, (5e-3, 5e-3),
+                launches)
+    steps = 50
+    cfg = MPCCConfig(N=N, dt=dt, n_sim=steps, map_type="oval_mt",
+                     initial_velocity=0.5, verb=0)
+    res, launches, race_s = run_counted(
+        "phase 24 mpcc_race", lambda: run_mpcc_experiment(
+            cfg, track=track, device=dev), mpcc)
+    t, xs, _, feas = native.mpcc_race_native(
+        track, g, b, p, N=N, dt=dt, steps=steps, v0=0.5, n_sqp=cfg.n_sqp,
+        mix=cfg.sqp_mixing, admm_iters=300)
+    s_card, s_nat = float(res.states[-1, 6]), float(xs[-1, 6])
+    if not (t == steps == res.steps and feas.all()
+            and res.feasible.all()):
+        fail(f"phase 24 mpcc_race: steps {res.steps} (native {t}) or a "
+             f"step infeasible (card {int(res.feasible.sum())}, native "
+             f"{int(feas.sum())} feasible)")
+    progress = abs(s_card - s_nat) / max(s_card, 1.0)
+    if not progress < 0.02:
+        fail(f"phase 24 mpcc_race: final s {s_card:.4f} m on the card, "
+             f"{s_nat:.4f} m native ({progress:.2%} apart, bound 2%)")
+    out["launches"]["mpcc_race"] = launches
+    out["cases"]["mpcc_race_n16"] = dict(
+        steps=steps, s_card=s_card, s_native=s_nat, progress_rel=progress,
+        bound_rel=0.02, max_abs_ds=float(np.abs(res.states[:, 6]
+                                                - xs[:, 6]).max()),
+        epoch_launches=launches, seconds=race_s)
+    print(f"phase 24 mpcc_race_n16: {steps} steps, every step feasible on "
+          f"both; final s {s_card:.4f} m card, {s_nat:.4f} m native "
+          f"({progress:.3%} apart, bound 2%); max |ds| over the race "
+          f"{out['cases']['mpcc_race_n16']['max_abs_ds']:.3e} m; epoch "
+          f"launches {launches} [{card}]", flush=True)
+
+    # (d) the safety filter
+    rng = np.random.default_rng(11)
+    floor = 0.175
+    worst = 0.0
+    for _ in range(100):
+        n = int(rng.integers(2, 6))
+        p0 = rng.uniform(-2.0, 2.0, (n, 2))
+        p1 = p0 + rng.uniform(-0.2, 0.2, (n, 2))
+        prio = rng.uniform(0.0, 30.0, n)
+        b_nat = native.sep_filter_native(p0, p1, prio, floor)
+        b_card = _sep_filter_beta(
+            torch.tensor(p0, dtype=torch.float32, device=dev),
+            torch.tensor(p1, dtype=torch.float32, device=dev),
+            torch.tensor(floor, dtype=torch.float32, device=dev),
+            prio=torch.tensor(prio, dtype=torch.float32, device=dev))
+        worst = max(worst, float(np.abs(b_card.double().cpu().numpy()
+                                        - b_nat).max()))
+    if not worst <= 2e-3:
+        fail(f"phase 24 sep_filter: max |dbeta| {worst:.3e} above 2e-3")
+    out["cases"]["sep_filter_100_fleets"] = dict(dbeta=worst, bound=2e-3)
+    print(f"phase 24 sep_filter: 100 fleets of 2-5 agents, max |dbeta| "
+          f"{worst:.3e} from the oracle (bound 2e-3) [{card}]", flush=True)
+
+    # (e) one headline QP: native on the host beside the card
+    track, N, dt, x0, xl, ul, nb = oracle_lpv_inputs(dev, "headline_n20")
+    host = [t.detach().cpu().double().numpy()
+            for t in (x0[0], xl[0], ul[0], nb[0])]
+    nat_ms, card_ms = [], []
+    for _ in range(ORACLE_REPS):
+        t0 = time.perf_counter()
+        native.lpv_solve_native(track, gl, lim, mp, N, dt, *host[:3],
+                                np.zeros(2), neighbours_xy=host[3])
+        nat_ms.append((time.perf_counter() - t0) * 1e3)
+    u0 = torch.zeros_like(x0[:, :2])
+    lpv.lpv_solve(track, gl, lim, mp, N, dt, x0, xl, ul, u0, nb, **lpv_kw)
+    for _ in range(ORACLE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lpv.lpv_solve(track, gl, lim, mp, N, dt, x0, xl, ul, u0, nb,
+                      **lpv_kw)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    cpu_model = host_cpu_model()
+    out["timing"] = dict(native_ms=float(np.median(nat_ms)),
+                         card_ms=float(np.median(card_ms)),
+                         reps=ORACLE_REPS, card=card, host_cpu=cpu_model)
+    print(f"phase 24 timing: headline QP (Highway, agent 0 of 3, N=20, "
+          f"600 iterations, eps 1e-6): native float64 on the host median "
+          f"{out['timing']['native_ms']:.3f} ms, the card's synchronised "
+          f"lpv_solve median {out['timing']['card_ms']:.3f} ms over "
+          f"{ORACLE_REPS} calls [{card}; host CPU {cpu_model}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2891,6 +3225,7 @@ def main():
     large["nl_hp_opt_36_agents_n125"] = timed("phase 22 (b)", spill_fleet,
                                               dev, card)
     suite = timed("phase 23", bench_suite_on_card, dev, card)
+    oracle = timed("phase 24", native_oracle, dev, card)
     large_epochs = sum(r["launches"]["epoch"] for r in large.values())
     secs["total"] = time.perf_counter() - t_start
     print(f"chip_smoke phases took {secs['total']:.1f} s", flush=True)
@@ -2914,7 +3249,8 @@ def main():
                        + gs["launches"] + sharded["lpv"]["launches"]
                        + sharded["nl"]["launches"]
                        + sum(g["launches"] for g in gloo.values())
-                       + large_epochs),
+                       + large_epochs
+                       + sum(oracle["launches"].values())),
              launches_lpv=launches["epoch"],
              launches_nl=nl_path["launches"]["epoch"],
              launches_mpcc=race["launches"] + bat["launches"],
@@ -2939,6 +3275,7 @@ def main():
                                     for k, g in gloo.items()},
              launches_large_fleets={k: r["launches"]["epoch"]
                                     for k, r in large.items()},
+             launches_native_oracle=oracle["launches"],
              max_abs_err=k20["epoch"]["max_abs_err"],
              max_abs_err_resid=k20["epoch"]["max_abs_err_resid"],
              ms=k20["epoch"]["ms"], plain_ms=k20["epoch"]["plain_ms"],
@@ -3032,7 +3369,7 @@ def main():
                       "gs_tradeoff": gs}))
     print(json.dumps({"sharded_nccl": sharded, "sharded_gloo": gloo,
                       "large_fleets": large, "bench_suite": suite,
-                      "phase_seconds": secs}))
+                      "native_oracle": oracle, "phase_seconds": secs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

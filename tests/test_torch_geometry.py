@@ -335,6 +335,7 @@ def test_port_imports_without_jax():
          "colaborativempc_tpu_torch.parallel.fleet",
          "colaborativempc_tpu_torch.parallel.ocd",
          "colaborativempc_tpu_torch.interop",
+         "colaborativempc_tpu_torch.native",
          "colaborativempc_tpu_torch.ops._build",
          "colaborativempc_tpu_torch.utils.rollout"]
         + [f"colaborativempc_tpu_torch.scripts.{s}" for s in SCRIPTS],
