@@ -46,6 +46,7 @@ from colaborativempc_tpu_torch.ops.cuda_lqr import (
 from colaborativempc_tpu_torch.ops.lqr import (
     LQRCost, LQRDynamics, lqr_affine_solve_assoc, lqr_factorize,
 )
+from colaborativempc_tpu_torch.utils.tracing import span
 
 
 class StageQP(NamedTuple):
@@ -264,69 +265,84 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
     torch and runs on the card as well, but ``admm_solve`` never selects it
     there.
     """
-    P, N, m = qp.lo.shape
-    dtype, dev = z0.dtype, z0.device
-    nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
-    if epoch_len is None:
-        epoch_len = default_epoch_len(N)
-    n_epochs = max(1, iters // epoch_len)
+    with span("cmpc.admm.solve"):
+        P, N, m = qp.lo.shape
+        dtype, dev = z0.dtype, z0.device
+        nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
+        if epoch_len is None:
+            epoch_len = default_epoch_len(N)
+        n_epochs = max(1, iters // epoch_len)
 
-    if w0 is None:
-        w0 = torch.clamp(torch.zeros((P, N, m), dtype=dtype, device=dev),
-                         qp.lo, qp.hi)
-    if y0 is None:
-        y0 = torch.zeros((P, N, m), dtype=dtype, device=dev)
+        if w0 is None:
+            w0 = torch.clamp(torch.zeros((P, N, m), dtype=dtype, device=dev),
+                             qp.lo, qp.hi)
+        if y0 is None:
+            y0 = torch.zeros((P, N, m), dtype=dtype, device=dev)
 
-    z = torch.zeros((P, N + 1, nz), dtype=dtype, device=dev)
-    c = torch.zeros((P, N, nc), dtype=dtype, device=dev)
-    w, y = w0, y0
-    rho_scale = torch.broadcast_to(
-        torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (P, m)).clone()
-    it = torch.zeros((P,), dtype=torch.int64, device=dev)
-    r_prim = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
-    r_dual = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
-    z0c = z0.contiguous()
+        z = torch.zeros((P, N + 1, nz), dtype=dtype, device=dev)
+        c = torch.zeros((P, N, nc), dtype=dtype, device=dev)
+        w, y = w0, y0
+        rho_scale = torch.broadcast_to(
+            torch.as_tensor(rho_scale0, dtype=dtype, device=dev),
+            (P, m)).clone()
+        it = torch.zeros((P,), dtype=torch.int64, device=dev)
+        r_prim = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
+        r_dual = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
+        z0c = z0.contiguous()
 
-    for _ in range(n_epochs):
-        not_conv = ((torch.amax(r_prim, dim=1) > eps)
-                    | (torch.amax(r_dual, dim=1) > eps))
-        active = (it < n_epochs * epoch_len) & not_conv
-        if not bool(active.any()):      # the one host sync per epoch
-            break
-        if assoc and dev.type == "cpu":
-            z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_assoc(
-                qp, z0c, w, y, rho, rho_scale, reg, epoch_len=epoch_len,
-                alpha=alpha)
-        else:
-            data = admm_epoch_inputs(qp, rho, rho_scale, reg)
-            z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
-                data, z0c, w.contiguous(), y.contiguous(),
-                epoch_len=epoch_len, alpha=alpha)
-        # OSQP-style per-class rescale, bounded; the scaled dual follows.
-        # Classes already inside tolerance keep their rho.
-        ratio = torch.sqrt(rp_e / torch.clamp_min(rd_e, 1e-12))
-        ratio = torch.clamp(ratio, 0.2, 10.0)
-        new_scale = torch.clamp(rho_scale * ratio, 1e-3, max_rho_scale)
-        quiet = (rp_e < eps) & (rd_e < eps)
-        new_scale = torch.where(quiet, rho_scale, new_scale)
-        y_e = y_e * (rho_scale / new_scale)[:, None, :]
+        def any_active():
+            # the one host sync per epoch: whether any problem runs the next
+            not_conv = ((torch.amax(r_prim, dim=1) > eps)
+                        | (torch.amax(r_dual, dim=1) > eps))
+            active = (it < n_epochs * epoch_len) & not_conv
+            with span("cmpc.admm.sync"):
+                return active, bool(active.any())
 
-        a1 = active[:, None]
-        a2 = active[:, None, None]
-        z = torch.where(a2, z_e, z)
-        c = torch.where(a2, c_e, c)
-        w = torch.where(a2, w_e, w)
-        y = torch.where(a2, y_e, y)
-        rho_scale = torch.where(a1, new_scale, rho_scale)
-        r_prim = torch.where(a1, rp_e, r_prim)
-        r_dual = torch.where(a1, rd_e, r_dual)
-        it = it + epoch_len * active.to(it.dtype)
+        # each epoch's span holds the sync that decides the next epoch, so
+        # there is one span per epoch run
+        active, go = any_active()
+        for e in range(n_epochs):
+            if not go:
+                break
+            with span("cmpc.admm.epoch"):
+                if assoc and dev.type == "cpu":
+                    z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_assoc(
+                        qp, z0c, w, y, rho, rho_scale, reg,
+                        epoch_len=epoch_len, alpha=alpha)
+                else:
+                    data = admm_epoch_inputs(qp, rho, rho_scale, reg)
+                    z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
+                        data, z0c, w.contiguous(), y.contiguous(),
+                        epoch_len=epoch_len, alpha=alpha)
+                # OSQP-style per-class rescale, bounded; the scaled dual
+                # follows. Classes already inside tolerance keep their rho.
+                ratio = torch.sqrt(rp_e / torch.clamp_min(rd_e, 1e-12))
+                ratio = torch.clamp(ratio, 0.2, 10.0)
+                new_scale = torch.clamp(rho_scale * ratio, 1e-3,
+                                        max_rho_scale)
+                quiet = (rp_e < eps) & (rd_e < eps)
+                new_scale = torch.where(quiet, rho_scale, new_scale)
+                y_e = y_e * (rho_scale / new_scale)[:, None, :]
 
-    r_p = torch.amax(r_prim, dim=1)
-    return ADMMSolution(z=z, c=c, w=w, y=y, rho_scale=rho_scale,
-                        iterations=it, r_prim=r_p,
-                        r_dual=torch.amax(r_dual, dim=1),
-                        # tolerant acceptance mirroring the reference, which
-                        # treats OSQP 'solved_inaccurate' and even
-                        # 'max_iter_reached' as usable (LPV_Planner.py:241-249)
-                        feasible=r_p < feas_tol)
+                a1 = active[:, None]
+                a2 = active[:, None, None]
+                z = torch.where(a2, z_e, z)
+                c = torch.where(a2, c_e, c)
+                w = torch.where(a2, w_e, w)
+                y = torch.where(a2, y_e, y)
+                rho_scale = torch.where(a1, new_scale, rho_scale)
+                r_prim = torch.where(a1, rp_e, r_prim)
+                r_dual = torch.where(a1, rd_e, r_dual)
+                it = it + epoch_len * active.to(it.dtype)
+                if e + 1 < n_epochs:
+                    active, go = any_active()
+
+        r_p = torch.amax(r_prim, dim=1)
+        return ADMMSolution(z=z, c=c, w=w, y=y, rho_scale=rho_scale,
+                            iterations=it, r_prim=r_p,
+                            r_dual=torch.amax(r_dual, dim=1),
+                            # tolerant acceptance mirroring the reference,
+                            # which treats OSQP 'solved_inaccurate' and even
+                            # 'max_iter_reached' as usable
+                            # (LPV_Planner.py:241-249)
+                            feasible=r_p < feas_tol)

@@ -15,7 +15,8 @@ admm_epoch_inputs`` picks one of the two by device. Each wrapper counts its
 kernel launches in a plain integer attribute
 (``admm_epoch_batched.launches``, ``lqr_affine_solve_batched.launches``,
 ``epoch_data_batched.launches``), incremented only where the kernel is
-launched.
+launched. These attributes and ``ops/cuda_sqp.py``'s are the port's
+counters; its spans are in ``utils/tracing.py``.
 
 Layout: row-major with the batch of problems first, ``(P, N, ...)``;
 ``Quu_inv`` is the explicit inverse of the nc x nc ``Quu`` (as in the

@@ -14,7 +14,8 @@ raise on anything they cannot take (device, dtype, shape, layout) — there
 is no fallback to the plain version. Each counts its launches in a plain
 integer attribute (``nl_qp_batched.launches``,
 ``mpcc_qp_batched.launches``), incremented only where the kernel is
-launched.
+launched. These attributes and ``ops/cuda_lqr.py``'s are the port's
+counters; its spans are in ``utils/tracing.py``.
 
 The wrappers pass the gains and limits (numbers, or tensors shared or per
 problem) to the kernel as slots (:func:`pack_slots`: a pointer and a

@@ -28,6 +28,7 @@ from colaborativempc_tpu_torch.geometry import (
 from colaborativempc_tpu_torch.ops import (
     LQRCost, LQRDynamics, StageQP, admm_solve, ADMMSolution,
 )
+from colaborativempc_tpu_torch.utils.tracing import span
 
 NZ = NX + NU          # augmented state dim
 NC = NU               # stage control = du
@@ -224,41 +225,43 @@ def lpv_solve(track: Track, gains: Gains, limits: SysLimits,
       neigh_boost: optional (P, n_nb) per-neighbour separation-reward
         multiplier-minus-one; only repulsive (positive) weights scale.
     """
-    dtype, dev = x_lin.dtype, x_lin.device
-    P = x_lin.shape[0]
-    if neighbours_xy is None:
-        planes = x_lin.new_zeros((P, N, 1, 3))
-        weights = x_lin.new_zeros((P, N, 1))
-    else:
-        if ego_xy is None:
-            ego_xy = x_lin[..., 7:9]
-        planes = compute_hyperplanes(ego_xy[:, :N], neighbours_xy[:, :N])
-        min_dist = _lim(limits.min_dist, dtype, dev)[..., None]
-        weights, _ = separation_weights(ego_xy[:, 1:], neighbours_xy[:, 1:],
-                                        min_dist)
-        if neigh_boost is not None:
-            weights = torch.where(
-                weights > 0,
-                weights * (1.0 + neigh_boost)[:, None, :].to(dtype),
-                weights)
+    with span("cmpc.lpv.solve"):
+        dtype, dev = x_lin.dtype, x_lin.device
+        P = x_lin.shape[0]
+        if neighbours_xy is None:
+            planes = x_lin.new_zeros((P, N, 1, 3))
+            weights = x_lin.new_zeros((P, N, 1))
+        else:
+            if ego_xy is None:
+                ego_xy = x_lin[..., 7:9]
+            planes = compute_hyperplanes(ego_xy[:, :N], neighbours_xy[:, :N])
+            min_dist = _lim(limits.min_dist, dtype, dev)[..., None]
+            weights, _ = separation_weights(ego_xy[:, 1:],
+                                            neighbours_xy[:, 1:], min_dist)
+            if neigh_boost is not None:
+                weights = torch.where(
+                    weights > 0,
+                    weights * (1.0 + neigh_boost)[:, None, :].to(dtype),
+                    weights)
 
-    qp = build_lpv_qp(track, gains, limits, model, N, dt, x_lin, u_lin,
-                      planes, weights, lane=lane)
-    if neighbours_xy is None:
-        # disable the placeholder plane row
-        hi = qp.hi.clone()
-        hi[..., 4:] = INF
-        qp = qp._replace(hi=hi)
+        with span("cmpc.lpv.build"):
+            qp = build_lpv_qp(track, gains, limits, model, N, dt, x_lin,
+                              u_lin, planes, weights, lane=lane)
+            if neighbours_xy is None:
+                # disable the placeholder plane row
+                hi = qp.hi.clone()
+                hi[..., 4:] = INF
+                qp = qp._replace(hi=hi)
 
-    z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
-    sol: ADMMSolution = admm_solve(qp, z0, w0=w0, y0=y0,
-                                   rho_scale0=rho_scale0,
-                                   iters=admm_iters, rho=rho,
-                                   alpha=alpha_relax, eps=eps,
-                                   epoch_len=epoch_len, assoc=assoc)
-    return LPVSolution(
-        x_pred=sol.z[..., :NX], u_pred=sol.z[:, 1:, NX:],
-        du_pred=sol.c, s_pred=_violations(qp, sol.z, sol.c),
-        planes=planes, feasible=sol.feasible,
-        w=sol.w, y=sol.y, rho_scale=sol.rho_scale,
-        iterations=sol.iterations, r_prim=sol.r_prim)
+        z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
+        sol: ADMMSolution = admm_solve(qp, z0, w0=w0, y0=y0,
+                                       rho_scale0=rho_scale0,
+                                       iters=admm_iters, rho=rho,
+                                       alpha=alpha_relax, eps=eps,
+                                       epoch_len=epoch_len, assoc=assoc)
+        return LPVSolution(
+            x_pred=sol.z[..., :NX], u_pred=sol.z[:, 1:, NX:],
+            du_pred=sol.c, s_pred=_violations(qp, sol.z, sol.c),
+            planes=planes, feasible=sol.feasible,
+            w=sol.w, y=sol.y, rho_scale=sol.rho_scale,
+            iterations=sol.iterations, r_prim=sol.r_prim)

@@ -42,6 +42,7 @@ from colaborativempc_tpu_torch.ops import (
 from colaborativempc_tpu_torch.planners.lpv import (
     NZ, NC, SOFT_WEIGHT_CAP, _augment_dynamics, _gain, _lim, _violations,
 )
+from colaborativempc_tpu_torch.utils.tracing import span
 
 INF = float("inf")
 _EPS = 1e-6
@@ -379,41 +380,49 @@ def nl_solve(track: Track, gains: Gains, limits: SysLimits,
     ``x0 (P, 9)``, ``u_old (P, 2)``, ``w0``/``y0`` ``(P, N, m)``,
     ``rho_scale0`` scalar, ``(m,)`` or ``(P, m)``.
     """
-    dtype, dev = x_bar.dtype, x_bar.device
-    P = x_bar.shape[0]
-    n_nb = neigh_xy.shape[-2]
-    hp_opt = coupling == "hp_opt"
-    m = 4 + (3 * n_nb if hp_opt else n_nb)
-    z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
-    pl = (x_bar.new_zeros((P, n_nb, N, 2)) if planes0 is None
-          else planes0.to(dtype))
-    w = x_bar.new_zeros((P, N, m)) if w0 is None else w0
-    y = torch.zeros_like(w) if y0 is None else y0
-    rs = torch.broadcast_to(
-        torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (P, m))
-    x_lin, u_lin = x_bar, u_bar
-    iterations = torch.zeros((P,), dtype=torch.int64, device=dev)
-    for _ in range(sqp_iters):
-        qp = build_nl_qp(track, gains, limits, model, N, dt, x_lin, u_lin,
-                         lambdas, neigh_xy, master_mask, u_trust=u_trust,
-                         coupling=coupling, lane=lane, planes0=pl)
-        sol: ADMMSolution = admm_solve(
-            qp, z0, w0=w, y0=y, rho_scale0=rs, iters=admm_iters, rho=rho,
-            alpha=alpha_relax, eps=eps, epoch_len=epoch_len, assoc=assoc)
-        x_lin = sqp_mix * sol.z[..., :NX] + (1.0 - sqp_mix) * x_lin
-        u_lin = sqp_mix * sol.z[:, 1:, NX:] + (1.0 - sqp_mix) * u_lin
-        if hp_opt:
-            # plane perturbations are the extra control columns
-            dpl = torch.stack([sol.c[:, :, NC:NC + n_nb].transpose(1, 2),
-                               sol.c[:, :, NC + n_nb:].transpose(1, 2)],
-                              dim=-1)                          # (P, nb, N, 2)
-            pl = pl + sqp_mix * dpl * master_mask[:, :, None, None]
-        # violations against this iteration's own QP (consistent
-        # linearisation, as in JAX)
-        viol = _violations(qp, sol.z, sol.c)
-        w, y, rs = sol.w, sol.y, sol.rho_scale
-        iterations = iterations + sol.iterations
-    return NLSolution(
-        x_pred=x_lin, u_pred=u_lin, du_pred=sol.c[..., :NC], s_pred=viol,
-        feasible=sol.feasible, w=w, y=y, rho_scale=rs,
-        iterations=iterations, r_prim=sol.r_prim, planes=pl)
+    with span("cmpc.nl.solve"):
+        dtype, dev = x_bar.dtype, x_bar.device
+        P = x_bar.shape[0]
+        n_nb = neigh_xy.shape[-2]
+        hp_opt = coupling == "hp_opt"
+        m = 4 + (3 * n_nb if hp_opt else n_nb)
+        z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
+        pl = (x_bar.new_zeros((P, n_nb, N, 2)) if planes0 is None
+              else planes0.to(dtype))
+        w = x_bar.new_zeros((P, N, m)) if w0 is None else w0
+        y = torch.zeros_like(w) if y0 is None else y0
+        rs = torch.broadcast_to(
+            torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (P, m))
+        x_lin, u_lin = x_bar, u_bar
+        iterations = torch.zeros((P,), dtype=torch.int64, device=dev)
+        for _ in range(sqp_iters):
+            with span("cmpc.nl.sqp_iter"):
+                with span("cmpc.nl.build"):
+                    qp = build_nl_qp(track, gains, limits, model, N, dt,
+                                     x_lin, u_lin, lambdas, neigh_xy,
+                                     master_mask, u_trust=u_trust,
+                                     coupling=coupling, lane=lane,
+                                     planes0=pl)
+                sol: ADMMSolution = admm_solve(
+                    qp, z0, w0=w, y0=y, rho_scale0=rs, iters=admm_iters,
+                    rho=rho, alpha=alpha_relax, eps=eps, epoch_len=epoch_len,
+                    assoc=assoc)
+                x_lin = sqp_mix * sol.z[..., :NX] + (1.0 - sqp_mix) * x_lin
+                u_lin = (sqp_mix * sol.z[:, 1:, NX:]
+                         + (1.0 - sqp_mix) * u_lin)
+                if hp_opt:
+                    # plane perturbations are the extra control columns
+                    dpl = torch.stack(
+                        [sol.c[:, :, NC:NC + n_nb].transpose(1, 2),
+                         sol.c[:, :, NC + n_nb:].transpose(1, 2)],
+                        dim=-1)                                # (P, nb, N, 2)
+                    pl = pl + sqp_mix * dpl * master_mask[:, :, None, None]
+                # violations against this iteration's own QP (consistent
+                # linearisation, as in JAX)
+                viol = _violations(qp, sol.z, sol.c)
+                w, y, rs = sol.w, sol.y, sol.rho_scale
+                iterations = iterations + sol.iterations
+        return NLSolution(
+            x_pred=x_lin, u_pred=u_lin, du_pred=sol.c[..., :NC],
+            s_pred=viol, feasible=sol.feasible, w=w, y=y, rho_scale=rs,
+            iterations=iterations, r_prim=sol.r_prim, planes=pl)

@@ -49,6 +49,7 @@ from colaborativempc_tpu_torch.runtime.simulate import (
     lateral_wall, resolve_single_fleet_schedule, switch_lanes,
 )
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
+from colaborativempc_tpu_torch.utils.tracing import span
 from colaborativempc_tpu_torch.utils.warmstart import initialise_agents
 
 
@@ -212,13 +213,14 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig,
 
     def prepare(state: OCDFleetState) -> OCDFleetState:
         # per-step dynamic lane switch, then the escalation ladder
-        if cfg.dynamic_lane:
-            state = switch_lanes(track, state)
-            lanes = state.lane
-        else:
-            lanes = torch.full(state.lane.shape, cfg.lane, dtype=torch.int32,
-                               device=dev)
-        return escalate_holds(track, cfg, state, lanes)
+        with span("cmpc.hold"):
+            if cfg.dynamic_lane:
+                state = switch_lanes(track, state)
+                lanes = state.lane
+            else:
+                lanes = torch.full(state.lane.shape, cfg.lane,
+                                   dtype=torch.int32, device=dev)
+            return escalate_holds(track, cfg, state, lanes)
 
     def agent_lanes(x0):
         # the JAX iteration re-reads each agent's lane from its pose
@@ -378,64 +380,69 @@ def _build_ocd_core(track: Track, cfg: ExperimentConfig,
         # follows its previous plan one more stage (duals keep their updated
         # values); after hold_exec_k consecutive failures a finite plan is
         # executed under the envelope and the separation filter
-        jam_count = torch.where(out.feasible,
-                                torch.zeros_like(state.jam_count),
-                                state.jam_count + 1)
-        if cfg.hold_on_infeasible:
-            ok = out.feasible
-            if cfg.hold_exec_k is not None:
-                finite = (torch.isfinite(out.x_pred).all(-1).all(-1)
-                          & torch.isfinite(out.u_pred).all(-1).all(-1))
-                ok = ok | ((~ok) & finite
-                           & (state.jam_count >= cfg.hold_exec_k))
-            ok3 = ok[..., None, None]
-            hold_x = torch.cat([state.x_pred[:, :, 1:],
-                                state.x_pred[:, :, -1:]], dim=2)
-            hold_u = torch.cat([state.u_pred[:, :, 1:],
-                                state.u_pred[:, :, -1:]], dim=2)
-            x_fin = torch.where(ok3, out.x_pred, hold_x)
-            u_fin = torch.where(ok3, out.u_pred, hold_u)
-            w_fin = torch.where(ok3, out.w, state.w)
-            y_fin = torch.where(ok3, out.y, state.y)
-            rs_fin = torch.where(ok[..., None], out.rho_scale,
-                                 state.rho_scale)
-            hold_count = torch.where(out.feasible,
-                                     torch.zeros_like(state.hold_count),
-                                     state.hold_count + 1)
-        else:
-            x_fin, u_fin = out.x_pred, out.u_pred
-            w_fin, y_fin, rs_fin = out.w, out.y, out.rho_scale
-            hold_count = state.hold_count
+        with span("cmpc.hold"):
+            jam_count = torch.where(out.feasible,
+                                    torch.zeros_like(state.jam_count),
+                                    state.jam_count + 1)
+            if cfg.hold_on_infeasible:
+                ok = out.feasible
+                if cfg.hold_exec_k is not None:
+                    finite = (torch.isfinite(out.x_pred).all(-1).all(-1)
+                              & torch.isfinite(out.u_pred).all(-1).all(-1))
+                    ok = ok | ((~ok) & finite
+                               & (state.jam_count >= cfg.hold_exec_k))
+                ok3 = ok[..., None, None]
+                hold_x = torch.cat([state.x_pred[:, :, 1:],
+                                    state.x_pred[:, :, -1:]], dim=2)
+                hold_u = torch.cat([state.u_pred[:, :, 1:],
+                                    state.u_pred[:, :, -1:]], dim=2)
+                x_fin = torch.where(ok3, out.x_pred, hold_x)
+                u_fin = torch.where(ok3, out.u_pred, hold_u)
+                w_fin = torch.where(ok3, out.w, state.w)
+                y_fin = torch.where(ok3, out.y, state.y)
+                rs_fin = torch.where(ok[..., None], out.rho_scale,
+                                     state.rho_scale)
+                hold_count = torch.where(out.feasible,
+                                         torch.zeros_like(state.hold_count),
+                                         state.hold_count + 1)
+            else:
+                x_fin, u_fin = out.x_pred, out.u_pred
+                w_fin, y_fin, rs_fin = out.w, out.y, out.rho_scale
+                hold_count = state.hold_count
 
         # physical envelope, then the executed-separation filter
-        x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
-                                          x_fin[:, :, 1, :], state.lane)
-        x0_exec, exec_beta, pe = _exchange_filter(
-            cfg, ex, ex.gids(state.x0.shape[1], dev), state.x0, x0_cand)
-        brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
-                                  torch.zeros_like(state.brake_count))
-        # control-step shift (NL_EU_N_main.py:170-172)
-        new_state = OCDFleetState(
-            x0=x0_exec,
-            x_pred=torch.cat([x_fin[:, :, 1:], x_fin[:, :, -1:]], dim=2),
-            u_pred=torch.cat([u_fin[:, :, 1:], u_fin[:, :, -1:]], dim=2),
-            u_old=u_fin[:, :, 0, :], lambdas=out.lambdas, w=w_fin, y=y_fin,
-            rho_scale=rs_fin, lane=state.lane, hold_count=hold_count,
-            brake_count=brake_count, jam_count=jam_count)
+        with span("cmpc.safety"):
+            x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
+                                              x_fin[:, :, 1, :], state.lane)
+            x0_exec, exec_beta, pe = _exchange_filter(
+                cfg, ex, ex.gids(state.x0.shape[1], dev), state.x0, x0_cand)
 
-        eye = torch.eye(n, dtype=x_fin.dtype, device=dev) * 1e9
-        p = ex.gather(x_fin[:, :, 1:, 7:9])
-        diff = p[:, :, None] - p[:, None]
-        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
-        dist = dist + eye[:, :, None]
-        de = torch.sqrt(torch.sum((pe[:, :, None] - pe[:, None]) ** 2, dim=-1)
-                        + 1e-12) + eye
-        metrics = OCDStepMetrics(
-            ocd_iterations=out.it_ocd, feasible=out.feasible,
-            min_dist=torch.amin(dist, dim=(1, 2, 3)),
-            min_dist_exec=torch.amin(de, dim=(1, 2)),
-            lambda_max=torch.amax(torch.abs(out.lambdas), dim=(1, 2, 3)),
-            exec_beta=exec_beta, wall_clip=wall_clip)
+        with span("cmpc.plant"):
+            brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
+                                      torch.zeros_like(state.brake_count))
+            # control-step shift (NL_EU_N_main.py:170-172)
+            new_state = OCDFleetState(
+                x0=x0_exec,
+                x_pred=torch.cat([x_fin[:, :, 1:], x_fin[:, :, -1:]], dim=2),
+                u_pred=torch.cat([u_fin[:, :, 1:], u_fin[:, :, -1:]], dim=2),
+                u_old=u_fin[:, :, 0, :], lambdas=out.lambdas, w=w_fin,
+                y=y_fin, rho_scale=rs_fin, lane=state.lane,
+                hold_count=hold_count, brake_count=brake_count,
+                jam_count=jam_count)
+
+            eye = torch.eye(n, dtype=x_fin.dtype, device=dev) * 1e9
+            p = ex.gather(x_fin[:, :, 1:, 7:9])
+            diff = p[:, :, None] - p[:, None]
+            dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+            dist = dist + eye[:, :, None]
+            de = torch.sqrt(torch.sum((pe[:, :, None] - pe[:, None]) ** 2,
+                                      dim=-1) + 1e-12) + eye
+            metrics = OCDStepMetrics(
+                ocd_iterations=out.it_ocd, feasible=out.feasible,
+                min_dist=torch.amin(dist, dim=(1, 2, 3)),
+                min_dist_exec=torch.amin(de, dim=(1, 2)),
+                lambda_max=torch.amax(torch.abs(out.lambdas), dim=(1, 2, 3)),
+                exec_beta=exec_beta, wall_clip=wall_clip)
         return new_state, metrics
 
     return _OCDCore(prepare, ocd_iteration, loop_init, running, finalize, ex)
@@ -449,20 +456,28 @@ def _coordinate(core: _OCDCore, state: OCDFleetState, gains=None,
     after each iteration and records its wall time (``on_iteration(it_ocd,
     seconds, max |dx|)`` is then called per iteration). Returns
     ``(new_state, metrics, iteration_times)``."""
-    state = core.prepare(state)
-    st = core.loop_init(state)
-    times = []
-    while core.exchange.any_fleet(core.running(st)):
-        t0 = time.perf_counter()
-        st = core.iteration(st, state.x0, state.u_old, gains)
-        if timed:
-            synchronize(st.x_pred.device)
-            times.append(time.perf_counter() - t0)
-            if on_iteration is not None:
-                delta = float((st.x_pred - st.x_old).abs().max())
-                on_iteration(int(st.it_ocd.max()), times[-1], delta)
-    new_state, metrics = core.finalize(st, state)
-    return new_state, metrics, times
+
+    def any_running(st):
+        # the one host check per iteration
+        with span("cmpc.ocd.sync"):
+            return core.exchange.any_fleet(core.running(st))
+
+    with span("cmpc.step"):
+        state = core.prepare(state)
+        st = core.loop_init(state)
+        times = []
+        while any_running(st):
+            t0 = time.perf_counter()
+            with span("cmpc.ocd.iter"):
+                st = core.iteration(st, state.x0, state.u_old, gains)
+            if timed:
+                synchronize(st.x_pred.device)
+                times.append(time.perf_counter() - t0)
+                if on_iteration is not None:
+                    delta = float((st.x_pred - st.x_old).abs().max())
+                    on_iteration(int(st.it_ocd.max()), times[-1], delta)
+        new_state, metrics = core.finalize(st, state)
+        return new_state, metrics, times
 
 
 def make_nl_ocd_step(track: Track, cfg: ExperimentConfig):

@@ -34,6 +34,7 @@ from colaborativempc_tpu_torch.geometry import (
 )
 from colaborativempc_tpu_torch.planners.lpv import lpv_solve, LPVSolution
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
+from colaborativempc_tpu_torch.utils.tracing import span
 from colaborativempc_tpu_torch.utils.warmstart import (
     initialise_agents, warmstart_trajectory,
 )
@@ -415,16 +416,14 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
     limits_pa = _per_agent_limits(cfg, dev)
 
     def step(state: FleetState):
+        with span("cmpc.step"):
+            return control_step(state)
+
+    def control_step(state: FleetState):
         B, A = state.x0.shape[:2]
         P = B * A
         dtype = state.x0.dtype
         gids = ex.gids(A, dev)
-        if cfg.dynamic_lane:
-            state = switch_lanes(track, state)
-            lanes = state.lane
-        else:
-            lanes = torch.full((B, A), cfg.lane, dtype=torch.int32,
-                               device=dev)
 
         def flat(t):
             return t.reshape((P,) + t.shape[2:])
@@ -432,26 +431,37 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
         def unflat(t):
             return t.reshape((B, A) + t.shape[1:])
 
-        # recovery feasibility pass: pre-escalation hold-or-brake counts
-        vxs = hold_vx_scale(
-            cfg, torch.maximum(state.hold_count, state.brake_count), dtype)
-        lim = SysLimits(*(v[gids] for v in limits_pa))
-        limits_step = SysLimits(*(
-            flat(torch.broadcast_to(v, (B, A))) for v in
-            lim._replace(vx_ref=lim.vx_ref * vxs)))
-
-        state = escalate_holds(track, cfg, state, lanes)
+        with span("cmpc.hold"):
+            if cfg.dynamic_lane:
+                state = switch_lanes(track, state)
+                lanes = state.lane
+            else:
+                lanes = torch.full((B, A), cfg.lane, dtype=torch.int32,
+                                   device=dev)
+            # recovery feasibility pass: pre-escalation hold-or-brake counts
+            vxs = hold_vx_scale(
+                cfg, torch.maximum(state.hold_count, state.brake_count),
+                dtype)
+            lim = SysLimits(*(v[gids] for v in limits_pa))
+            limits_step = SysLimits(*(
+                flat(torch.broadcast_to(v, (B, A))) for v in
+                lim._replace(vx_ref=lim.vx_ref * vxs)))
+            state = escalate_holds(track, cfg, state, lanes)
 
         # the "communication": everyone reads everyone's (X, Y) plan
-        if multi:
-            xy = ex.gather(state.x_pred[..., 7:9])        # (B, n, N+1, 2)
-            nb = ns[gids]                                 # (A, n - 1)
-            neigh = flat(xy[:, nb].permute(0, 1, 3, 2, 4))  # (P, N+1, nb, 2)
-            boost_sc = cfg.hold_sep_boost if cfg.hold_on_infeasible else 0.0
-            hold_f = ex.gather((state.hold_count > 0).to(dtype) * boost_sc)
-            neigh_boost = flat(hold_f[:, nb])
-        else:
-            neigh, neigh_boost = None, None
+        with span("cmpc.exchange"):
+            if multi:
+                xy = ex.gather(state.x_pred[..., 7:9])      # (B, n, N+1, 2)
+                nb = ns[gids]                               # (A, n - 1)
+                # (P, N+1, nb, 2)
+                neigh = flat(xy[:, nb].permute(0, 1, 3, 2, 4))
+                boost_sc = (cfg.hold_sep_boost if cfg.hold_on_infeasible
+                            else 0.0)
+                hold_f = ex.gather((state.hold_count > 0).to(dtype)
+                                   * boost_sc)
+                neigh_boost = flat(hold_f[:, nb])
+            else:
+                neigh, neigh_boost = None, None
 
         sol: LPVSolution = lpv_solve(
             track, gains, limits_step, cfg.model, cfg.N, cfg.dt,
@@ -465,63 +475,69 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
             assoc=bool(cfg.solver.assoc))
         sol = LPVSolution(*(unflat(t) for t in sol))
 
-        jam_count = torch.where(sol.feasible, torch.zeros_like(state.jam_count),
-                                state.jam_count + 1)
-        if cfg.hold_on_infeasible:
-            # a plan whose residual exceeded the feasibility tolerance is not
-            # executed: the agent follows its previous plan one more stage;
-            # after hold_exec_k consecutive failures a finite unconverged
-            # plan is executed under the envelope and the safety filter
-            ok = sol.feasible
-            if cfg.hold_exec_k is not None:
-                finite = (torch.isfinite(sol.x_pred).all(-1).all(-1)
-                          & torch.isfinite(sol.u_pred).all(-1).all(-1))
-                degraded = ((~ok) & finite
-                            & (state.jam_count >= cfg.hold_exec_k))
-                ok = ok | degraded
-            ok3 = ok[..., None, None]
-            hold_x = torch.cat([state.x_pred[:, :, 1:],
-                                state.x_pred[:, :, -1:]], dim=2)
-            hold_u = torch.cat([state.u_pred[:, :, 1:],
-                                state.u_pred[:, :, -1:]], dim=2)
-            x_pred = torch.where(ok3, sol.x_pred, hold_x)
-            u_pred = torch.where(ok3, sol.u_pred, hold_u)
-            w = torch.where(ok3, sol.w, state.w)
-            y = torch.where(ok3, sol.y, state.y)
-            rho_scale = torch.where(ok[..., None], sol.rho_scale,
-                                    state.rho_scale)
-            # hold_count tracks solver feasibility, not the override
-            hold_count = torch.where(sol.feasible,
-                                     torch.zeros_like(state.hold_count),
-                                     state.hold_count + 1)
-        else:
-            x_pred, u_pred = sol.x_pred, sol.u_pred
-            w, y, rho_scale = sol.w, sol.y, sol.rho_scale
-            hold_count = state.hold_count
+        with span("cmpc.hold"):
+            jam_count = torch.where(sol.feasible,
+                                    torch.zeros_like(state.jam_count),
+                                    state.jam_count + 1)
+            if cfg.hold_on_infeasible:
+                # a plan whose residual exceeded the feasibility tolerance
+                # is not executed: the agent follows its previous plan one
+                # more stage; after hold_exec_k consecutive failures a
+                # finite unconverged plan is executed under the envelope
+                # and the safety filter
+                ok = sol.feasible
+                if cfg.hold_exec_k is not None:
+                    finite = (torch.isfinite(sol.x_pred).all(-1).all(-1)
+                              & torch.isfinite(sol.u_pred).all(-1).all(-1))
+                    degraded = ((~ok) & finite
+                                & (state.jam_count >= cfg.hold_exec_k))
+                    ok = ok | degraded
+                ok3 = ok[..., None, None]
+                hold_x = torch.cat([state.x_pred[:, :, 1:],
+                                    state.x_pred[:, :, -1:]], dim=2)
+                hold_u = torch.cat([state.u_pred[:, :, 1:],
+                                    state.u_pred[:, :, -1:]], dim=2)
+                x_pred = torch.where(ok3, sol.x_pred, hold_x)
+                u_pred = torch.where(ok3, sol.u_pred, hold_u)
+                w = torch.where(ok3, sol.w, state.w)
+                y = torch.where(ok3, sol.y, state.y)
+                rho_scale = torch.where(ok[..., None], sol.rho_scale,
+                                        state.rho_scale)
+                # hold_count tracks solver feasibility, not the override
+                hold_count = torch.where(sol.feasible,
+                                         torch.zeros_like(state.hold_count),
+                                         state.hold_count + 1)
+            else:
+                x_pred, u_pred = sol.x_pred, sol.u_pred
+                w, y, rho_scale = sol.w, sol.y, sol.rho_scale
+                hold_count = state.hold_count
 
         # physical envelope, then the executed-separation filter
-        x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
-                                          x_pred[:, :, 1, :], lanes)
-        x0_exec, exec_beta, exec_xy = _exchange_filter(cfg, ex, gids,
-                                                       state.x0, x0_cand)
-        brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
-                                  torch.zeros_like(state.brake_count))
-        new_state = FleetState(
-            x0=x0_exec, x_pred=x_pred, u_pred=u_pred,
-            u_old=u_pred[:, :, 0, :], w=w, y=y, rho_scale=rho_scale,
-            lane=lanes, hold_count=hold_count, brake_count=brake_count,
-            jam_count=jam_count)
-        dd = exec_xy[..., :, None, :] - exec_xy[..., None, :, :]
-        dexec = torch.sqrt(torch.sum(dd * dd, dim=-1) + 1e-12)
-        dexec = dexec + torch.eye(n, dtype=dexec.dtype, device=dev) * 1e9
-        metrics = StepMetrics(
-            feasible=sol.feasible, iterations=sol.iterations,
-            r_prim=sol.r_prim,
-            min_dist=_pairwise_min_dist(
-                ex.gather(x_pred[..., 7:9]).transpose(1, 2)),
-            min_dist_exec=torch.amin(dexec, dim=(-2, -1)),
-            slack_max=torch.amax(torch.abs(sol.s_pred), dim=(-2, -1)),
-            exec_beta=exec_beta, wall_clip=wall_clip)
+        with span("cmpc.safety"):
+            x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
+                                              x_pred[:, :, 1, :], lanes)
+            x0_exec, exec_beta, exec_xy = _exchange_filter(
+                cfg, ex, gids, state.x0, x0_cand)
+
+        with span("cmpc.plant"):
+            brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
+                                      torch.zeros_like(state.brake_count))
+            new_state = FleetState(
+                x0=x0_exec, x_pred=x_pred, u_pred=u_pred,
+                u_old=u_pred[:, :, 0, :], w=w, y=y, rho_scale=rho_scale,
+                lane=lanes, hold_count=hold_count, brake_count=brake_count,
+                jam_count=jam_count)
+            dd = exec_xy[..., :, None, :] - exec_xy[..., None, :, :]
+            dexec = torch.sqrt(torch.sum(dd * dd, dim=-1) + 1e-12)
+            dexec = dexec + torch.eye(n, dtype=dexec.dtype, device=dev) * 1e9
+            metrics = StepMetrics(
+                feasible=sol.feasible, iterations=sol.iterations,
+                r_prim=sol.r_prim,
+                min_dist=_pairwise_min_dist(
+                    ex.gather(x_pred[..., 7:9]).transpose(1, 2)),
+                min_dist_exec=torch.amin(dexec, dim=(-2, -1)),
+                slack_max=torch.amax(torch.abs(sol.s_pred), dim=(-2, -1)),
+                exec_beta=exec_beta, wall_clip=wall_clip)
         return new_state, metrics
 
     return step
