@@ -17,8 +17,15 @@
 // N=20 to ~6.8 us, so the kernel is bound by the latency of that chain and
 // of the work around it inside one warp. The first port kept the fixed data
 // in global memory (L2 at best), so every stage step waited on those loads:
-// ~2.5 us per step, 2.0 ms per epoch at that shape. PERF.md has this
-// design's times.
+// ~2.5 us per step, 2.0 ms per epoch at that shape. Through shared memory
+// (below) a stage step still took 1,000-1,300 cycles (the clocked split,
+// scripts/admm_epoch_split.py): each step went through shared memory and a
+// __syncwarp four times in a row (tt, Qu, kff; z, c), the stage's fixed data
+// was read after each barrier, and its F' tt (F z) products waited for the
+// warp sums. The register chain (below) takes 280-300 cycles a step at the
+// port's widths: one xor-tree warp sum (~146 cycles for its two sums, 5
+// shuffle levels of ~24 cycles and an add), the products, kff and the
+// loads' address arithmetic. PERF.md has both designs' times.
 //
 // What the design does about it.
 // * Fixed data in shared memory, loaded by cp.async into a ring of stage
@@ -38,28 +45,42 @@
 //   lanes over (stage, row) pairs: t = rv (y - w) and q + D't before the
 //   backward chain; the rows' v = D z + E c, over-relaxation, prox, dual
 //   update and residuals after the forward chain.
+// * The register chain, at the port's widths (nz = 11 states, nc = 2
+//   controls; kRegZ, kRegC) and up to 32 rows: lane i owns state row i,
+//   control i and row i, and a lane's share of a stage's fixed data (its F
+//   column or row, its G, E, Qxu rows, K column, m, d, q + D't, t, r,
+//   Quu_inv, kff) is loaded into registers one stage ahead, two register
+//   sets in turn. tt and z reach the other lanes by __shfl_sync; after the
+//   xor tree every lane holds the same sums, so each lane forms Qu, kff and
+//   c itself; the F' tt (F z) products run under the warp sums' shuffles.
+//   kff and c are stored, and z written to hist, off the chain, for the
+//   forward sweep and the row pass. The widths are compile-time, so a step
+//   has no branch and no guard per entry. Other widths (hp_opt's controls,
+//   any other state count) take the chain through shared memory, the
+//   earlier design, unchanged: its loops take runtime widths.
 // * The arithmetic of every value, and its order, is that of the first
 //   port's kernel: sequential sums and the same xor-tree warp sums (two at
 //   a time, so their shuffles overlap), so the results are bit for bit
-//   those of the kernel the port's checks were accepted with. The
-//   closed-loop form (A_cl = F + G K, one matvec per chain step) was
-//   measured faster and rejected: it moves rounding, and the NL hp_opt /
-//   Gauss-Seidel check of chip_smoke.py then left its tolerance (PERF.md).
+//   those of the kernel the port's checks were accepted with, in both
+//   chains. The closed-loop form (A_cl = F + G K, one matvec per chain
+//   step) was measured faster and rejected: it moves rounding, and the NL
+//   hp_opt / Gauss-Seidel check of chip_smoke.py then left its tolerance
+//   (PERF.md).
 // * Lanes and banks. Lane i owns state row i. The column read of F' tt
 //   (consecutive addresses) and the row read of F z (stride nz = 11,
-//   coprime to the 32 banks) are conflict-free; tt and z are broadcast from
-//   their hist row.
+//   coprime to the 32 banks) are conflict-free; in the chain through shared
+//   memory tt and z are broadcast from their hist row.
 // * Any control and row count. A control or a constraint row past the
 //   32nd goes to lane (index mod 32), which owns indices i, i + 32, i + 64,
 //   ...: the warp sums over rows take each lane's rows in turn before the
 //   shuffles, the Quu_inv Qu product and the rows' pass loop over them.
 //   Two instantiations: up to 32 controls and rows the first kernel's code
 //   (lane i alone owns index i; a lane owns row i of several stages and
-//   keeps its residual maxima in registers), so the results and the time
-//   are those of the earlier kernel; past 32 controls or rows the loops
-//   above (a lane owns its rows over every stage and keeps their maxima in
-//   the outputs). Lane i owns state row i throughout. The one limit is
-//   nz <= 32.
+//   keeps its residual maxima in registers), with the register chain at
+//   the port's widths; past 32 controls or rows the loops above (a lane
+//   owns its rows over every stage and keeps their maxima in the outputs)
+//   and the chain through shared memory. Lane i owns state row i
+//   throughout. The one limit is nz <= 32.
 // * Any horizon and fleet: where one QP does not fit in a block's shared
 //   memory, the plan (ops/cuda_lqr.py kernel_plan) moves arrays to global
 //   memory, level by level (Spill below): first w, y and kff over the
@@ -75,6 +96,12 @@
 //   block returns early without deadlock. The launch plan (QPs per block,
 //   ring depth, shared-memory bytes) is chosen in Python
 //   (ops/cuda_lqr.py kernel_plan) and checked here against the carve.
+//
+// Built with -DCMPC_ADMM_EPOCH_CLOCKS (ops/_build.py load_admm_epoch_clocks,
+// a library of its own), the epoch kernel also stamps clock64() in each
+// QP's warp after each part of its solve (the ring's first load, feeds and
+// waits, the backward pre-pass, the chains, the row pass) into a buffer the
+// caller passes (cmpc_admm_epoch_clocked). The default build has no stamps.
 //
 // Semantics match the Pallas kernel: residuals come from the last iteration
 // only, mask = (rv > 0), the soft-row prox shrinks by fac_lo / fac_hi toward
@@ -97,6 +124,19 @@ namespace {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Stamp labels, in the order of cmpc_admm_epoch_clock_names.
+enum Label {
+  kStart = 0, kFirstLoad, kPrePass, kBackChain, kFwdChain, kRowPass, kFeed,
+  kWait
+};
+
+#ifdef CMPC_ADMM_EPOCH_CLOCKS
+struct Clocks {
+  long long* out;  // (P, stamps, 3): label, the warp's clock (twice)
+  int stamps;
+};
+#endif
+
 struct EpochArgs {
   const float *F, *G, *d, *K, *Quu_inv, *Qxu, *m, *q, *r;
   const float *D, *E, *lo, *hi, *rv, *fac_lo, *fac_hi;
@@ -105,7 +145,50 @@ struct EpochArgs {
   float *kff, *work;  // global scratch of the spill levels (or null)
   int P, N, nz, nc, mr, epoch_len, qpb, ring, spill;
   float alpha;
+#ifdef CMPC_ADMM_EPOCH_CLOCKS
+  Clocks clocks;
+#endif
 };
+
+#ifdef CMPC_ADMM_EPOCH_CLOCKS
+// Stamp n of QP p, once the warp has converged: the label and the warp's
+// clock64() in both clock columns (one warp per QP: its own last warp).
+__device__ __forceinline__ void stamp(const Clocks& c, int p, int lane,
+                                      int& n, int label) {
+  __syncwarp();
+  if (c.out && n < c.stamps - 1 && lane == 0) {
+    long long* s = c.out + ((size_t)p * c.stamps + n) * 3;
+    const long long t = clock64();
+    s[0] = label;
+    s[1] = t;
+    s[2] = t;
+  }
+  ++n;
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The QP's last stamp row: (-2 - its SM, its start and its end in ns of
+// the global timer), so a reader sees which QPs ran at once.
+__device__ __forceinline__ void stamp_qp(const Clocks& c, int p, int lane,
+                                         long long t0) {
+  if (c.out && lane == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    long long* s = c.out + ((size_t)p * c.stamps + c.stamps - 1) * 3;
+    s[0] = -2 - (long long)sm;
+    s[1] = t0;
+    s[2] = global_ns();
+  }
+}
+#define CLOCK_STAMP(label) stamp(a.clocks, p, lane, clk_n, (label))
+#else
+#define CLOCK_STAMP(label)
+#endif
 
 // What a launch keeps in global memory (ops/cuda_lqr.py SPILLS): nothing;
 // w, y and kff over the horizon; those and the ring; those and the chunk
@@ -296,12 +379,11 @@ struct Work {
   float *qu;      // (nc) Qu of the current stage
 };
 
-// Backward sweep through one resident chunk [k0, k0+n): before the chain,
-// every stage's t and q + D' t; the chain carries the costate p (lane i
-// holds row i) from p_{k0+n} down to p_{k0} and leaves kff of each stage.
-template <bool kRows, bool kWideR>
-__device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
-                               int nz, int nc, int mr, int lane, float& p) {
+// Backward sweep through one resident chunk [k0, k0+n), before the chain:
+// every stage's t and q + D' t.
+template <bool kRows>
+__device__ void backward_prepass(const Slot& sl, const Work& wk, int k0,
+                                 int n, int nz, int mr, int lane) {
   const RowLane L = row_lane(lane, nz);
   if (kRows) {
     for (int o = lane; o < n * mr; o += kWarp)
@@ -316,6 +398,14 @@ __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
     wk.g[kk * nz + L.i] = acc;
   }
   __syncwarp();
+}
+
+// The chain through shared memory, at widths the register chain does not
+// take. The backward chain through the chunk carries the costate p (lane i
+// holds row i) from p_{k0+n} down to p_{k0} and leaves kff of each stage.
+template <bool kRows, bool kWideR>
+__device__ void backward_chain(const Slot& sl, const Work& wk, int k0, int n,
+                               int nz, int nc, int mr, int lane, float& p) {
   for (int kk = n - 1; kk >= 0; --kk) {
     const int k = k0 + kk;
     float* tt = wk.hist + (kk + 1) * nz;
@@ -374,6 +464,203 @@ __device__ void backward_chunk(const Slot& sl, const Work& wk, int k0, int n,
   }
 }
 
+// The forward chain through one resident chunk: it carries the state z
+// from z_{k0} to z_{k0+n}, c_k = K z_k + kff_k by warp sums, and leaves
+// each stage's z in hist and c in c.
+template <bool kWideR>
+__device__ void forward_chain(const Slot& sl, const Work& wk, int k0, int n,
+                              int nz, int nc, int lane, float& z) {
+  for (int kk = 0; kk < n; ++kk) {
+    const int k = k0 + kk;
+    float* zk = wk.hist + kk * nz;
+    if (lane < nz) zk[lane] = z;
+    __syncwarp();
+    // c_a = sum over lanes of K[a][lane] z_lane, plus kff_a, two at a time
+    for (int a = 0; a < nc; a += 2) {
+      const int b = a + 1 < nc ? a + 1 : a;
+      float u = lane < nz ? sl.K[(kk * nc + a) * nz + lane] * z : 0.f;
+      float v = lane < nz ? sl.K[(kk * nc + b) * nz + lane] * z : 0.f;
+      warp_sum2(u, v);
+      if (lane == 0) {
+        wk.c[kk * nc + a] = u + wk.kff[k * nc + a];
+        wk.c[kk * nc + b] = v + wk.kff[k * nc + b];
+      }
+    }
+    __syncwarp();
+    if (lane < nz) {
+      float acc = sl.d[kk * nz + lane];
+#pragma unroll 4
+      for (int l = 0; l < nz; ++l)
+        acc += sl.F[(kk * nz + lane) * nz + l] * zk[l];
+      for (int a = 0; a < nc; ++a)
+        acc += sl.G[(kk * nz + lane) * nc + a] * wk.c[kk * nc + a];
+      z = acc;
+    }
+  }
+  __syncwarp();
+}
+
+// The register chain (the note at the top): nz = kRegZ states and nc =
+// kRegC controls, the port's stage QPs, and any row count up to 32. Every
+// value's expression and order are those of the chain through shared memory
+// above, so the two give the same bits.
+constexpr int kRegZ = 11, kRegC = 2;
+
+template <bool kRows>
+struct BackStage {
+  float F[kRegZ], G[kRegC], E[kRegC], r[kRegC], Qx[kRegC], Qi[kRegC * kRegC];
+  float m, g, t;
+  __device__ __forceinline__ void load(const Slot& sl, const Work& wk,
+                                       int kk, int mr, int lane) {
+    constexpr int nz = kRegZ, nc = kRegC;
+    const bool z = lane < nz, row = kRows && lane < mr;
+    m = z ? sl.m[kk * nz + lane] : 0.f;
+    g = z ? wk.g[kk * nz + lane] : 0.f;
+    t = row ? wk.t[kk * mr + lane] : 0.f;
+#pragma unroll
+    for (int l = 0; l < nz; ++l)
+      F[l] = z ? sl.F[(kk * nz + l) * nz + lane] : 0.f;
+#pragma unroll
+    for (int a = 0; a < nc; ++a) {
+      G[a] = z ? sl.G[(kk * nz + lane) * nc + a] : 0.f;
+      E[a] = row ? sl.E[(kk * mr + lane) * nc + a] : 0.f;
+      r[a] = sl.r[kk * nc + a];
+      Qx[a] = z ? sl.Qxu[(kk * nz + lane) * nc + a] : 0.f;
+#pragma unroll
+      for (int j = 0; j < nc; ++j)
+        Qi[j * nc + a] = sl.Qi[(kk * nc + j) * nc + a];
+    }
+  }
+};
+
+// One backward stage step from p_{k+1} (lane i: row i) to p_k; stores kff_k
+// at kff.
+template <bool kRows>
+__device__ __forceinline__ void back_step(const BackStage<kRows>& s, float& p,
+                                          float* kff, int mr, int lane) {
+  constexpr int nz = kRegZ, nc = kRegC;
+  const float ttl = lane < nz ? p + s.m : 0.f;
+  // p = (q + D't) + F' tt + Qxu kff: the F' tt terms under the warp sums
+  float acc = s.g;
+#pragma unroll
+  for (int l = 0; l < nz; ++l)
+    acc += s.F[l] * __shfl_sync(kFull, ttl, l);
+  // Qu_a = r_a + sum over lanes of G[lane][a] tt_lane + E[lane][a] t_lane,
+  // two controls at a time; kff's numerators take Quu_inv's columns in the
+  // controls' order
+  float num[nc];
+#pragma unroll
+  for (int j = 0; j < nc; ++j) num[j] = 0.f;
+#pragma unroll
+  for (int a = 0; a < nc; a += 2) {
+    float u = lane < nz ? s.G[a] * ttl : 0.f;
+    float v = lane < nz ? s.G[a + 1] * ttl : 0.f;
+    if (kRows) {
+      const float su = u + s.E[a] * s.t, sv = v + s.E[a + 1] * s.t;
+      u = lane < mr ? su : u;
+      v = lane < mr ? sv : v;
+    }
+    warp_sum2(u, v);
+    const float qa = s.r[a] + u, qb = s.r[a + 1] + v;
+#pragma unroll
+    for (int j = 0; j < nc; ++j) {
+      num[j] += s.Qi[j * nc + a] * qa;
+      num[j] += s.Qi[j * nc + a + 1] * qb;
+    }
+  }
+  // kff = -Quu_inv Qu, then the Qxu kff terms
+#pragma unroll
+  for (int a = 0; a < nc; ++a) {
+    const float kf = -num[a];
+    acc += s.Qx[a] * kf;
+    if (lane == 0) kff[a] = kf;
+  }
+  if (lane < nz) p = acc;
+}
+
+struct FwdStage {
+  float F[kRegZ], K[kRegC], G[kRegC], kf[kRegC];
+  float d;
+  __device__ __forceinline__ void load(const Slot& sl, const Work& wk,
+                                       int k0, int kk, int lane) {
+    constexpr int nz = kRegZ, nc = kRegC;
+    const bool z = lane < nz;
+    d = z ? sl.d[kk * nz + lane] : 0.f;
+#pragma unroll
+    for (int l = 0; l < nz; ++l)
+      F[l] = z ? sl.F[(kk * nz + lane) * nz + l] : 0.f;
+#pragma unroll
+    for (int a = 0; a < nc; ++a) {
+      K[a] = z ? sl.K[(kk * nc + a) * nz + lane] : 0.f;
+      G[a] = z ? sl.G[(kk * nz + lane) * nc + a] : 0.f;
+      kf[a] = wk.kff[(k0 + kk) * nc + a];
+    }
+  }
+};
+
+// One forward stage step from z_k (lane i: row i) to z_{k+1}; writes z_k to
+// zk and c_k to ck.
+__device__ __forceinline__ void fwd_step(const FwdStage& s, float& z,
+                                         float* zk, float* ck, int lane) {
+  constexpr int nz = kRegZ, nc = kRegC;
+  if (lane < nz) zk[lane] = z;
+  // z' = d + F z + G c: the F z terms under the warp sums
+  float acc = s.d;
+#pragma unroll
+  for (int l = 0; l < nz; ++l)
+    acc += s.F[l] * __shfl_sync(kFull, z, l);
+  // c_a = sum over lanes of K[a][lane] z_lane, plus kff_a, two at a time
+  float c[nc];
+#pragma unroll
+  for (int a = 0; a < nc; a += 2) {
+    float u = lane < nz ? s.K[a] * z : 0.f;
+    float v = lane < nz ? s.K[a + 1] * z : 0.f;
+    warp_sum2(u, v);
+    c[a] = u + s.kf[a];
+    c[a + 1] = v + s.kf[a + 1];
+  }
+#pragma unroll
+  for (int a = 0; a < nc; ++a) {
+    acc += s.G[a] * c[a];
+    if (lane == 0) ck[a] = c[a];
+  }
+  if (lane < nz) z = acc;
+}
+
+// The register chains through a chunk: the stages in two register sets in
+// turn, each loaded while the other one's step runs (at the chunk's last
+// step the next load repeats a stage, unused, so that no branch parts the
+// loads from the step).
+template <bool kRows>
+__device__ void backward_chain_regs(const Slot& sl, const Work& wk, int k0,
+                                    int n, int mr, int lane, float& p) {
+  BackStage<kRows> s0, s1;
+  s0.load(sl, wk, n - 1, mr, lane);
+  for (int kk = n - 1; kk >= 0; kk -= 2) {
+    s1.load(sl, wk, kk > 0 ? kk - 1 : 0, mr, lane);
+    back_step(s0, p, wk.kff + (k0 + kk) * kRegC, mr, lane);
+    if (kk == 0) break;
+    s0.load(sl, wk, kk > 1 ? kk - 2 : 0, mr, lane);
+    back_step(s1, p, wk.kff + (k0 + kk - 1) * kRegC, mr, lane);
+  }
+  __syncwarp();
+}
+
+__device__ void forward_chain_regs(const Slot& sl, const Work& wk, int k0,
+                                   int n, int lane, float& z) {
+  FwdStage s0, s1;
+  s0.load(sl, wk, k0, 0, lane);
+  for (int kk = 0; kk < n; kk += 2) {
+    s1.load(sl, wk, k0, kk + 1 < n ? kk + 1 : kk, lane);
+    fwd_step(s0, z, wk.hist + kk * kRegZ, wk.c + kk * kRegC, lane);
+    if (kk + 1 == n) break;
+    s0.load(sl, wk, k0, kk + 2 < n ? kk + 2 : kk + 1, lane);
+    fwd_step(s1, z, wk.hist + (kk + 1) * kRegZ, wk.c + (kk + 1) * kRegC,
+             lane);
+  }
+  __syncwarp();
+}
+
 struct Out {
   float *z, *c;    // this problem's rows of z_out, c_out
   float *rp, *rd;  // its rows of rp_out, rd_out (mr > 32: the maxima)
@@ -406,44 +693,15 @@ __device__ __forceinline__ void row_update(const Slot& sl, const Work& wk,
   rdo = fabsf(msk * (wn - w));
 }
 
-// Forward sweep through one resident chunk: the chain carries the state z
-// from z_{k0} to z_{k0+n}, c_k = K z_k + kff_k by warp sums; after it, every row's v = D z + E c, over-relaxation,
-// prox and dual update, and in the last iteration (kLast) the partial
-// residual maxima (up to 32 rows one per lane over its stages, in rp and
-// rd; above, each row's in out.rp and out.rd) and the outputs z, c.
+// After the forward chain through the chunk: every row's v = D z + E c,
+// over-relaxation, prox and dual update, and in the last iteration (kLast)
+// the partial residual maxima (up to 32 rows one per lane over its
+// stages, in rp and rd; above, each row's in out.rp and out.rd) and the
+// outputs z, c.
 template <bool kRows, bool kLast, bool kWideR>
-__device__ void forward_chunk(const Slot& sl, const Work& wk, int k0, int n,
-                              int nz, int nc, int mr, int lane, float alpha,
-                              float& z, const Out& out, float& rp,
-                              float& rd) {
-  for (int kk = 0; kk < n; ++kk) {
-    const int k = k0 + kk;
-    float* zk = wk.hist + kk * nz;
-    if (lane < nz) zk[lane] = z;
-    __syncwarp();
-    // c_a = sum over lanes of K[a][lane] z_lane, plus kff_a, two at a time
-    for (int a = 0; a < nc; a += 2) {
-      const int b = a + 1 < nc ? a + 1 : a;
-      float u = lane < nz ? sl.K[(kk * nc + a) * nz + lane] * z : 0.f;
-      float v = lane < nz ? sl.K[(kk * nc + b) * nz + lane] * z : 0.f;
-      warp_sum2(u, v);
-      if (lane == 0) {
-        wk.c[kk * nc + a] = u + wk.kff[k * nc + a];
-        wk.c[kk * nc + b] = v + wk.kff[k * nc + b];
-      }
-    }
-    __syncwarp();
-    if (lane < nz) {
-      float acc = sl.d[kk * nz + lane];
-#pragma unroll 4
-      for (int l = 0; l < nz; ++l)
-        acc += sl.F[(kk * nz + lane) * nz + l] * zk[l];
-      for (int a = 0; a < nc; ++a)
-        acc += sl.G[(kk * nz + lane) * nc + a] * wk.c[kk * nc + a];
-      z = acc;
-    }
-  }
-  __syncwarp();
+__device__ void row_pass(const Slot& sl, const Work& wk, int k0, int n,
+                         int nz, int nc, int mr, int lane, float alpha,
+                         const Out& out, float& rp, float& rd) {
   if (kRows && !kWideR) {
     const RowLane L = row_lane(lane, mr);
     for (int kk = L.g; kk < n; kk += L.G) {
@@ -524,7 +782,14 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
   auto chunk_of = [C](int v) { return v < C ? C - 1 - v : v - C; };
   auto stages_of = [N, S](int c) { return c * S + S <= N ? S : N - c * S; };
   const int visits = 2 * C * a.epoch_len;
+  // the register chain at the port's widths, up to 32 rows
+  const bool regs = !kWideR && nz == kRegZ && nc == kRegC;
   int held0 = C - 1, held1 = -1;  // the chunk each slot holds
+#ifdef CMPC_ADMM_EPOCH_CLOCKS
+  int clk_n = 0;
+  const long long clk_t0 = global_ns();
+  CLOCK_STAMP(kStart);
+#endif
   if (kSpill >= kRing) {
     __syncwarp();  // w and y in place before any lane reads them
   } else {
@@ -532,6 +797,7 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
                stages_of(held0), lane);
     arrive();
   }
+  CLOCK_STAMP(kFirstLoad);
 
   float pc = 0.f, z = 0.f, rp = 0.f, rd = 0.f;
   for (int v = 0; v < visits; ++v) {
@@ -548,26 +814,40 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
         if (cur == 0) held1 = nxt; else held0 = nxt;
         load_chunk(a, slot_at(slots, 1 - cur, S, nz, nc, mr), p, nxt * S,
                    stages_of(nxt), lane);
+        CLOCK_STAMP(kFeed);
       }
     }
     const Slot sl = kSpill >= kRing ? input_slot(a, p, c * S)
                                     : slot_at(slots, cur, S, nz, nc, mr);
+    const int k0 = c * S, n = stages_of(c);
     if (vi < C) {
       if (vi == 0) pc = p_term;
-      backward_chunk<kRows, kWideR>(sl, wk, c * S, stages_of(c), nz, nc, mr,
-                                    lane, pc);
+      backward_prepass<kRows>(sl, wk, k0, n, nz, mr, lane);
+      CLOCK_STAMP(kPrePass);
+      if (regs)
+        backward_chain_regs<kRows>(sl, wk, k0, n, mr, lane, pc);
+      else
+        backward_chain<kRows, kWideR>(sl, wk, k0, n, nz, nc, mr, lane, pc);
+      CLOCK_STAMP(kBackChain);
     } else {
       if (vi == C) z = z_init;
-      if (it == a.epoch_len - 1)
-        forward_chunk<kRows, true, kWideR>(sl, wk, c * S, stages_of(c), nz,
-                                           nc, mr, lane, a.alpha, z, out, rp,
-                                           rd);
+      if (regs)
+        forward_chain_regs(sl, wk, k0, n, lane, z);
       else
-        forward_chunk<kRows, false, kWideR>(sl, wk, c * S, stages_of(c), nz,
-                                            nc, mr, lane, a.alpha, z, out, rp,
-                                            rd);
+        forward_chain<kWideR>(sl, wk, k0, n, nz, nc, lane, z);
+      CLOCK_STAMP(kFwdChain);
+      if (it == a.epoch_len - 1)
+        row_pass<kRows, true, kWideR>(sl, wk, k0, n, nz, nc, mr, lane,
+                                      a.alpha, out, rp, rd);
+      else
+        row_pass<kRows, false, kWideR>(sl, wk, k0, n, nz, nc, mr, lane,
+                                       a.alpha, out, rp, rd);
+      CLOCK_STAMP(kRowPass);
     }
-    if (fed) arrive();
+    if (fed) {
+      arrive();
+      CLOCK_STAMP(kWait);
+    }
   }
   if (lane < nz) out.z[N * nz + lane] = z;
   if (kSpill < kHorizon) {
@@ -590,6 +870,9 @@ __device__ void solve(const EpochArgs& a, float* base, int p, int lane) {
       a.rd_out[(size_t)p * mr + lane] = rd;
     }
   }
+#ifdef CMPC_ADMM_EPOCH_CLOCKS
+  stamp_qp(a.clocks, p, lane, clk_t0);
+#endif
 }
 
 // The work of this warp's QP: its share of the block's shared memory, or
@@ -683,23 +966,26 @@ int launch(bool epoch, const EpochArgs& a, int smem_bytes, void* stream) {
 
 }  // namespace
 
-extern "C" int cmpc_admm_epoch(
-    const float* F, const float* G, const float* d, const float* K,
-    const float* Quu_inv, const float* Qxu, const float* m, const float* q,
-    const float* r, const float* D, const float* E, const float* lo,
-    const float* hi, const float* rv, const float* fac_lo,
-    const float* fac_hi, const float* z0, const float* w0, const float* y0,
-    float* z_out, float* c_out, float* w_out, float* y_out, float* rp_out,
-    float* rd_out, float* kff, float* work, int P, int N, int nz, int nc,
-    int mr, int epoch_len, float alpha, int qps_per_block, int ring,
-    int spill, int smem_bytes, void* stream) {
+#define ADMM_EPOCH_PARAMS                                                   \
+  const float *F, const float *G, const float *d, const float *K,           \
+      const float *Quu_inv, const float *Qxu, const float *m,               \
+      const float *q, const float *r, const float *D, const float *E,       \
+      const float *lo, const float *hi, const float *rv,                    \
+      const float *fac_lo, const float *fac_hi, const float *z0,            \
+      const float *w0, const float *y0, float *z_out, float *c_out,         \
+      float *w_out, float *y_out, float *rp_out, float *rd_out, float *kff, \
+      float *work, int P, int N, int nz, int nc, int mr, int epoch_len,     \
+      float alpha, int qps_per_block, int ring, int spill, int smem_bytes,  \
+      void *stream
+#define ADMM_EPOCH_FIELDS                                                   \
+  F, G, d, K, Quu_inv, Qxu, m, q, r, D, E, lo, hi, rv, fac_lo, fac_hi, z0,  \
+      w0, y0, z_out, c_out, w_out, y_out, rp_out, rd_out, kff, work, P, N,  \
+      nz, nc, mr, epoch_len, qps_per_block, ring, spill, alpha
+
+#ifndef CMPC_ADMM_EPOCH_CLOCKS
+extern "C" int cmpc_admm_epoch(ADMM_EPOCH_PARAMS) {
   if (mr <= 0) return (int)cudaErrorInvalidValue;
-  EpochArgs a = {F,      G,      d,      K,      Quu_inv, Qxu,   m,
-                 q,      r,      D,      E,      lo,      hi,    rv,
-                 fac_lo, fac_hi, z0,     w0,     y0,      z_out, c_out,
-                 w_out,  y_out,  rp_out, rd_out, kff,     work,  P,
-                 N,      nz,     nc,     mr,     epoch_len, qps_per_block,
-                 ring,   spill,  alpha};
+  const EpochArgs a = {ADMM_EPOCH_FIELDS};
   return launch(true, a, smem_bytes, stream);
 }
 
@@ -718,3 +1004,26 @@ extern "C" int cmpc_lqr_affine(
                  spill,   0.f};
   return launch(false, a, smem_bytes, stream);
 }
+#else
+// The clock-stamped build: stamps (P, stamps, 3) int64, each (label, the
+// QP's warp's clock twice) at one point of its solve, in order; the last
+// row is the QP's SM, start and end (stamp_qp).
+extern "C" int cmpc_admm_epoch_clocked(ADMM_EPOCH_PARAMS, long long* clocks,
+                                       int stamps) {
+  if (mr <= 0) return (int)cudaErrorInvalidValue;
+  const EpochArgs a = {ADMM_EPOCH_FIELDS, {clocks, stamps}};
+  return launch(true, a, smem_bytes, stream);
+}
+
+// Stamps per QP, at most: the start and the first load, four per visit of
+// a chunk (the feed, two phases, the wait), and the QP's row.
+extern "C" int cmpc_admm_epoch_clock_stamps(int N, int ring, int epoch_len) {
+  const int S = ring < N ? ring : N;
+  return 2 + 4 * 2 * ((N + S - 1) / S) * epoch_len + 1;
+}
+
+extern "C" const char* cmpc_admm_epoch_clock_names() {
+  return "-;first load;pre-pass t g;backward chain;forward chain;"
+         "row pass;ring feed;ring wait";
+}
+#endif

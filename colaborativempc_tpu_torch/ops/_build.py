@@ -11,12 +11,14 @@ sources and the flags, so a changed source is rebuilt and an unchanged one
 is reused. Nothing is built at import: the first CUDA launch builds.
 
 On request, :func:`load_epoch_data_clocks` builds ``epoch_data.cu`` alone
-with ``-DCMPC_EPOCH_DATA_CLOCKS``, and :func:`load_sqp_qp_clocks` builds
-``sqp_qp.cu`` alone with ``-DCMPC_SQP_QP_CLOCKS``, each into a library of
-its own hashed name: the kernels then stamp ``clock64()`` at fixed points
-of each block (``scripts/epoch_data_split.py`` and
-``scripts/sqp_qp_split.py`` read the stamps). The default library is
-compiled without either macro and does not depend on them.
+with ``-DCMPC_EPOCH_DATA_CLOCKS``, :func:`load_sqp_qp_clocks` builds
+``sqp_qp.cu`` alone with ``-DCMPC_SQP_QP_CLOCKS`` and
+:func:`load_admm_epoch_clocks` builds ``lqr_kernels.cu`` alone with
+``-DCMPC_ADMM_EPOCH_CLOCKS``, each into a library of its own hashed name:
+the kernels then stamp ``clock64()`` at fixed points of each block or QP
+(``scripts/epoch_data_split.py``, ``scripts/sqp_qp_split.py`` and
+``scripts/admm_epoch_split.py`` read the stamps). The default library is
+compiled without these macros and does not depend on them.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 CLOCKS_FLAG = "-DCMPC_EPOCH_DATA_CLOCKS"
 SQP_CLOCKS_FLAG = "-DCMPC_SQP_QP_CLOCKS"
+ADMM_CLOCKS_FLAG = "-DCMPC_ADMM_EPOCH_CLOCKS"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +51,9 @@ _F = ctypes.c_float
 # cmpc_epoch_data: 23 pointers (the last the spill's scratch), P, N, nz, nc,
 # mr, rho, reg, threads, chunk, smem_bytes, stream
 _EPOCH_DATA_ARGS = [_P] * 23 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P]
+# cmpc_admm_epoch: 27 pointers (the last two the spills' scratch), P, N, nz,
+# nc, mr, epoch_len, alpha, qps_per_block, ring, spill, smem_bytes, stream
+_ADMM_EPOCH_ARGS = [_P] * 27 + [_I] * 6 + [_F] + [_I] * 4 + [_P]
 # cmpc_nl_qp / cmpc_mpcc_qp: the address of the pointer array (inputs,
 # track tables, outputs, slots), the constants, the slots' numbers, the
 # ints, the stream
@@ -131,8 +137,7 @@ def build(sources: Sequence[Path] = SOURCES,
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     lib = ctypes.CDLL(build()["path"])
-    lib.cmpc_admm_epoch.argtypes = ([_P] * 27 + [_I] * 6 + [ctypes.c_float]
-                                    + [_I] * 4 + [_P])
+    lib.cmpc_admm_epoch.argtypes = _ADMM_EPOCH_ARGS
     lib.cmpc_admm_epoch.restype = _I
     lib.cmpc_lqr_affine.argtypes = [_P] * 14 + [_I] * 8 + [_P]
     lib.cmpc_lqr_affine.restype = _I
@@ -164,6 +169,26 @@ def load_epoch_data_clocks(source: Optional[str] = None) -> ctypes.CDLL:
     lib.cmpc_epoch_data_clock_names.restype = ctypes.c_char_p
     return lib
 
+
+@functools.cache
+def load_admm_epoch_clocks(source: Optional[str] = None) -> ctypes.CDLL:
+    """The clock-stamped ADMM epoch kernel: ``source`` (default
+    ``csrc/lqr_kernels.cu``) alone, built with :data:`ADMM_CLOCKS_FLAG`
+    into a library of its own. It exports ``cmpc_admm_epoch_clocked`` (the
+    arguments of ``cmpc_admm_epoch``, then the stamp buffer and its stamps
+    per QP), ``cmpc_admm_epoch_clock_stamps(N, ring, epoch_len)`` (stamps
+    per QP, at most) and ``cmpc_admm_epoch_clock_names()`` (the labels'
+    names, separated by ``;``)."""
+    src = Path(source) if source else _PKG / "csrc" / "lqr_kernels.cu"
+    lib = ctypes.CDLL(build((src,), (*NVCC_FLAGS, ADMM_CLOCKS_FLAG),
+                            "cmpc_admm_epoch_clocks")["path"])
+    lib.cmpc_admm_epoch_clocked.argtypes = _ADMM_EPOCH_ARGS + [_P, _I]
+    lib.cmpc_admm_epoch_clocked.restype = _I
+    lib.cmpc_admm_epoch_clock_stamps.argtypes = [_I, _I, _I]
+    lib.cmpc_admm_epoch_clock_stamps.restype = _I
+    lib.cmpc_admm_epoch_clock_names.argtypes = []
+    lib.cmpc_admm_epoch_clock_names.restype = ctypes.c_char_p
+    return lib
 
 
 def build_sqp_qp_clocks(source: Optional[str] = None) -> dict:

@@ -15,8 +15,10 @@ admm_epoch_inputs`` picks one of the two by device. Each wrapper counts its
 kernel launches in a plain integer attribute
 (``admm_epoch_batched.launches``, ``lqr_affine_solve_batched.launches``,
 ``epoch_data_batched.launches``), incremented only where the kernel is
-launched. These attributes and ``ops/cuda_sqp.py``'s are the port's
-counters; its spans are in ``utils/tracing.py``.
+launched; ``admm_epoch_batched.pipelined_launches`` counts the epoch
+launches that take the register chain (:func:`pipelined_chain`). These
+attributes and ``ops/cuda_sqp.py``'s are the port's counters; its spans
+are in ``utils/tracing.py``.
 
 Layout: row-major with the batch of problems first, ``(P, N, ...)``;
 ``Quu_inv`` is the explicit inverse of the nc x nc ``Quu`` (as in the
@@ -321,23 +323,11 @@ _EPOCH_FIELDS = ("F", "G", "d", "K", "Quu_inv", "Qxu", "m", "q", "r", "D",
                  "E", "lo", "hi", "rv", "fac_lo", "fac_hi")
 
 
-def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
-                       alpha: float = 1.6,
-                       plan: Optional[KernelPlan] = None):
-    """Run a full ADMM epoch for a batch of stage QPs.
-
-    Args:
-      data: ``ops/admm.py ADMMEpochData`` with a leading batch axis P on
-        every field.
-      z0 (P,nz), w0/y0 (P,N,mr): initial state / splitting warm starts.
-      plan: pins the launch plan (default :func:`kernel_plan` for the card).
-    Returns:
-      z (P,N+1,nz), c (P,N,nc), w (P,N,mr), y (P,N,mr), r_prim (P,mr),
-      r_dual (P,mr) — the last iteration's per-row-class residuals.
-    """
-    if z0.device.type == "cpu":
-        return admm_epoch_batched_plain(data, z0, w0, y0,
-                                        epoch_len=epoch_len, alpha=alpha)
+def _admm_epoch_args(data, z0, w0, y0, epoch_len, alpha, plan):
+    """Check the inputs, plan and allocate the outputs of one epoch launch.
+    Returns the arguments of ``cmpc_admm_epoch`` up to the stream, the
+    outputs, the plan, the device and the spills' scratch, which the caller
+    holds until the launch is queued."""
     dev = _cuda_device(z0)
     P, N, nz = data.F.shape[0], data.F.shape[1], data.F.shape[2]
     nc, mr = data.G.shape[-1], data.lo.shape[-1]
@@ -355,31 +345,97 @@ def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
     _check("w0", w0, row, dev)
     _check("y0", y0, row, dev)
     plan = _plan_for(dev, plan, P, N, nz, nc, mr)
-    from colaborativempc_tpu_torch.ops import _build
-    lib = _build.load()
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    z, c, w, y = out(P, N + 1, nz), out(P, N, nc), out(*row), out(*row)
-    rp, rd = out(P, mr), out(P, mr)
-    kff, work = _spill_scratch(plan, P, N, nz, nc, mr, dev)
+    outs = (out(P, N + 1, nz), out(P, N, nc), out(*row), out(*row),
+            out(P, mr), out(P, mr))
+    scratch = _spill_scratch(plan, P, N, nz, nc, mr, dev)
+    args = ([_ptr(getattr(data, k)) for k in _EPOCH_FIELDS]
+            + [_ptr(z0), _ptr(w0), _ptr(y0)] + [_ptr(t) for t in outs]
+            + [_ptr_or_null(t) for t in scratch]
+            + [P, N, nz, nc, mr, int(epoch_len), ctypes.c_float(alpha),
+               plan.qps_per_block, plan.ring, plan.spill, plan.smem_bytes])
+    return args, outs, plan, dev, scratch
+
+
+# The widths of the epoch kernel's register chain (csrc/lqr_kernels.cu
+# kRegZ, kRegC): the port's stage QPs
+REG_CHAIN_NZ, REG_CHAIN_NC = 11, 2
+
+
+def pipelined_chain(nz: int, nc: int, mr: int) -> bool:
+    """Whether an epoch launch with ``nz`` states, ``nc`` controls and ``mr``
+    rows takes the kernel's register chain (the test of the source's
+    ``solve``): the port's widths, 11 states and 2 controls, and at most 32
+    rows (the narrow instantiation). There lane i alone owns state row i,
+    control i and row i, the chain's values travel by shuffles, and every
+    lane forms Qu, kff and c itself; other widths keep the chain through
+    shared memory, with the same bits."""
+    return nz == REG_CHAIN_NZ and nc == REG_CHAIN_NC and mr <= 32
+
+
+def admm_epoch_batched(data, z0, w0, y0, *, epoch_len: int = 25,
+                       alpha: float = 1.6,
+                       plan: Optional[KernelPlan] = None):
+    """Run a full ADMM epoch for a batch of stage QPs.
+
+    Args:
+      data: ``ops/admm.py ADMMEpochData`` with a leading batch axis P on
+        every field.
+      z0 (P,nz), w0/y0 (P,N,mr): initial state / splitting warm starts.
+      plan: pins the launch plan (default :func:`kernel_plan` for the card).
+    Returns:
+      z (P,N+1,nz), c (P,N,nc), w (P,N,mr), y (P,N,mr), r_prim (P,mr),
+      r_dual (P,mr) — the last iteration's per-row-class residuals.
+    """
+    if z0.device.type == "cpu":
+        return admm_epoch_batched_plain(data, z0, w0, y0,
+                                        epoch_len=epoch_len, alpha=alpha)
+    args, outs, _, dev, scratch = _admm_epoch_args(data, z0, w0, y0,
+                                                   epoch_len, alpha, plan)
+    from colaborativempc_tpu_torch.ops import _build
+    lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cmpc_admm_epoch(
-            *[_ptr(getattr(data, k)) for k in _EPOCH_FIELDS],
-            _ptr(z0), _ptr(w0), _ptr(y0),
-            _ptr(z), _ptr(c), _ptr(w), _ptr(y), _ptr(rp), _ptr(rd),
-            _ptr_or_null(kff), _ptr_or_null(work), P, N, nz, nc, mr,
-            int(epoch_len),
-            ctypes.c_float(alpha), plan.qps_per_block, plan.ring, plan.spill,
-            plan.smem_bytes, ctypes.c_void_p(stream))
+        err = lib.cmpc_admm_epoch(*args, ctypes.c_void_p(stream))
     _raise_on(err, "admm_epoch_batched")
     admm_epoch_batched.launches += 1
-    return z, c, w, y, rp, rd
+    if pipelined_chain(*data.G.shape[-2:], data.lo.shape[-1]):
+        admm_epoch_batched.pipelined_launches += 1
+    return outs
+
+
+def admm_epoch_clocked(data, z0, w0, y0, *, epoch_len: int = 25,
+                       alpha: float = 1.6,
+                       plan: Optional[KernelPlan] = None,
+                       source: Optional[str] = None):
+    """:func:`admm_epoch_batched` through the clock-stamped build of the
+    kernel (``ops/_build.py load_admm_epoch_clocks``; ``source`` another
+    copy of ``lqr_kernels.cu`` with the same entry). A measurement tool,
+    not counted in ``admm_epoch_batched.launches``. Returns the outputs,
+    the stamps ``(P, stamps, 3)`` int64 (label and the QP's warp's clock,
+    twice, at each point of its solve, in order; the last row the QP's
+    SM, start and end), the labels' names and the plan."""
+    args, outs, plan, dev, scratch = _admm_epoch_args(data, z0, w0, y0,
+                                                      epoch_len, alpha, plan)
+    from colaborativempc_tpu_torch.ops import _build
+    lib = _build.load_admm_epoch_clocks(source)
+    P, N = data.F.shape[:2]
+    n = lib.cmpc_admm_epoch_clock_stamps(N, plan.ring, int(epoch_len))
+    clocks = torch.full((P, n, 3), -1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cmpc_admm_epoch_clocked(*args, ctypes.c_void_p(stream),
+                                          _ptr(clocks), n)
+    _raise_on(err, "admm_epoch_clocked")
+    names = lib.cmpc_admm_epoch_clock_names().decode().split(";")
+    return outs, clocks, names, plan
 
 
 admm_epoch_batched.launches = 0
+admm_epoch_batched.pipelined_launches = 0
 
 
 # --- the epoch's fixed data (csrc/epoch_data.cu) -----------------------------

@@ -91,19 +91,30 @@ def close(got, ref, atol):
                                atol=atol)
 
 
+# (P, N, epoch_len) of the benchmark's epoch launches: the LPV Monte-Carlo's
+# 192 QPs and one LPV fleet's 3 at N=125, the NL Monte-Carlo's 192 at N=20
+BENCH_EPOCHS = [(192, 125, 15), (3, 125, 15), (192, 20, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [20, 125])
-def test_cuda_epoch_kernel_matches_plain_twin(cuda, N):
-    qp, z0, w0, y0 = problems(51, P=37, N=N)
+@pytest.mark.parametrize("P,N,epoch_len",
+                         [(37, 20, 20), (37, 125, 20)] + BENCH_EPOCHS)
+def test_cuda_epoch_kernel_matches_plain_twin(cuda, P, N, epoch_len):
+    """The epoch kernel against its plain twin, also at the benchmark's
+    shapes; each launch takes the register chain."""
+    qp, z0, w0, y0 = problems(51, P=P, N=N)
     data = admm_epoch_inputs(qp, rho=10.0)
-    before = cuda_lqr.admm_epoch_batched.launches
+    before = (cuda_lqr.admm_epoch_batched.launches,
+              cuda_lqr.admm_epoch_batched.pipelined_launches)
     got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
                                       w0.to(cuda), y0.to(cuda),
-                                      epoch_len=20, alpha=1.6)
+                                      epoch_len=epoch_len, alpha=1.6)
     torch.cuda.synchronize()
-    assert cuda_lqr.admm_epoch_batched.launches == before + 1
-    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0, epoch_len=20,
-                                            alpha=1.6)
+    assert (cuda_lqr.admm_epoch_batched.launches,
+            cuda_lqr.admm_epoch_batched.pipelined_launches) == (
+                before[0] + 1, before[1] + 1)
+    ref = cuda_lqr.admm_epoch_batched_plain(data, z0, w0, y0,
+                                            epoch_len=epoch_len, alpha=1.6)
     for g, r in zip(got[:4], ref[:4]):
         close(g, r, 1e-3)
     for g, r in zip(got[4:], ref[4:]):
@@ -350,10 +361,12 @@ def test_cuda_wrappers_spill_where_shared_memory_does_not_fit(cuda):
     data = admm_epoch_inputs(qp)
     assert cuda_lqr.kernel_plan(1, 125, 11, 64, 97).spilled == "horizon"
     before = cuda_lqr.admm_epoch_batched.launches
+    wide = cuda_lqr.admm_epoch_batched.pipelined_launches
     got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
                                       w0.to(cuda), y0.to(cuda), epoch_len=5)
     torch.cuda.synchronize()
     assert cuda_lqr.admm_epoch_batched.launches == before + 1
+    assert cuda_lqr.admm_epoch_batched.pipelined_launches == wide
     held_epoch(got, data, z0, w0, y0, epoch_len=5)
     big, _, _, _ = problems(60, P=2, N=2, nc=2, mr=1200)
     big = to(big, cuda)
@@ -383,15 +396,21 @@ def test_cuda_wrappers_spill_where_shared_memory_does_not_fit(cuda):
     (7, 20, 2, 6, None),      # one lane per index, the horizon resident
     (9, 45, 2, 6, 8),         # a streamed ring (below level 2)
     (5, 20, 34, 52, 4),       # lanes over controls and rows past 32
+    (192, 125, 2, 6, None),   # the benchmark's: LPV Monte-Carlo (ring 32),
+    (3, 125, 2, 6, None),     # one LPV fleet (the horizon resident),
+    (192, 20, 2, 6, None),    # NL Monte-Carlo
 ])
 def test_cuda_spilled_epoch_kernels_keep_the_bits(cuda, spill, P, N, nc, mr,
                                                   ring):
     """A launch whose plan spills w, y and kff (level 1), the ring too (2)
     or all its work (3) to global memory gives the bits of the same launch
-    from shared memory, for the epoch kernel and the affine kernel."""
+    from shared memory, for the epoch kernel and the affine kernel; the
+    benchmark's shapes keep the plan's ring."""
     qp, z0, w0, y0 = problems(300 + nc + N, P=P, N=N, nc=nc, mr=mr)
     d = to(admm_epoch_inputs(qp, rho=10.0), cuda)
     z0, w0, y0 = z0.to(cuda), w0.to(cuda), y0.to(cuda)
+    if ring is None and N > 32:
+        ring = cuda_lqr.kernel_plan(P, N, 11, nc, mr).ring
     pin = dict(ring=ring, qps_per_block=1)
     for m in (mr, 0):
         shared = cuda_lqr.kernel_plan(P, N, 11, nc, m, spill=0, **pin)
@@ -435,10 +454,12 @@ def test_cuda_epoch_kernels_at_the_spill_shapes_match_plain_twins(cuda,
     data = admm_epoch_inputs(qp, rho=10.0)
     plan = cuda_lqr.kernel_plan(P, N, 11, nc, mr)
     assert plan.spilled in ("horizon", "horizon+ring")
+    wide = cuda_lqr.admm_epoch_batched.pipelined_launches
     got = cuda_lqr.admm_epoch_batched(to(data, cuda), z0.to(cuda),
                                       w0.to(cuda), y0.to(cuda),
                                       epoch_len=10, alpha=1.6)
     torch.cuda.synchronize()
+    assert cuda_lqr.admm_epoch_batched.pipelined_launches == wide
     held_epoch(got, data, z0, w0, y0, epoch_len=10, alpha=1.6)
     args = (data.F, data.G, data.d, data.K, data.Quu_inv, data.Qxu, data.m,
             data.q, data.r, z0)
@@ -749,6 +770,39 @@ def test_cuda_clocked_build_matches_default_build(cuda, nc, mr):
     assert bool((block[:, 0] <= -2).all())
     assert bool((block[:, 2] > block[:, 1]).all())
     assert plan.chunk <= 21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,ring", [(5, 45, 8), (3, 20, None)])
+def test_cuda_clocked_epoch_kernel_matches_default_build(cuda, P, N, ring):
+    """The clock-stamped epoch kernel (``-DCMPC_ADMM_EPOCH_CLOCKS``, a
+    library of its own) gives the default build's outputs bit for bit and
+    stamps every part of every QP's solve in order: known labels, the
+    clocks rising, a streamed ring's feeds and waits where the ring holds
+    fewer stages than N; each QP's last row holds its SM and its start and
+    end on the global timer. It counts no launch of the main path."""
+    qp, z0, w0, y0 = problems(95, P=P, N=N)
+    data = to(admm_epoch_inputs(qp, rho=10.0), cuda)
+    z0, w0, y0 = z0.to(cuda), w0.to(cuda), y0.to(cuda)
+    plan = cuda_lqr.kernel_plan(P, N, 11, 2, 6, ring=ring)
+    before = cuda_lqr.admm_epoch_batched.launches
+    got, stamps, names, _ = cuda_lqr.admm_epoch_clocked(
+        data, z0, w0, y0, epoch_len=3, plan=plan)
+    assert cuda_lqr.admm_epoch_batched.launches == before
+    ref = cuda_lqr.admm_epoch_batched(data, z0, w0, y0, epoch_len=3,
+                                      plan=plan)
+    torch.cuda.synchronize()
+    assert bits_differing(got, ref) == 0
+    st, qp_row = stamps[:, :-1].cpu(), stamps[:, -1].cpu()
+    used = st[0, :, 0] >= 0
+    assert bool((st[:, used, 0] == st[0, used, 0]).all())
+    labels = st[0, used, 0].tolist()
+    assert labels[:2] == [0, 1] and max(labels) < len(names)
+    assert bool((st[:, used, 1] == st[:, used, 2]).all())
+    assert bool((st[:, used][:, 1:, 2] >= st[:, used][:, :-1, 2]).all())
+    assert (names.index("ring feed") in labels) == (plan.ring < N)
+    assert bool((qp_row[:, 0] <= -2).all())
+    assert bool((qp_row[:, 2] > qp_row[:, 1]).all())
 
 
 @pytest.mark.cuda

@@ -298,13 +298,15 @@ def test_cuda_request_without_card_raises():
 SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
            "lpv_main", "experiment_battery", "stress_study", "eval_lpv_model",
            "compare_reference", "eval_exp", "paper_figs", "show_maps",
-           "test_planes", "epoch_data_split", "sqp_qp_split", "clock_split"]
+           "test_planes", "epoch_data_split", "sqp_qp_split", "clock_split",
+           "admm_epoch_split", "epoch_turns"]
 # the scripts that compute (and so run on the card): they must import
 # where matplotlib is missing, as on the card's machine
 COMPUTE_SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
                    "lpv_main", "experiment_battery", "stress_study",
                    "eval_lpv_model", "compare_reference", "epoch_data_split",
-                   "sqp_qp_split", "clock_split"]
+                   "sqp_qp_split", "clock_split", "admm_epoch_split",
+                   "epoch_turns"]
 
 
 def _import_blocked(blocked, modules, checks=""):

@@ -459,6 +459,127 @@ def test_qp_floats_mirror_the_source():
                     N, ring, 11, nc, mr, spill)
 
 
+# The benchmark's epoch launches, (P, N, nc, mr) with nz = 11: the LPV
+# Monte-Carlo's 192 QPs at N=125 (a streamed ring), one LPV fleet's 3 at
+# N=125 (the whole horizon), the NL Monte-Carlo's 192 at N=20; and the
+# plans they took before the register chain, field for field
+BENCH_PLANS = {
+    (192, 125, 2, 6): (1, 32, 96396, 1, "", 0),
+    (3, 125, 2, 6): (1, 125, 189052, 1, "", 0),
+    (192, 20, 2, 6): (1, 20, 30292, 1, "", 0),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BENCH_PLANS))
+def test_kernel_plan_keeps_the_benchmark_plans(shape):
+    """The register chain keeps the launch plan: at the benchmark's shapes
+    ``kernel_plan`` returns the plans the kernel took before it (a 32-stage
+    ring at one QP per block and 96,396 B at P=192, N=125; the whole
+    horizon in 189,052 B at P=3), and every one takes the register
+    chain."""
+    P, N, nc, mr = shape
+    assert tuple(kernel_plan(P, N, 11, nc, mr)) == BENCH_PLANS[shape]
+    assert cuda_lqr.pipelined_chain(11, nc, mr)
+
+
+@pytest.mark.parametrize("nz, nc, mr, taken", [
+    (11, 2, 6, True), (11, 2, 0, True), (11, 2, 7, True), (11, 2, 32, True),
+    (11, 2, 33, False), (11, 1, 6, False), (11, 6, 10, False),
+    (12, 2, 6, False), (10, 2, 6, False), (11, 34, 52, False),
+])
+def test_pipelined_chain_takes_the_ports_widths_up_to_32_rows(nz, nc, mr,
+                                                             taken):
+    """An epoch launch takes the register chain at the port's widths (11
+    states, 2 controls: the source's ``kRegZ`` and ``kRegC``) with at most
+    32 rows (the narrow instantiation: ``launch`` takes the wide one past
+    32 controls or rows); every other launch the chain through shared
+    memory."""
+    import re
+    from pathlib import Path
+    assert cuda_lqr.pipelined_chain(nz, nc, mr) is taken
+    src = (Path(cuda_lqr.__file__).resolve().parent.parent / "csrc"
+           / "lqr_kernels.cu").read_text()
+    widths = re.search(r"constexpr int kRegZ = (\d+), kRegC = (\d+);", src)
+    assert (int(widths.group(1)), int(widths.group(2))) == (
+        cuda_lqr.REG_CHAIN_NZ, cuda_lqr.REG_CHAIN_NC)
+    assert re.search(r"const bool regs = !kWideR && nz == kRegZ && "
+                     r"nc == kRegC;", src)
+    assert re.search(r"if \(a\.nc > kWarp \|\| a\.mr > kWarp\)\s*"
+                     r"return \(int\)launch_spill<true>", src)
+
+
+def test_epoch_wrapper_counts_no_launch_for_cpu_tensors():
+    """On CPU tensors ``admm_epoch_batched`` runs its plain twin and counts
+    neither a launch nor a register-chain launch."""
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
+    qp, z0, w0, y0 = random_qps(7, 2, 5)
+    data = admm_epoch_inputs_plain(qp, 10.0)
+    before = (cuda_lqr.admm_epoch_batched.launches,
+              cuda_lqr.admm_epoch_batched.pipelined_launches)
+    cuda_lqr.admm_epoch_batched(data, z0, w0, y0, epoch_len=2)
+    assert (cuda_lqr.admm_epoch_batched.launches,
+            cuda_lqr.admm_epoch_batched.pipelined_launches) == before
+
+
+# --- the clock-stamped epoch kernel and scripts/admm_epoch_split.py ------
+
+def test_admm_epoch_split_imports_here_and_raises_without_a_card():
+    """The split script imports on the CPU, names the benchmark's shapes
+    (P, N, nc, mr, epoch_len: the LPV Monte-Carlo and one LPV fleet at
+    N=125, the NL Monte-Carlo at N=20), which ``scripts/epoch_turns.py``
+    times too, and raises without a card, before it builds."""
+    from colaborativempc_tpu_torch.scripts import admm_epoch_split, epoch_turns
+    assert admm_epoch_split.SHAPES == {
+        "lpv_mc64": (192, 125, 2, 6, 15), "lpv_fleet1": (3, 125, 2, 6, 15),
+        "nl_mc64": (192, 20, 2, 6, 20)}
+    for name, shape in admm_epoch_split.SHAPES.items():
+        assert epoch_turns.SHAPES[name] == shape + ({},)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        admm_epoch_split.main([])
+
+
+def test_admm_epoch_split_reads_cycles_per_stage_step():
+    """A chain's cycles per stage step are its cycles per QP over N stages
+    and ``epoch_len`` iterations; the split reads one warp's stamps (both
+    clock columns the same) and drops the stamps never written."""
+    from colaborativempc_tpu_torch.scripts import admm_epoch_split
+    from colaborativempc_tpu_torch.scripts.clock_split import split
+    names = ["-", "first load", "pre-pass t g", "backward chain",
+             "forward chain", "row pass", "ring feed", "ring wait"]
+    labels = [0, 1, 2, 3, 4, 5, 2, 3, 4, 5, -1, -2]
+    clock = np.array([0, 40, 50, 250, 400, 420, 430, 630, 780, 800, 0, 0])
+    stamps = np.zeros((2, len(labels), 3), np.int64)
+    stamps[..., 0] = labels
+    stamps[..., 1] = stamps[..., 2] = clock
+    stamps[:, -1] = [[-2, 0, 1000], [-3, 100, 900]]
+    res = split(stamps, names, N=2 * 5)
+    assert res["span_cycles"] == 800 and res["blocks_at_once_per_sm"] == 1
+    steps = admm_epoch_split.per_stage_step(res, N=5, epoch_len=2)
+    assert steps == {"backward chain": 40.0, "forward chain": 30.0}
+    assert res["intervals"]["first load"]["mean_cycles"] == 40
+
+
+def test_admm_epoch_clocked_refuses_cpu_tensors_before_building(
+        monkeypatch):
+    """``admm_epoch_clocked`` checks the device before it asks for the
+    clock-stamped library, and counts no launch of the main path's
+    kernel."""
+    from colaborativempc_tpu_torch.ops import _build
+    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs_plain
+
+    def no_build(*a, **k):
+        raise AssertionError("built the clocked library for CPU tensors")
+    monkeypatch.setattr(_build, "load_admm_epoch_clocks", no_build)
+    qp, z0, w0, y0 = random_qps(8, 2, 5)
+    data = admm_epoch_inputs_plain(qp, 10.0)
+    before = cuda_lqr.admm_epoch_batched.launches
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        cuda_lqr.admm_epoch_clocked(data, z0, w0, y0, epoch_len=2)
+    assert cuda_lqr.admm_epoch_batched.launches == before
+
+
 # (P, N, nz, nc, mr) of the epoch-data kernel: the LPV headline, NL hp_opt,
 # the MPCC race and battery, the long horizon, a batch past one wave, a
 # state of 32 (more entries than a block's threads), and the large fleets:
