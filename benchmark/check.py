@@ -7,13 +7,16 @@ the batch, and keeps a copy of each one's state before and after (and no
 other state). Once the window has closed, :func:`compare` runs the
 float64 reference once over all of them, as one batch of independent
 fleets, from the system's state before each, and measures the widest gaps
-between the system's state after and the reference's:
+between the system's state after and the reference's, each part of the
+state as the family file (``benchmark/families/<family>.py``) names it:
 
-- ``x0_gap``: the executed states (plant update after the exchange and
-  the safety filter), in the states' own units (m, m/s, rad);
-- ``plan_gap``: the new predictions ``x_pred`` and ``u_pred`` (the QP's
-  assembly and its ADMM solve, or the SQP's builds and solves);
-- ``price_gap``: the coupling prices (NL-OCD only: the OCD loop's duals);
+- ``x0_gap``: the executed states (``executed``: for the fleets the
+  plant update after the exchange and the safety filter), in the states'
+  own units (m, m/s, rad);
+- ``plan_gap``: the new plans (``plans``: the QP's assembly and its ADMM
+  solve, or the SQP's builds and solves);
+- ``price_gap``: the coupling prices (``prices``; NL-OCD only: the OCD
+  loop's duals), where the family has them;
 - ``start_gap``: every episode's start (the system's fleet initialisation
   and batching) against the reference's own from the configuration, in
   the configuration's dtype on the system's device (no matrix product
@@ -131,17 +134,18 @@ def compare(ref, pulled: List[tuple], start_ref, starts: List[tuple],
     post, _ = ref.step(pre)
     got = [q for _, q in pulled]
     gaps = {"x0_gap": 0.0, "plan_gap": 0.0}
-    if ref.family == "nl":
+    if ref.prices(post) is not None:
         gaps["price_gap"] = 0.0
     for i, q in enumerate(got):
         want = type(post)(*(t[i:i + 1] for t in post))
         qs = type(post)(*q)
-        gaps["x0_gap"] = max(gaps["x0_gap"], _gap(qs.x0, want.x0))
-        gaps["plan_gap"] = max(gaps["plan_gap"], _gap(qs.x_pred, want.x_pred),
-                               _gap(qs.u_pred, want.u_pred))
+        gaps["x0_gap"] = max(gaps["x0_gap"], _gap(ref.executed(qs),
+                                                  ref.executed(want)))
+        gaps["plan_gap"] = max(gaps["plan_gap"], *map(
+            _gap, ref.plans(qs), ref.plans(want)))
         if "price_gap" in gaps:
-            gaps["price_gap"] = max(gaps["price_gap"],
-                                    _gap(qs.lambdas, want.lambdas))
+            gaps["price_gap"] = max(gaps["price_gap"], *map(
+                _gap, ref.prices(qs), ref.prices(want)))
         for k in gaps:
             if not np.isfinite(gaps[k]):
                 gaps[k] = float("inf")

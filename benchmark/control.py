@@ -92,9 +92,9 @@ def readings(cell_name: str, seeds, sut: str, seconds: float, device,
     bench = bench or harness.BENCH
     cell = harness.load_cell(cell_name, bench)
     if sut == "control":
-        system = TF32(systems.reference(cell.conf, device, "float32"))
+        system = TF32(systems.reference(cell.conf, device, "float32", bench))
     else:
-        system = systems.program(cell.conf, device)
+        system = systems.program(cell.conf, device, bench)
     for i, seed in enumerate(seeds):
         if i == 0 and sut == "program":
             harness.warm_up(system, cell, seed)

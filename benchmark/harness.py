@@ -10,7 +10,15 @@ a configuration, a traffic mix or a metric by adding files:
   each reports;
 - ``benchmark/workloads/<cell>.json``: the cell's configuration, traffic,
   warm steps and the check's sample size, reference device and limits;
-- ``benchmark/configs/<config>.json``: every setting of the deployment;
+- ``benchmark/configs/<config>.json``: every setting of the deployment,
+  and its controller ``family``;
+- ``benchmark/families/<family>.py``: everything that depends on the
+  controller and its state's layout: its program and plain reference
+  packages, how the configuration becomes each one's config, the track,
+  start and step, the agents of a fleet and a course's step limit, where
+  the sweep's perturbation goes, the executed state, plans and prices the
+  check compares, a fleet-step's work, the launch counters and the ADMM
+  epoch's shape (``benchmark/systems.py`` lists each name);
 - ``benchmark/traffic/<traffic>.json``: the generator's parameters
   (``benchmark/traffic.py``);
 - ``benchmark/metrics/<metric>.py``: ``read(run)``, the metric's value
@@ -39,9 +47,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = ROOT / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "colaborativempc_tpu")
-COUNTERS = (("ops.cuda_lqr", "admm_epoch_batched"),
-            ("ops.cuda_lqr", "epoch_data_batched"),
-            ("ops.cuda_sqp", "nl_qp_batched"))
 
 
 class Refused(Exception):
@@ -105,12 +110,15 @@ def _sync(device) -> None:
 
 
 def counters() -> dict:
-    """The program's launch counters, where its modules are loaded."""
+    """The launch counters that the loaded families name, where their
+    modules are loaded."""
+    from benchmark import systems
     out = {}
-    for mod, fn in COUNTERS:
-        m = sys.modules.get(f"colaborativempc_tpu_torch.{mod}")
-        if m is not None:
-            out[f"{fn}.launches"] = getattr(m, fn).launches
+    for family in systems.loaded_families():
+        for mod, fn in family.COUNTERS:
+            m = sys.modules.get(mod)
+            if m is not None:
+                out[f"{fn}.launches"] = getattr(m, fn).launches
     return out
 
 
@@ -148,7 +156,7 @@ def _account(system, sampler, bad, pre, post, metrics):
     import torch
     effort = system.effort(metrics)
     sampler.observe(pre, post, effort)
-    bad += (~torch.isfinite(post.x0).flatten(1).all(1)).sum()
+    bad += (~torch.isfinite(system.executed(post)).flatten(1).all(1)).sum()
     return effort
 
 
@@ -187,7 +195,7 @@ def run_window(system, cell, seed: int, seconds: float,
     tr = cell.traffic
     dev = system.device
     course = tr["kind"] == "course"
-    max_steps = (system.cfg.max_it if course else tr["episode_steps"])
+    max_steps = system.max_steps if course else tr["episode_steps"]
     sampler = Sampler(cell.workload["check"]["samples"], tr["fleets"], seed)
     work, starts, perts, times = [], [], [], []
     bad = torch.zeros((), dtype=torch.long, device=dev)
@@ -231,7 +239,8 @@ def run_window(system, cell, seed: int, seconds: float,
                 finished_prof = stop_trace()
             if elapsed >= seconds:
                 break
-            if course and (not bool(torch.isfinite(state.x0).all())
+            if course and (not bool(torch.isfinite(
+                    system.executed(state)).all())
                            or system.course_ended(state)):
                 break
         if time.perf_counter() - t0 >= seconds:
@@ -289,9 +298,10 @@ def check_window(run, seed: int, ref_device=None) -> tuple:
     if run.system.device.type == "cuda":
         torch.cuda.empty_cache()
     dev = ref_device or wl["device"]
-    ref = systems.reference(run.conf, dev)
+    bench = run.system.bench
+    ref = systems.reference(run.conf, dev, bench=bench)
     start_ref = systems.reference(run.conf, run.system.device,
-                                  run.conf["dtype"])
+                                  run.conf["dtype"], bench)
     gaps = ck.compare(ref, pulled, start_ref, starts, run.perts)
     checks, ok = ck.verdict(gaps, wl["limits"])
     return checks, ok, time.perf_counter() - t0
@@ -370,6 +380,9 @@ def _main(args, t_start: float) -> int:
     entry = [w for w in spec["workloads"] if w["name"] == args.workload]
     if not entry:
         raise Refused(f"no cell {args.workload!r} in BENCHMARK.json")
+    cell = load_cell(args.workload)
+    from benchmark import systems
+    systems.load_family(cell.conf["family"])
     import torch
     if not torch.cuda.is_available():
         raise Refused("no CUDA device")
@@ -377,10 +390,8 @@ def _main(args, t_start: float) -> int:
         raise Refused(f"{entry[0]['chips']} cards asked for, "
                       f"{torch.cuda.device_count()} present")
     torch.set_num_threads(4)
-    cell = load_cell(args.workload)
     from colaborativempc_tpu_torch.ops import _build
     lib_before = _build.library_path().exists()
-    from benchmark import systems
     dev = torch.device("cuda", 0)
     system = systems.program(cell.conf, dev)
     result = execute(cell, args.seed, args.seconds, bool(args.trace),

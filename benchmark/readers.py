@@ -45,29 +45,17 @@ def device_idle_pct(run):
     return 100.0 * (1.0 - busy / t.window_s)
 
 
-def _shape(run):
-    conf = run.conf["experiment"]
-    n = conf["n_agents"]
-    if run.conf["family"] == "lpv":
-        return rl.lpv_shape(n)
-    return rl.nl_shape(n, conf["coupling"])
-
-
-def epoch_len(run) -> int:
-    """The configuration's epoch length, or the solver's N-dependent
-    default (10 below N=16, 20 below N=48, else 30)."""
-    el = run.conf["solver"].get("epoch_len")
-    if el is not None:
-        return el
-    N = run.conf["experiment"]["N"]
-    return 10 if N < 16 else (20 if N < 48 else 30)
+def _shape(run) -> dict:
+    """The ADMM epoch's shape of the run's configuration, as its family
+    file's ``epoch_shape`` gives it: ``N, nz, nc, mr, agents,
+    epoch_len``."""
+    return run.system.family.epoch_shape(run.conf)
 
 
 def _epoch_work(run):
-    nz, nc, mr = _shape(run)
-    P = run.fleets * run.conf["experiment"]["n_agents"]
-    return rl.epoch_work(P, run.conf["experiment"]["N"], nz, nc, mr,
-                         epoch_len(run))
+    s = _shape(run)
+    return rl.epoch_work(run.fleets * s["agents"], s["N"], s["nz"], s["nc"],
+                         s["mr"], s["epoch_len"])
 
 
 def _build_work(run):

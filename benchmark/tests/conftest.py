@@ -1,6 +1,7 @@
 """Shared pieces of the benchmark's tests: the checkout's root on the
-path, and a small copy of the benchmark's files (configurations at N=8,
-four fleets, one-step episodes) that the CPU can run in seconds."""
+path, and a small copy of the benchmark's files (the family files,
+configurations at N=8, four fleets, one-step episodes) that the CPU can
+run in seconds."""
 
 import json
 import shutil
@@ -26,12 +27,15 @@ def _few_threads():
 
 
 def tiny_bench(tmp: Path, samples: int = 3) -> tuple:
-    """A benchmark directory under ``tmp`` with the real metric files,
-    both configurations cut to N=8 (LPV with 300 ADMM iterations) and one
-    cell per family and traffic kind (``tiny-<lpv|nl>-<mc|f1>``); returns
-    ``(directory, spec)`` with every metric reported by every cell."""
+    """A benchmark directory under ``tmp`` with the real metric and family
+    files, both configurations cut to N=8 (LPV with 300 ADMM iterations)
+    and one cell per family and traffic kind (``tiny-<lpv|nl>-<mc|f1>``);
+    returns ``(directory, spec)`` with every metric reported by every
+    cell."""
     bench = tmp / "bench"
-    shutil.copytree(BENCH / "metrics", bench / "metrics")
+    for d in ("metrics", "families"):
+        shutil.copytree(BENCH / d, bench / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for d in ("configs", "traffic", "workloads"):
         (bench / d).mkdir(parents=True)
     for name, fam in (("lpv-highway-3ag-n125", "lpv"),

@@ -36,9 +36,9 @@ def test_every_config_cell_and_metric_loads_by_name():
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["name"] == c["name"] and conf["reduced"] == c["reduced"]
         assert conf["source"] == c["source"]
-        for pkg in (systems.PROGRAM, systems.REFERENCE):
-            mods = systems.load_modules(pkg, conf["family"])
-            systems.experiment_config(conf, mods.config, conf["dtype"])
+        family = systems.load_family(conf["family"])
+        for pkg in (family.PROGRAM, family.REFERENCE):
+            family.config(pkg, conf, conf["dtype"])
     for m in SPEC["end_to_end"] + SPEC["per_layer"]:
         assert callable(harness.load_reader(m["name"]))
     for w in SPEC["workloads"]:
@@ -144,7 +144,7 @@ class _Sleeper:
     def __init__(self, dt, stall_at=None, stall=0.0):
         self.dt, self.stall_at, self.stall = dt, stall_at, stall
         self.n_agents, self.device = 3, torch.device("cpu")
-        self.cfg = SimpleNamespace(max_it=10 ** 6)
+        self.max_steps = 10 ** 6
         self.calls = 0
 
     def start(self, fleets, pert):
@@ -158,6 +158,9 @@ class _Sleeper:
 
     def effort(self, metrics):
         return torch.ones(2)
+
+    def executed(self, state):
+        return state.x0
 
     def course_ended(self, state):
         return False
