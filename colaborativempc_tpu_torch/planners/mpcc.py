@@ -34,6 +34,7 @@ from colaborativempc_tpu_torch.ops import (
     LQRCost, StageQP, admm_solve, cuda_sqp, scale_stage_qp,
 )
 from colaborativempc_tpu_torch.planners.lpv import NC, NZ, _augment_dynamics
+from colaborativempc_tpu_torch.utils.tracing import span
 
 INF = float("inf")
 M_ROWS = 7   # corridor, two input boxes, friction ellipse, two slip, vx_min
@@ -262,47 +263,52 @@ def mpcc_solve(track: Track, gains: MPCCGains, p: PacejkaParams,
     rejected solves and the accepted-but-infeasible ones, as the reference
     counts every solver status but 0 (``mpc.cpp:239-244``).
     """
-    dtype, dev = x_bar.dtype, x_bar.device
-    B = x_bar.shape[0]
-    m = M_ROWS
-    z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
-    if norm is not None:
-        tz = norm.t_z.to(device=dev, dtype=dtype)
-        tc = norm.t_du.to(device=dev, dtype=dtype)
-        z0_s = z0 / tz
-    w = x_bar.new_zeros((B, N, m)) if w0 is None else w0
-    y = x_bar.new_zeros((B, N, m)) if y0 is None else y0
-    rs = torch.broadcast_to(
-        torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (B, m))
-    x_lin, u_lin = x_bar, u_bar
-    iterations = torch.zeros((B,), dtype=torch.int64, device=dev)
-    fails = torch.zeros((B,), dtype=torch.int32, device=dev)
-    for _ in range(sqp_iters):
-        qp = build_mpcc_qp(track, gains, p, N, dt, x_lin, u_lin, bounds)
-        kw = dict(w0=w, y0=y, rho_scale0=rs, iters=admm_iters, rho=rho,
-                  epoch_len=epoch_len, assoc=assoc)
+    with span("cmpc.mpcc.solve"):
+        dtype, dev = x_bar.dtype, x_bar.device
+        B = x_bar.shape[0]
+        m = M_ROWS
+        z0 = torch.cat([x0, u_old], dim=-1).to(dtype)
         if norm is not None:
-            sol = admm_solve(scale_stage_qp(qp, tz, tc), z0_s, **kw)
-            z_sol = sol.z * tz
-        else:
-            sol = admm_solve(qp, z0, **kw)
-            z_sol = sol.z
-        x_new = z_sol[..., :NX]
-        u_new = z_sol[:, 1:, NX:]
-        ok = (torch.isfinite(x_new).flatten(1).all(1)
-              & torch.isfinite(u_new).flatten(1).all(1))
-        mix = torch.where(ok, torch.full_like(ok, sqp_mix, dtype=dtype),
-                          torch.zeros_like(ok, dtype=dtype))[:, None, None]
-        x_lin = mix * x_new + (1.0 - mix) * x_lin
-        u_lin = mix * u_new + (1.0 - mix) * u_lin
-        w = torch.where(ok[:, None, None], sol.w, w)
-        y = torch.where(ok[:, None, None], sol.y, y)
-        rs = torch.where(ok[:, None], sol.rho_scale, rs)
-        fails = fails + ((~ok) | (~sol.feasible)).to(fails.dtype)
-        iterations = iterations + sol.iterations
-    return MPCCSolution(x_pred=x_lin, u_pred=u_lin, feasible=sol.feasible,
-                        r_prim=sol.r_prim, iterations=iterations,
-                        sqp_fails=fails, w=w, y=y, rho_scale=rs)
+            tz = norm.t_z.to(device=dev, dtype=dtype)
+            tc = norm.t_du.to(device=dev, dtype=dtype)
+            z0_s = z0 / tz
+        w = x_bar.new_zeros((B, N, m)) if w0 is None else w0
+        y = x_bar.new_zeros((B, N, m)) if y0 is None else y0
+        rs = torch.broadcast_to(
+            torch.as_tensor(rho_scale0, dtype=dtype, device=dev), (B, m))
+        x_lin, u_lin = x_bar, u_bar
+        iterations = torch.zeros((B,), dtype=torch.int64, device=dev)
+        fails = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for _ in range(sqp_iters):
+            with span("cmpc.mpcc.sqp_iter"):
+                with span("cmpc.mpcc.build"):
+                    qp = build_mpcc_qp(track, gains, p, N, dt, x_lin, u_lin,
+                                       bounds)
+                kw = dict(w0=w, y0=y, rho_scale0=rs, iters=admm_iters,
+                          rho=rho, epoch_len=epoch_len, assoc=assoc)
+                if norm is not None:
+                    sol = admm_solve(scale_stage_qp(qp, tz, tc), z0_s, **kw)
+                    z_sol = sol.z * tz
+                else:
+                    sol = admm_solve(qp, z0, **kw)
+                    z_sol = sol.z
+                x_new = z_sol[..., :NX]
+                u_new = z_sol[:, 1:, NX:]
+                ok = (torch.isfinite(x_new).flatten(1).all(1)
+                      & torch.isfinite(u_new).flatten(1).all(1))
+                mix = torch.where(
+                    ok, torch.full_like(ok, sqp_mix, dtype=dtype),
+                    torch.zeros_like(ok, dtype=dtype))[:, None, None]
+                x_lin = mix * x_new + (1.0 - mix) * x_lin
+                u_lin = mix * u_new + (1.0 - mix) * u_lin
+                w = torch.where(ok[:, None, None], sol.w, w)
+                y = torch.where(ok[:, None, None], sol.y, y)
+                rs = torch.where(ok[:, None], sol.rho_scale, rs)
+                fails = fails + ((~ok) | (~sol.feasible)).to(fails.dtype)
+                iterations = iterations + sol.iterations
+        return MPCCSolution(x_pred=x_lin, u_pred=u_lin, feasible=sol.feasible,
+                            r_prim=sol.r_prim, iterations=iterations,
+                            sqp_fails=fails, w=w, y=y, rho_scale=rs)
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,17 @@ updateInitialGuess :135-150) and the cold guess (generateNewInitialGuess
 :175-196) and selects per race, runs the SQP solve, keeps the failure
 bookkeeping with guess reset (:231-252), and integrates the full nonlinear
 Pacejka plant with RK4 sub-steps (integrator.cpp simTimeStep :55-68). The
-host loop of ``run_mpcc_experiment`` handles termination and IO.
+host loop of ``run_mpcc_experiment`` handles termination and IO. On the
+card the ops before and after the solve run as two CUDA graphs
+(``_make_mpcc_step_fn``). Spans (``utils/tracing.py``): ``cmpc.step``
+around a step, ``cmpc.guess`` (re-projection and both guesses),
+``cmpc.plant`` (failure bookkeeping and the plant); the SQP loop's are
+``planners/mpcc.py``'s.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import NamedTuple, Optional
@@ -32,6 +38,8 @@ from colaborativempc_tpu_torch.planners.mpcc import (
     M_ROWS, MPCCConfig, MPCCGains, MPCCSolution, build_mpcc_qp, mpcc_solve,
 )
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
+from colaborativempc_tpu_torch.utils.graphs import graphed
+from colaborativempc_tpu_torch.utils.tracing import span
 
 
 class MPCCState(NamedTuple):
@@ -100,7 +108,7 @@ def _cold_guess(track: Track, cfg: MPCCConfig, x0: torch.Tensor):
     mpc.cpp:175-196), the heading unwrapped along the horizon; stage 0 is
     the measured state."""
     dtype, dev = x0.dtype, x0.device
-    v0 = torch.tensor(cfg.initial_velocity, dtype=dtype, device=dev)
+    v0 = torch.full((), cfg.initial_velocity, dtype=dtype, device=dev)
     ks = torch.arange(cfg.N + 1, dtype=dtype, device=dev)
     ss = x0[:, 6:7] + ks * cfg.dt * v0                   # (B, N+1)
     px, py, th = frenet_to_cartesian(track, ss, 0.0)
@@ -135,28 +143,72 @@ def _plant_rk4(track: Track, cfg: MPCCConfig, x: torch.Tensor,
     return x
 
 
+def _guess_phase(track: Track, cfg: MPCCConfig, x, x_bar, u_bar, valid, w,
+                 y, rho_scale):
+    """A step's ops before the SQP solve: the pose re-projected and both
+    guesses selected per race, ``(x0, x_bar, u_bar, w0, y0, rho_scale0)``."""
+    x0 = _relocalize_unwrapped(track, x)
+    v3 = valid[:, None, None]
+    # both guesses are built; a select (never a blend) keeps a non-finite
+    # warm guess of an invalid race out of the result
+    x_w, u_w = _warm_guess(track, cfg, x0, x_bar, u_bar)
+    x_c, u_c = _cold_guess(track, cfg, x0)
+    # a cold start also resets the ADMM warm starts (new geometry)
+    return (x0, torch.where(v3, x_w, x_c), torch.where(v3, u_w, u_c),
+            torch.where(v3, w, torch.zeros_like(w)),
+            torch.where(v3, y, torch.zeros_like(y)),
+            torch.where(valid[:, None], rho_scale, torch.ones_like(rho_scale)))
+
+
+def _advance_phase(track: Track, cfg: MPCCConfig, x0, x_bar, u_bar, w0, y0,
+                   rs0, valid, n_non_solves, x_pred, u_pred, w, y, rho_scale,
+                   sqp_fails):
+    """A step's ops after the SQP solve: failure bookkeeping and the plant,
+    the fields of the next :class:`MPCCState` and the reset flag."""
+    finite = (torch.isfinite(x_pred).flatten(1).all(1)
+              & torch.isfinite(u_pred).flatten(1).all(1))
+    # failure bookkeeping (mpc.cpp:231-252): a step whose SQP loop failed
+    # (nearly) every QP is a non-solve; n_reset consecutive non-solves
+    # invalidate the guess, so the next step cold-starts
+    hard_fail = (~finite) | (sqp_fails >= max(cfg.n_sqp - 1, 1))  # :244
+    n_non = torch.where(hard_fail, n_non_solves + 1,
+                        torch.zeros_like(n_non_solves))
+    valid_next = finite & (n_non < cfg.n_reset)
+
+    f1, f3 = finite[:, None], finite[:, None, None]
+    # a rejected solve applies the shifted previous plan's first input
+    # (runMPC returns initial_guess_[0].uk, mpc.cpp:255-258)
+    u0 = torch.where(f1, u_pred[:, 0], u_bar[:, 0])
+    x_next = _plant_rk4(track, cfg, x0, u0)
+    return (x_next, torch.where(f3, x_pred, x_bar),
+            torch.where(f3, u_pred, u_bar), u0,
+            torch.where(f3, w, w0), torch.where(f3, y, y0),
+            torch.where(f1, rho_scale, rs0), valid_next, n_non, ~valid)
+
+
 def _make_mpcc_step_fn(track: Track, cfg: MPCCConfig):
     """The one-control-step body with the racing gains as an argument:
     ``(gains, state) -> (state, metrics)``; each gain a float or a ``(B,)``
-    tensor, so a gain battery races its grid as the batch axis."""
+    tensor, so a gain battery races its grid as the batch axis.
+
+    The step's own ops around the SQP solve (:func:`_guess_phase`,
+    :func:`_advance_phase`) are two fixed-shape stretches of some two
+    thousand tiny kernels each; on CUDA tensors each is replayed from one
+    CUDA graph (``utils/graphs.py``: the same kernels, the same bits)."""
     norm = cfg.normalization()
-    hard_fail_thresh = max(cfg.n_sqp - 1, 1)   # mpc.cpp:244
+    guess = graphed(functools.partial(_guess_phase, track, cfg))
+    advance = graphed(functools.partial(_advance_phase, track, cfg))
 
     def step(gains: MPCCGains, state: MPCCState):
-        x0 = _relocalize_unwrapped(track, state.x)
+        with span("cmpc.step"):
+            return control_step(gains, state)
+
+    def control_step(gains: MPCCGains, state: MPCCState):
         valid = state.valid_guess
-        v3 = valid[:, None, None]
-        # both guesses are built; a select (never a blend) keeps a
-        # non-finite warm guess of an invalid race out of the result
-        x_w, u_w = _warm_guess(track, cfg, x0, state.x_bar, state.u_bar)
-        x_c, u_c = _cold_guess(track, cfg, x0)
-        x_bar = torch.where(v3, x_w, x_c)
-        u_bar = torch.where(v3, u_w, u_c)
-        # a cold start also resets the ADMM warm starts (new geometry)
-        w0 = torch.where(v3, state.w, torch.zeros_like(state.w))
-        y0 = torch.where(v3, state.y, torch.zeros_like(state.y))
-        rs0 = torch.where(valid[:, None], state.rho_scale,
-                          torch.ones_like(state.rho_scale))
+        with span("cmpc.guess"):
+            x0, x_bar, u_bar, w0, y0, rs0 = guess(
+                state.x, state.x_bar, state.u_bar, valid, state.w, state.y,
+                state.rho_scale)
 
         sol: MPCCSolution = mpcc_solve(
             track, gains, cfg.model, cfg.N, cfg.dt,
@@ -168,32 +220,18 @@ def _make_mpcc_step_fn(track: Track, cfg: MPCCConfig):
             epoch_len=cfg.resolved_epoch_len(),
             assoc=cfg.resolved_assoc())
 
-        finite = (torch.isfinite(sol.x_pred).flatten(1).all(1)
-                  & torch.isfinite(sol.u_pred).flatten(1).all(1))
-        # failure bookkeeping (mpc.cpp:231-252): a step whose SQP loop
-        # failed (nearly) every QP is a non-solve; n_reset consecutive
-        # non-solves invalidate the guess, so the next step cold-starts
-        hard_fail = (~finite) | (sol.sqp_fails >= hard_fail_thresh)
-        n_non = torch.where(hard_fail, state.n_non_solves + 1,
-                            torch.zeros_like(state.n_non_solves))
-        valid_next = finite & (n_non < cfg.n_reset)
-
-        f1, f3 = finite[:, None], finite[:, None, None]
-        # a rejected solve applies the shifted previous plan's first input
-        # (runMPC returns initial_guess_[0].uk, mpc.cpp:255-258)
-        u0 = torch.where(f1, sol.u_pred[:, 0], u_bar[:, 0])
-        x_next = _plant_rk4(track, cfg, x0, u0)
-
-        new_state = MPCCState(
-            x=x_next, x_bar=torch.where(f3, sol.x_pred, x_bar),
-            u_bar=torch.where(f3, sol.u_pred, u_bar), u_old=u0,
-            w=torch.where(f3, sol.w, w0), y=torch.where(f3, sol.y, y0),
-            rho_scale=torch.where(f1, sol.rho_scale, rs0),
-            valid_guess=valid_next, n_non_solves=n_non)
+        with span("cmpc.plant"):
+            out = advance(x0, x_bar, u_bar, w0, y0, rs0, valid,
+                          state.n_non_solves, sol.x_pred, sol.u_pred, sol.w,
+                          sol.y, sol.rho_scale, sol.sqp_fails)
+            if x0.is_cuda:
+                out = tuple(t.clone() for t in out)   # the graph's buffers
+        new_state = MPCCState(*out[:9])
+        x_next = new_state.x
         metrics = MPCCStepMetrics(
             feasible=sol.feasible, r_prim=sol.r_prim,
             iterations=sol.iterations, sqp_fails=sol.sqp_fails,
-            reset=~valid, s=x_next[:, 6], vx=x_next[:, 0], ey=x_next[:, 3])
+            reset=out[9], s=x_next[:, 6], vx=x_next[:, 0], ey=x_next[:, 3])
         return new_state, metrics
 
     return step

@@ -6,9 +6,9 @@ does nothing else otherwise: one read of the profiler's flag, then a
 shared null context. The records stay in memory; :func:`spans` returns
 those of the current (or last) profiler session, each with the index of
 its parent span and of its root, the outermost span open when it opened
-(``cmpc.step`` on the fleet steps, so every span of one control step shares
-it). Nothing is written anywhere. Spans nest by the order they open in,
-as the port's steps run on one thread.
+(``cmpc.step`` on the fleet and racing steps, so every span of one control
+step shares it). Nothing is written anywhere. Spans nest by the order they
+open in, as the port's steps run on one thread.
 
 The stamps are Unix-epoch nanoseconds, the clock of the profiler's own
 events (``KinetoEvent.start_ns``), so a span can be laid beside the device's

@@ -552,6 +552,54 @@ def test_cuda_mpcc_race_matches_cpu(cuda):
     assert torch.equal(mg.reset.cpu(), mc.reset)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("races, N", [(1, 60), (3, 20)])
+def test_cuda_graphed_race_keeps_the_bits(cuda, races, N):
+    """The racing step with its own ops replayed from CUDA graphs against
+    the same step run op by op on the card: 6 steps from a cold start, the
+    guess of race 0 invalidated before step 4 so it cold-starts again,
+    every state and metric equal bit for bit; a state a step returned is
+    not overwritten by the next step."""
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N, dt=0.02, n_sqp=2, sqp_mixing=0.8, epoch_len=15,
+                     assoc=False)
+    track = make_track(cfg.map_type, device=cuda)
+    start = racing.init_mpcc(track, cfg, races=races, device=cuda)
+    start = start._replace(x=start.x + 0.002 * torch.arange(
+        races, device=cuda, dtype=torch.float32)[:, None])
+    reset = (len(racing.MPCCState._fields)
+             + racing.MPCCStepMetrics._fields.index("reset"))
+    runs = []
+    for graphed in (lambda fn: fn, racing.graphed):
+        mp = pytest.MonkeyPatch()
+        mp.setattr(racing, "graphed", graphed)
+        try:
+            step = racing._make_mpcc_step_fn(track, cfg)
+        finally:
+            mp.undo()
+        st, seen = start, []
+        for k in range(6):
+            if k == 3:
+                valid = st.valid_guess.clone()
+                valid[0] = False
+                st = st._replace(valid_guess=valid)
+            prev = st
+            st, m = step(cfg.gains, st)
+            seen.append([t.clone() for t in list(st) + list(m)])
+            if k:
+                # the state handed in, as the step before returned it
+                for f, t, r in zip(prev._fields, prev, seen[-2]):
+                    assert torch.equal(t, r) or (k, f) == (3, "valid_guess")
+        runs.append(seen)
+    eager, replayed = runs
+    for k, (a, b) in enumerate(zip(eager, replayed)):
+        assert bits_differing([t.float() for t in b],
+                              [t.float() for t in a]) == 0, k
+    assert bool(eager[3][reset][0]) and not bool(eager[4][reset][0])
+
+
 def close_to_scale(got, ref, tol):
     """Each field within ``tol`` of the reference, relative to the larger
     of 1 and the reference field's max |finite value|; NaN and infinite

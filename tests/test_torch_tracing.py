@@ -240,3 +240,93 @@ def test_a_second_profiler_session_starts_empty():
             pass
     assert [(s.name, s.parent, s.root) for s in tracing.spans()] == [
         ("cmpc.plant", None, 0)]
+
+
+# the racing step (runtime/racing.py, planners/mpcc.py): each span name and
+# the name its parent has
+RACE_PARENTS = {
+    "cmpc.step": None, "cmpc.guess": "cmpc.step", "cmpc.plant": "cmpc.step",
+    "cmpc.mpcc.solve": "cmpc.step", "cmpc.mpcc.sqp_iter": "cmpc.mpcc.solve",
+    "cmpc.mpcc.build": "cmpc.mpcc.sqp_iter",
+    "cmpc.admm.solve": "cmpc.mpcc.sqp_iter",
+    "cmpc.admm.epoch": "cmpc.admm.solve",
+}
+
+
+def _race_system():
+    """``(cfg, step, state)``: two races at N=8 on the CPU, their speeds
+    perturbed apart; the first step cold-starts."""
+    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
+    from colaborativempc_tpu_torch.runtime import racing
+    cfg = MPCCConfig(N=N, dt=0.02, n_sqp=SQP_ITERS, sqp_mixing=0.8,
+                     epoch_len=15, assoc=False)
+    track = make_track(cfg.map_type, device="cpu", dtype=torch.float64)
+    state = racing.init_mpcc(track, cfg, races=2, dtype=torch.float64,
+                             device="cpu")
+    state = state._replace(x=state.x + torch.tensor(
+        [[0.0] * 9, [0.002, 0.001] + [0.0] * 7], dtype=torch.float64))
+    return cfg, racing.make_mpcc_step(track, cfg), state
+
+
+@pytest.fixture(scope="module")
+def race_traced():
+    """A racing step without a profiler, two under one CPU profiler
+    session, then one more without: the outputs and the spans."""
+    cfg, step, state = _race_system()
+    plain = step(state)
+    with profile(activities=[ProfilerActivity.CPU]):
+        first = step(state)
+        second = step(first[0])
+    spans = tracing.spans()
+    step(second[0])
+    return dict(cfg=cfg, plain=plain, first=first, second=second,
+                spans=spans, after=tracing.spans())
+
+
+def test_racing_step_span_tree(race_traced):
+    spans = race_traced["spans"]
+    assert {s.name for s in spans} == set(RACE_PARENTS) | {"cmpc.admm.sync"}
+    roots = [i for i, s in enumerate(spans) if s.parent is None]
+    assert [spans[i].name for i in roots] == ["cmpc.step", "cmpc.step"]
+    for s in spans:
+        parent = None if s.parent is None else spans[s.parent]
+        if s.name == "cmpc.admm.sync":
+            assert parent.name in ("cmpc.admm.solve", "cmpc.admm.epoch")
+        else:
+            assert (parent and parent.name) == RACE_PARENTS[s.name], s.name
+        if parent is not None:
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    for root in roots:
+        kids = [spans[k].name for k, s in enumerate(spans)
+                if s.parent == root]
+        # the guesses, one SQP solve, then the plant, in that order
+        assert kids == ["cmpc.guess", "cmpc.mpcc.solve", "cmpc.plant"]
+    for i, s in enumerate(spans):
+        if s.name == "cmpc.mpcc.solve":
+            iters = _children(spans, i, "cmpc.mpcc.sqp_iter")
+            assert len(iters) == SQP_ITERS
+            for k in iters:
+                assert len(_children(spans, k, "cmpc.mpcc.build")) == 1
+                assert len(_children(spans, k, "cmpc.admm.solve")) == 1
+
+
+def test_racing_epoch_spans_count_the_admm_iterations(race_traced):
+    """A step's epochs, 15 iterations each, cover the ADMM iterations of
+    each of its races (summed over the SQP iterations): each SQP
+    iteration's solve runs the epochs of its slowest race."""
+    spans = race_traced["spans"]
+    roots = [i for i, s in enumerate(spans) if s.parent is None]
+    for out, root in zip((race_traced["first"], race_traced["second"]),
+                         roots):
+        epochs = sum(1 for s in spans
+                     if s.name == "cmpc.admm.epoch" and s.root == root)
+        assert epochs * 15 >= int(out[1].iterations.max())
+        assert epochs >= SQP_ITERS
+
+
+def test_racing_step_records_only_under_a_profiler(race_traced):
+    assert race_traced["after"] == race_traced["spans"]
+    for a, b in zip(_flat(race_traced["plain"]),
+                    _flat(race_traced["first"])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.numpy(), b.numpy(), equal_nan=True)
