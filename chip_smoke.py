@@ -1369,8 +1369,9 @@ def layer_split(dev, card, steps=3):
             roll = racing.make_mpcc_rollout(track, cfg, steps)
         roll(st)  # warm
         timer = LayerTimer()
-        timer.wrap(admm, "admm_epoch_inputs", "refactorisation")
-        timer.wrap(admm, "admm_epoch_batched", "epoch_kernel")
+        # an epoch is one replay of its CUDA graph (epoch data, epoch
+        # kernel, rescale and merge), timed as a whole
+        timer.wrap(admm._EpochGraph, "run", "epoch")
         planner = {"lpv": lpv, "nl": nl, "mpcc": mpcc}[path]
         timer.wrap(planner, "admm_solve", "admm_solve")
         if path == "lpv":
@@ -1391,10 +1392,8 @@ def layer_split(dev, card, steps=3):
         finally:
             timer.restore()
         ms = {k: v / steps for k, v in timer.ms.items()}
-        split = {"refactorisation": ms["refactorisation"],
-                 "epoch_kernel": ms["epoch_kernel"],
-                 "admm_rest": (ms["admm_solve"] - ms["refactorisation"]
-                               - ms["epoch_kernel"])}
+        split = {"epochs": ms["epoch"],
+                 "admm_rest": ms["admm_solve"] - ms["epoch"]}
         if path == "lpv":
             split["qp_assembly"] = ms["qp_assembly"]
             split["planner_rest"] = (ms["planner"] - ms["qp_assembly"]
@@ -1406,11 +1405,8 @@ def layer_split(dev, card, steps=3):
         split["step_rest"] = total / steps - ms["planner"]
         out[path] = dict(
             card=card, steps=steps, ms_per_step_timed=total / steps,
-            epochs_per_step=timer.calls["epoch_kernel"] / steps,
-            ms_per_epoch_kernel=ms["epoch_kernel"] * steps
-            / timer.calls["epoch_kernel"],
-            ms_per_epoch_refactorisation=ms["refactorisation"] * steps
-            / timer.calls["refactorisation"],
+            epochs_per_step=timer.calls["epoch"] / steps,
+            ms_per_epoch=ms["epoch"] * steps / timer.calls["epoch"],
             split_ms_per_step=split)
         if path == "nl":
             out[path]["ocd_iterations_per_step"] = float(

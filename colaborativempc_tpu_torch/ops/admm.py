@@ -31,11 +31,17 @@ Per-problem freeze: under the JAX double vmap each problem's
 ``while_loop`` stops on its own convergence while its batch-mates iterate.
 Here an ``active`` mask of shape (P,) applies each epoch's results only to
 problems still running, so every problem gets the result (and iteration
-count) of its standalone solve. The host reads the mask once per epoch.
+count) of its standalone solve. The host reads the mask once per epoch. On
+CUDA tensors the loop's state stays in static buffers and each epoch is one
+replay of a CUDA graph (:class:`_EpochGraph`), so an epoch costs the host a
+graph launch and that read.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,6 +52,7 @@ from colaborativempc_tpu_torch.ops.cuda_lqr import (
 from colaborativempc_tpu_torch.ops.lqr import (
     LQRCost, LQRDynamics, lqr_affine_solve_assoc, lqr_factorize,
 )
+from colaborativempc_tpu_torch.utils.graphs import record
 from colaborativempc_tpu_torch.utils.tracing import span
 
 
@@ -237,6 +244,244 @@ def default_epoch_len(N: int) -> int:
     return 10 if N < 16 else (20 if N < 48 else 30)
 
 
+
+
+class _ADMMState(NamedTuple):
+    """:func:`admm_solve`'s state between epochs; the float fields first,
+    in the order :class:`_EpochGraph` lays them out."""
+    z: torch.Tensor          # (P, N+1, nz)
+    c: torch.Tensor          # (P, N, nc)
+    w: torch.Tensor          # (P, N, m)
+    y: torch.Tensor          # (P, N, m)
+    rho_scale: torch.Tensor  # (P, m)
+    r_prim: torch.Tensor     # (P, m) the last epoch's per-row-class residuals
+    r_dual: torch.Tensor     # (P, m)
+    it: torch.Tensor         # (P,) int64 iterations run
+
+
+def _epoch_step(qp: StageQP, z0: torch.Tensor, st: _ADMMState,
+                active: torch.Tensor, *, rho, alpha, eps, reg, epoch_len,
+                max_rho_scale, assoc: bool = False) -> _ADMMState:
+    """One epoch of :func:`admm_solve` from state ``st``: the epoch data and
+    the epoch (see :func:`admm_solve` for which), the OSQP-style rho
+    rescale, and the new state for the problems in ``active`` ``(P,)``
+    bool; the others keep theirs. A plain function of tensors: the loop on
+    CPU tensors calls it, and on the card it is the body of each epoch's
+    CUDA graph (:class:`_EpochGraph`)."""
+    if assoc and z0.device.type == "cpu":
+        z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_assoc(
+            qp, z0, st.w, st.y, rho, st.rho_scale, reg,
+            epoch_len=epoch_len, alpha=alpha)
+    else:
+        data = admm_epoch_inputs(qp, rho, st.rho_scale, reg)
+        z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
+            data, z0, st.w.contiguous(), st.y.contiguous(),
+            epoch_len=epoch_len, alpha=alpha)
+    # OSQP-style per-class rescale, bounded; the scaled dual follows.
+    # Classes already inside tolerance keep their rho.
+    ratio = torch.sqrt(rp_e / torch.clamp_min(rd_e, 1e-12))
+    ratio = torch.clamp(ratio, 0.2, 10.0)
+    new_scale = torch.clamp(st.rho_scale * ratio, 1e-3, max_rho_scale)
+    quiet = (rp_e < eps) & (rd_e < eps)
+    new_scale = torch.where(quiet, st.rho_scale, new_scale)
+    y_e = y_e * (st.rho_scale / new_scale)[:, None, :]
+
+    a1 = active[:, None]
+    a2 = active[:, None, None]
+    return _ADMMState(
+        z=torch.where(a2, z_e, st.z), c=torch.where(a2, c_e, st.c),
+        w=torch.where(a2, w_e, st.w), y=torch.where(a2, y_e, st.y),
+        rho_scale=torch.where(a1, new_scale, st.rho_scale),
+        r_prim=torch.where(a1, rp_e, st.r_prim),
+        r_dual=torch.where(a1, rd_e, st.r_dual),
+        it=st.it + epoch_len * active.to(st.it.dtype))
+
+
+def _still_active(st: _ADMMState, eps, budget: int) -> torch.Tensor:
+    """``(P,)`` bool: the problems that run the next epoch, those with
+    iterations left and a row class outside tolerance."""
+    not_conv = ((torch.amax(st.r_prim, dim=1) > eps)
+                | (torch.amax(st.r_dual, dim=1) > eps))
+    return (st.it < budget) & not_conv
+
+
+def _solution(st: _ADMMState, feas_tol: float) -> ADMMSolution:
+    r_p = torch.amax(st.r_prim, dim=1)
+    return ADMMSolution(z=st.z, c=st.c, w=st.w, y=st.y,
+                        rho_scale=st.rho_scale, iterations=st.it,
+                        r_prim=r_p, r_dual=torch.amax(st.r_dual, dim=1),
+                        # tolerant acceptance mirroring the reference, which
+                        # treats OSQP 'solved_inaccurate' and even
+                        # 'max_iter_reached' as usable
+                        # (LPV_Planner.py:241-249)
+                        feasible=r_p < feas_tol)
+
+
+def _qp_leaves(qp: StageQP):
+    return (qp.dyn.F, qp.dyn.G, qp.dyn.d, qp.cost.Q, qp.cost.q, qp.cost.R,
+            qp.cost.r, qp.cost.S, qp.D, qp.E, qp.lo, qp.hi, qp.soft_lo,
+            qp.soft_hi)
+
+
+# the epoch pair a graph holds: the two kernels' launches. A tool that
+# swaps in another (a plain or associative twin, whose solver-library calls
+# the card cannot record) gets the loop op by op.
+_KERNEL_EPOCH = (admm_epoch_inputs, admm_epoch_batched)
+# the wrappers' launch counters, which a replay advances by what its
+# epoch's launches would
+_LAUNCH_COUNTERS = ((admm_epoch_batched, "launches"),
+                    (admm_epoch_batched, "pipelined_launches"),
+                    (epoch_data_batched, "launches"))
+
+
+class _EpochGraph:
+    """:func:`admm_solve`'s loop on the card for one layout. The QP, z0 and
+    the loop's state live in static buffers for the whole solve, the state
+    in one allocation carved into views. Every epoch is one replay of a
+    CUDA graph of :meth:`step`: :func:`_epoch_step` on the buffers, in
+    place, then the next ``active`` mask and its ``any()``, which the host
+    reads. The layout's first epoch runs :meth:`step` eagerly (it loads
+    whatever loads lazily) and then records it; the recording runs
+    nothing and counts no launch, and each replay advances the wrappers'
+    launch counters as its epoch's launches would, and
+    ``admm_solve.graph_replays`` by one."""
+
+    def __init__(self, qp: StageQP, z0: torch.Tensor, opts: dict,
+                 budget: int):
+        dev, dtype = z0.device, z0.dtype
+        P, N, m = qp.lo.shape
+        nz, nc = qp.dyn.F.shape[-1], qp.dyn.G.shape[-1]
+        self.opts, self.budget = opts, budget
+        F, G, d, Q, q, R, r, S, D, E, lo, hi, slo, shi = (
+            None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                               device=dev)
+            for t in _qp_leaves(qp))
+        self.qp = StageQP(LQRDynamics(F, G, d), LQRCost(Q, q, R, r, S), D, E,
+                          lo, hi, slo, shi)
+        self.z0 = torch.empty(z0.shape, dtype=dtype, device=dev)
+        self._shapes = ((P, N + 1, nz), (P, N, nc), (P, N, m), (P, N, m),
+                        (P, m), (P, m), (P, m))
+        self._starts = list(itertools.accumulate(
+            [0] + [math.prod(s) for s in self._shapes]))
+        self.flat = torch.empty(self._starts[-1], dtype=dtype, device=dev)
+        self.state = _ADMMState(*self._carve(self.flat),
+                                it=torch.empty((P,), dtype=torch.int64,
+                                               device=dev))
+        self.active = torch.empty((P,), dtype=torch.bool, device=dev)
+        self.graph = self.flag = self.launches = None
+
+    def _carve(self, flat: torch.Tensor):
+        """The float fields' views of ``flat`` (or of a prefix of it)."""
+        return [flat[a:a + math.prod(s)].view(s)
+                for a, s in zip(self._starts, self._shapes)
+                if a < flat.numel()]
+
+    def load(self, qp: StageQP, z0, w0, y0, rho_scale0) -> bool:
+        """Copy one solve's QP, start and warm starts in and reset the
+        state. Returns whether the first epoch runs: with a finite ``eps``
+        every problem does (no iteration run, infinite residuals), so only
+        a non-finite one reads the mask from the card."""
+        st = self.state
+        torch._foreach_copy_(
+            [t for t in _qp_leaves(self.qp) if t is not None]
+            + [self.z0, st.w, st.y],
+            [t for t in _qp_leaves(qp) if t is not None] + [z0, w0, y0])
+        self.flat[:self._starts[2]].zero_()           # z, c
+        self.flat[self._starts[5]:].fill_(math.inf)   # r_prim, r_dual
+        st.it.zero_()
+        if isinstance(rho_scale0, (int, float)):
+            st.rho_scale.fill_(rho_scale0)
+        else:
+            st.rho_scale.copy_(torch.as_tensor(
+                rho_scale0, dtype=st.rho_scale.dtype,
+                device=st.rho_scale.device))
+        eps = self.opts["eps"]
+        if math.isfinite(eps):
+            self.active.fill_(True)
+            return True
+        self.active.copy_(_still_active(st, eps, self.budget))
+        with span("cmpc.admm.sync"):
+            return bool(self.active.any())
+
+    def step(self) -> torch.Tensor:
+        """The epoch the graph holds, on the buffers in place; returns
+        whether any problem runs the next epoch, a one-element tensor."""
+        st = _epoch_step(self.qp, self.z0, self.state, self.active,
+                         **self.opts)
+        active = _still_active(st, self.opts["eps"], self.budget)
+        # one multi-tensor copy for the float fields (one dtype each list)
+        torch._foreach_copy_(list(self.state[:-1]), list(st[:-1]))
+        self.state.it.copy_(st.it)
+        self.active.copy_(active)
+        return active.any()
+
+    def run(self) -> torch.Tensor:
+        """One epoch on the card: a replay, or on the layout's first epoch
+        :meth:`step` and then the recording. Returns :meth:`step`'s flag."""
+        if self.graph is None:
+            flag = self.step()
+            self._record()
+            return flag
+        self.graph.replay()
+        for (fn, name), n in zip(_LAUNCH_COUNTERS, self.launches):
+            setattr(fn, name, getattr(fn, name) + n)
+        admm_solve.graph_replays += 1
+        return self.flag
+
+    def _record(self):
+        before = [getattr(fn, name) for fn, name in _LAUNCH_COUNTERS]
+        try:
+            graph, flag = record(self.step, self.flat.device)
+            self.launches = [getattr(fn, name) - b for (fn, name), b
+                             in zip(_LAUNCH_COUNTERS, before)]
+        finally:
+            for (fn, name), b in zip(_LAUNCH_COUNTERS, before):
+                setattr(fn, name, b)
+        self.graph, self.flag = graph, flag
+        admm_solve.graph_records += 1
+
+    def solve(self, qp: StageQP, z0, w0, y0, rho_scale0, n_epochs: int,
+              feas_tol: float) -> ADMMSolution:
+        """:func:`admm_solve`'s loop over the buffers: one :meth:`run` an
+        epoch and, after each epoch but the budget's last, one host read of
+        its flag. The solution is cloned out (the float fields in one copy),
+        so the next solve cannot overwrite it."""
+        go = self.load(qp, z0, w0, y0, rho_scale0)
+        for e in range(n_epochs):
+            if not go:
+                break
+            with span("cmpc.admm.epoch"):
+                flag = self.run()
+                if e + 1 < n_epochs:
+                    with span("cmpc.admm.sync"):
+                        go = bool(flag)
+        st = self.state
+        z, c, w, y, rho_scale = self._carve(
+            self.flat[:self._starts[5]].clone())
+        return _solution(st._replace(z=z, c=c, w=w, y=y, rho_scale=rho_scale,
+                                     it=st.it.clone()), feas_tol)
+
+
+# one graph per layout (shapes, dtypes, device and the numbers the graph
+# bakes in), the least recently used dropped past this many
+_MAX_GRAPHS = 8
+_GRAPHS: "OrderedDict[tuple, _EpochGraph]" = OrderedDict()
+
+
+def _epoch_graph(qp: StageQP, z0: torch.Tensor, opts: dict,
+                 budget: int) -> _EpochGraph:
+    key = (tuple(None if t is None else (t.shape, t.dtype)
+                 for t in _qp_leaves(qp)),
+           z0.shape, z0.dtype, z0.device, budget, tuple(opts.items()))
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        g = _EpochGraph(qp, z0, opts, budget)
+    _GRAPHS[key] = g
+    while len(_GRAPHS) > _MAX_GRAPHS:
+        _GRAPHS.popitem(last=False)
+    return g
+
+
 def admm_solve(qp: StageQP, z0: torch.Tensor,
                w0: Optional[torch.Tensor] = None,
                y0: Optional[torch.Tensor] = None,
@@ -264,6 +509,17 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
     epoch with the associative affine solve. ``admm_epoch_assoc`` is plain
     torch and runs on the card as well, but ``admm_solve`` never selects it
     there.
+
+    How the loop runs: on CPU tensors each epoch's ops run as they come,
+    with a host read of the ``active`` mask before the first epoch and
+    after each but the last. On CUDA tensors each epoch is one replay of a
+    CUDA graph recorded once per layout (:class:`_EpochGraph`, counted in
+    ``admm_solve.graph_records`` and ``admm_solve.graph_replays``), and
+    the read before the first epoch is made only for a non-finite ``eps``
+    (with a finite one every problem runs it): the same epochs and the
+    same bits. A tool that rebinds this module's ``admm_epoch_inputs`` or
+    ``admm_epoch_batched`` to a plain twin gets the op-by-op loop on the
+    card too, since the solver libraries' calls cannot be recorded.
     """
     with span("cmpc.admm.solve"):
         P, N, m = qp.lo.shape
@@ -272,29 +528,35 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
         if epoch_len is None:
             epoch_len = default_epoch_len(N)
         n_epochs = max(1, iters // epoch_len)
+        budget = n_epochs * epoch_len
+        opts = dict(rho=rho, alpha=alpha, eps=eps, reg=reg,
+                    epoch_len=epoch_len, max_rho_scale=max_rho_scale)
 
         if w0 is None:
             w0 = torch.clamp(torch.zeros((P, N, m), dtype=dtype, device=dev),
                              qp.lo, qp.hi)
         if y0 is None:
             y0 = torch.zeros((P, N, m), dtype=dtype, device=dev)
+        if (dev.type == "cuda"
+                and (admm_epoch_inputs, admm_epoch_batched) == _KERNEL_EPOCH):
+            return _epoch_graph(qp, z0, opts, budget).solve(
+                qp, z0, w0, y0, rho_scale0, n_epochs, feas_tol)
 
-        z = torch.zeros((P, N + 1, nz), dtype=dtype, device=dev)
-        c = torch.zeros((P, N, nc), dtype=dtype, device=dev)
-        w, y = w0, y0
-        rho_scale = torch.broadcast_to(
-            torch.as_tensor(rho_scale0, dtype=dtype, device=dev),
-            (P, m)).clone()
-        it = torch.zeros((P,), dtype=torch.int64, device=dev)
-        r_prim = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
-        r_dual = torch.full((P, m), torch.inf, dtype=dtype, device=dev)
+        st = _ADMMState(
+            z=torch.zeros((P, N + 1, nz), dtype=dtype, device=dev),
+            c=torch.zeros((P, N, nc), dtype=dtype, device=dev),
+            w=w0, y=y0,
+            rho_scale=torch.broadcast_to(
+                torch.as_tensor(rho_scale0, dtype=dtype, device=dev),
+                (P, m)).clone(),
+            r_prim=torch.full((P, m), torch.inf, dtype=dtype, device=dev),
+            r_dual=torch.full((P, m), torch.inf, dtype=dtype, device=dev),
+            it=torch.zeros((P,), dtype=torch.int64, device=dev))
         z0c = z0.contiguous()
 
         def any_active():
             # the one host sync per epoch: whether any problem runs the next
-            not_conv = ((torch.amax(r_prim, dim=1) > eps)
-                        | (torch.amax(r_dual, dim=1) > eps))
-            active = (it < n_epochs * epoch_len) & not_conv
+            active = _still_active(st, eps, budget)
             with span("cmpc.admm.sync"):
                 return active, bool(active.any())
 
@@ -305,44 +567,11 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
             if not go:
                 break
             with span("cmpc.admm.epoch"):
-                if assoc and dev.type == "cpu":
-                    z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_assoc(
-                        qp, z0c, w, y, rho, rho_scale, reg,
-                        epoch_len=epoch_len, alpha=alpha)
-                else:
-                    data = admm_epoch_inputs(qp, rho, rho_scale, reg)
-                    z_e, c_e, w_e, y_e, rp_e, rd_e = admm_epoch_batched(
-                        data, z0c, w.contiguous(), y.contiguous(),
-                        epoch_len=epoch_len, alpha=alpha)
-                # OSQP-style per-class rescale, bounded; the scaled dual
-                # follows. Classes already inside tolerance keep their rho.
-                ratio = torch.sqrt(rp_e / torch.clamp_min(rd_e, 1e-12))
-                ratio = torch.clamp(ratio, 0.2, 10.0)
-                new_scale = torch.clamp(rho_scale * ratio, 1e-3,
-                                        max_rho_scale)
-                quiet = (rp_e < eps) & (rd_e < eps)
-                new_scale = torch.where(quiet, rho_scale, new_scale)
-                y_e = y_e * (rho_scale / new_scale)[:, None, :]
-
-                a1 = active[:, None]
-                a2 = active[:, None, None]
-                z = torch.where(a2, z_e, z)
-                c = torch.where(a2, c_e, c)
-                w = torch.where(a2, w_e, w)
-                y = torch.where(a2, y_e, y)
-                rho_scale = torch.where(a1, new_scale, rho_scale)
-                r_prim = torch.where(a1, rp_e, r_prim)
-                r_dual = torch.where(a1, rd_e, r_dual)
-                it = it + epoch_len * active.to(it.dtype)
+                st = _epoch_step(qp, z0c, st, active, assoc=assoc, **opts)
                 if e + 1 < n_epochs:
                     active, go = any_active()
+        return _solution(st, feas_tol)
 
-        r_p = torch.amax(r_prim, dim=1)
-        return ADMMSolution(z=z, c=c, w=w, y=y, rho_scale=rho_scale,
-                            iterations=it, r_prim=r_p,
-                            r_dual=torch.amax(r_dual, dim=1),
-                            # tolerant acceptance mirroring the reference,
-                            # which treats OSQP 'solved_inaccurate' and even
-                            # 'max_iter_reached' as usable
-                            # (LPV_Planner.py:241-249)
-                            feasible=r_p < feas_tol)
+
+admm_solve.graph_records = 0   # graphs recorded (one per layout)
+admm_solve.graph_replays = 0   # epochs run by a replay

@@ -12,6 +12,8 @@ are the function's bit for bit.
 The function takes and returns tensors only (a tuple), reads nothing from
 the host while it runs (no ``float(t)``, no tensor built from Python data
 on the card) and makes no host read. On CPU tensors it runs as it is.
+:func:`record` is the capture both this and ``ops/admm.py _EpochGraph``
+(the ADMM loop's epochs, state kept in place across replays) use.
 """
 
 from __future__ import annotations
@@ -19,6 +21,17 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+
+def record(fn: Callable, device: torch.device):
+    """Capture ``fn()`` on ``device`` as a CUDA graph, which runs nothing
+    until replayed; returns the graph and what ``fn`` returned (its
+    tensors live in the graph's pool and are rewritten by each replay).
+    Whatever ``fn`` loads lazily must have run once before."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
 
 
 class graphed:
@@ -55,7 +68,5 @@ class graphed:
             with torch.cuda.stream(side):
                 self.fn(*inputs)
             torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                outputs = self.fn(*inputs)
+        graph, outputs = record(lambda: self.fn(*inputs), dev)
         return graph, inputs, tuple(outputs)

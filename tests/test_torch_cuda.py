@@ -171,6 +171,114 @@ def test_cuda_admm_solve_runs_one_launch_per_epoch(cuda):
     close(sol.z[ref.feasible], ref.z[ref.feasible], 1e-3)
 
 
+# (P, N, nc, mr, iters, epoch_len) of the cells' ADMM solves (the LPV
+# Monte-Carlo, one LPV fleet, the NL Monte-Carlo, one race) and of NL
+# hp_opt's 48 agents at N=20, whose epoch plan spills to global memory
+GRAPH_SHAPES = {
+    "lpv_mc64": (192, 125, 2, 6, 300, 15),
+    "lpv_fleet1": (3, 125, 2, 6, 1000, 15),
+    "nl_mc64": (192, 20, 2, 6, 300, 20),
+    "mpcc_race1": (1, 60, 2, 7, 200, 15),
+    "spilled_hp_opt_48_agents": (48, 20, 96, 145, 100, 10),
+}
+
+
+def graph_counts():
+    return (admm_solve.graph_records, admm_solve.graph_replays,
+            cuda_lqr.admm_epoch_batched.launches,
+            cuda_lqr.epoch_data_batched.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_SHAPES))
+def test_cuda_graphed_admm_solve_keeps_the_eager_bits(cuda, case,
+                                                      monkeypatch):
+    """``admm_solve`` on the card, each epoch a replay of its layout's CUDA
+    graph, against the graph's body run eagerly on the card
+    (``_EpochGraph.step``), bit for bit in every field, over two solves of
+    one layout: the first runs its first epoch eagerly and records the
+    graph (once), the second replays every epoch; each epoch counts one
+    launch of each kernel either way."""
+    from collections import OrderedDict
+    from colaborativempc_tpu_torch.ops import admm
+    from test_torch_admm_graph import bits_equal, eager_graph
+    monkeypatch.setattr(admm, "_GRAPHS", OrderedDict())
+    P, N, nc, mr, iters, el = GRAPH_SHAPES[case]
+    if case.startswith("spilled"):
+        assert cuda_lqr.kernel_plan(P, N, 11, nc, mr).spilled
+    for k, seed in enumerate((61, 62)):
+        qp, z0, w0, y0 = (to(x, cuda) if isinstance(x, tuple) else x.to(cuda)
+                          for x in problems(seed, P=P, N=N, nc=nc, mr=mr))
+        rs0 = torch.linspace(0.5, 2.0, mr, device=cuda)
+        before = graph_counts()
+        got = admm_solve(qp, z0, w0, y0, iters=iters, epoch_len=el,
+                         rho_scale0=rs0)
+        torch.cuda.synchronize()
+        records, replays, launches, data = (
+            b - a for a, b in zip(before, graph_counts()))
+        g, n_epochs = eager_graph(qp, z0, iters=iters, epoch_len=el)
+        ref = g.solve(qp, z0, w0, y0, rs0, n_epochs, 1e-2)
+        torch.cuda.synchronize()
+        assert bits_equal(got, ref) == [], case
+        epochs = int(got.iterations.max()) // el
+        assert launches == data == epochs >= 2
+        assert (records, replays) == ((1, epochs - 1) if k == 0
+                                      else (0, epochs))
+    assert len(admm._GRAPHS) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_admm_solution_survives_the_next_solve(cuda):
+    """A returned solution is cloned out of the graph's buffers: the next
+    solve of the same layout leaves it as it was."""
+    from test_torch_admm_graph import bits_equal
+    sols, kept = [], None
+    for seed in (63, 64):
+        qp, z0, w0, y0 = (to(x, cuda) if isinstance(x, tuple) else x.to(cuda)
+                          for x in problems(seed, P=5, N=20))
+        sols.append(admm_solve(qp, z0, w0, y0, iters=100, epoch_len=20))
+        if kept is None:
+            kept = [t.clone() for t in sols[0]]
+    torch.cuda.synchronize()
+    assert bits_equal(sols[0], kept) == []
+    assert not torch.equal(sols[0].z, sols[1].z)
+
+
+@pytest.mark.cuda
+def test_cuda_swapped_epoch_pair_runs_op_by_op(cuda, monkeypatch):
+    """A tool that swaps the epoch kernel for its plain twin (as
+    ``scripts/rounding_control.py`` does) gets the loop op by op, as
+    before the graph, bit for bit; nothing is recorded or replayed."""
+    import test_torch_admm_graph as tg
+    from colaborativempc_tpu_torch.ops import admm
+    plain = cuda_lqr.admm_epoch_batched_plain
+    monkeypatch.setattr(admm, "admm_epoch_batched", plain)
+    monkeypatch.setattr(tg, "admm_epoch_batched", plain)
+    qp, z0, w0, y0 = (to(x, cuda) if isinstance(x, tuple) else x.to(cuda)
+                      for x in problems(66, P=4, N=20))
+    before = graph_counts()[:2]
+    got = admm_solve(qp, z0, w0, y0, iters=100, epoch_len=20)
+    ref = tg.frozen_admm_solve(qp, z0, w0, y0, iters=100, epoch_len=20)
+    torch.cuda.synchronize()
+    assert graph_counts()[:2] == before
+    assert tg.bits_equal(got, ref) == []
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_epoch_moves_nothing_between_host_and_card(cuda):
+    """The graph's body on the card reads no value back, builds no tensor
+    from Python data and runs no op that touches the host's tensors."""
+    from test_torch_admm_graph import Traffic, eager_graph
+    qp, z0, w0, y0 = (to(x, cuda) if isinstance(x, tuple) else x.to(cuda)
+                      for x in problems(65, P=3, N=20))
+    g, _ = eager_graph(qp, z0, iters=100, epoch_len=20)
+    g.load(qp, z0, w0, y0, 1.0)
+    with Traffic() as ops:
+        g.step()
+    torch.cuda.synchronize()
+    assert len(ops.names) > 20 and ops.bad == []
+
+
 @pytest.mark.cuda
 def test_cuda_fleet_rollout_matches_cpu(cuda):
     from colaborativempc_tpu_torch.config import (
