@@ -5,11 +5,12 @@ collaborative LPV fleet rollout of ``bench.py`` (Highway, 3 agents, H=20,
 256 scenarios, 20 control steps, admm_iters=300), the NL-OCD Monte-Carlo of
 ``scripts/monte_carlo.py --pipeline nl`` (64 fleets), the MPCC race and
 gain battery, the long-horizon single fleet and the dynamic-lane rollout —
-and checks them:
+and checks them. It checks and does not time the paths: their rates and
+latencies are the benchmark's (``benchmark/run.py``); the kernel times of
+phases 3-3d and 13 are each kernel's isolated record. The phases:
 
 1. a CUDA device is present; prints the card's name and power limit;
-2. builds the kernels from ``colaborativempc_tpu_torch/csrc`` with nvcc,
-   and the clock-stamped epoch-data kernel beside them;
+2. builds the kernels from ``colaborativempc_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch twin on the card, with the time of
    each beside its bound (bytes over 3.35 TB/s or FP32 operations over 67
    TFLOP/s, whichever is larger) and the launch plan (QPs per block, ring
@@ -42,12 +43,10 @@ and checks them:
    far from float64 as the float32 plain version does. At hp_opt 11
    agents in a batch of 14,080 stage matrices (704 fleets' QPs, N=20),
    where the card's batched solve takes another order than the kernel
-   follows, the bits may differ and the 1.5x rule holds instead. Each shape prints
-   the wrapper's host microseconds per call beside the kernel's device
-   time; then the split of the kernel's barrier intervals at the headline
-   and at P=7, from its clock-stamped build (built in phase 2 beside the
-   library; its outputs held bit for bit to the default build's). Phases
-   3, 3b and 13 feed the epoch kernel the plain version's data, as before;
+   follows, the bits may differ and the 1.5x rule holds instead. Each
+   shape prints the wrapper's host microseconds per call beside the
+   kernel's device time. Phases 3, 3b and 13 feed the epoch kernel the
+   plain version's data, as before;
 3d. the SQP build kernels (``csrc/sqp_qp.cu``: ``build_nl_qp`` and
    ``build_mpcc_qp`` on the card) against their plain versions on the card,
    field by field, each within 1e-4 of the larger of 1 and the field's max
@@ -70,33 +69,27 @@ and checks them:
    per call;
 4. the LPV path: launch counts reset, one 20-step rollout, every state
    finite, the epoch kernel and the epoch-data kernel each launched once
-   per ADMM epoch the solves ran; then solves/s as the best of 3
-   rollouts;
+   per ADMM epoch the solves ran;
 5. end to end, kernel vs plain: the same config at B=4 for 5 steps on the
    card and on the CPU (plain twins) agree; each problem's ADMM iteration
    counts on both paths are printed where they differ;
 6. the NL path: the NL-OCD Monte-Carlo (64 fleets x 3 agents, N=20,
    eu, Jacobi) for 20 control steps: launch counts reset, every state
    finite, the epoch kernel launched once per ADMM epoch its solves ran;
-   then fleet-steps/s as the best of 2 rollouts;
 7. NL end to end, kernel vs plain: B=2 fleets x 3 steps on the card and
    on the CPU, for eu/Jacobi and hp_opt/Gauss-Seidel — plans within 1e-3,
    equal feasible flags and OCD iteration counts;
-8. one fleet's closed loop (``run_nl_experiment``, 20 steps): p50/p95 step
-   latency;
-9. the layer split of an LPV step (B=256), of an NL-OCD step (B=64) and
-   of an MPCC race step at N=60: milliseconds per control step in each
-   layer, from synchronised host timers around the layers' functions (the
-   NL and MPCC SQP builds timed whole: on the card each is one launch of
-   its build kernel);
+8. one fleet's closed loop (``run_nl_experiment``, 20 steps): finite
+   states, the kernels launched once per epoch and per SQP build;
+9. (removed);
 10. the MPCC single race at the reference's N=60 (oval_mt, dt 0.05, the
    associative schedule with epoch 15): launch counts reset, 10 warm-in
-   steps, then 80 timed steps: every state finite, the epoch kernel
-   launched once per ADMM epoch the solves ran; p50/p95/best latency;
+   steps, then 80 steps: every state finite, the epoch kernel launched
+   once per ADMM epoch the solves ran;
 11. the MPCC gain battery: 18 races (q_contour {20, 50, 120} x q_progress
    {0.5, 1, 2} x dr_scale {0.5, 1}) at N=20 for 160 steps after 10
-   warm-in steps: finite states, launches equal to the epochs;
-   race-steps/s, laps completed, feasible share;
+   warm-in steps: finite states, launches equal to the epochs; laps
+   completed, feasible share;
 12. MPCC kernel vs plain: B=2 races x 5 steps at N=20 on the card and on
    the CPU (plain twins): states within 1e-3 with equal reset flags, each
    race's ADMM iteration counts printed where they differ;
@@ -104,13 +97,10 @@ and checks them:
    cold-started races, normalised): P=18/N=20/mr=7 and P=1/N=60/mr=7;
 14. the associative path on the card: ``lqr_affine_solve_assoc`` against
    ``lqr_affine_solve`` at N=60 and N=125 in float32 (within 1e-3 of the
-   solution's scale); then the time of one torch associative epoch (its
-   factorisation the plain version's) beside one epoch-data kernel +
-   epoch kernel epoch at P=1/N=60/mr=7 and P=3/N=125/mr=6 (a record for
-   the precedence rule, not a check);
+   solution's scale);
 15. single-fleet LPV at N=125 with default settings (``run_lpv_experiment``,
    Highway, 3 agents, 10 steps: assoc, epoch 15, 1000 iterations): finite
-   states, launches equal to the epochs, p50/p95 latency;
+   states, launches equal to the epochs;
 16. dynamic lanes: the LPV fleet rollout with ``dynamic_lane`` on Oval2,
    B=64 x 10 steps (agent 1 of every other fleet starting on the inner
    lane): finite states, launches equal to the epochs, the lane switches
@@ -123,7 +113,7 @@ of the epoch-data kernel must each equal the epochs):
 
 17. ``lpv_main`` at its defaults (3 agents, N=125, dt 0.025, 1000 ADMM
    iterations) for 8 steps with ``--no-plot``: the csv/pck files written,
-   finite states, p50/p95 per step; ``eval_lpv_model`` on that run, its
+   finite states; ``eval_lpv_model`` on that run, its
    Euler rollout on the card against the same rollout on the CPU within
    1e-4, and the other open-loop tools on that run card vs CPU
    (``rollout_rk4``, ``regression``, ``gbellmf``,
@@ -132,11 +122,7 @@ of the epoch-data kernel must each equal the epochs):
    CPU writing states within 1e-3;
 18. ``stress_study`` at full width: ``latency --family nl-eu --n 125`` (the
    NL-OCD step at N=125) and ``perturbed --batched --family lpv --n 125``
-   (8 starts x 5 steps, one chunk); then the first perturbed step's 24
-   stage QPs solved by ``admm_solve`` with every epoch the kernels and
-   with every epoch the associative one (the plain factorisation), on the
-   card: each problem's ADMM iterations and the problems left above
-   ``feas_tol`` (a record);
+   (8 starts x 5 steps, one chunk);
 19. ``experiment_battery --pipeline nl --horizons 20,40`` (12 fleets, 5
    steps per horizon) and ``--pipeline lpv`` (18 fleets, 10 steps);
 20. ``stress_study gs-tradeoff`` (N=20, 16 fleets, 8 steps): Jacobi against
@@ -149,8 +135,7 @@ Phase 21 drives the sharded paths (``parallel/``):
    Monte-Carlo through ``monte_carlo.setup(mesh=...)``, i.e.
    ``make_sharded_nl_ocd_rollout``, from the same starts: launches equal
    to the epochs, final states against phases 4 and 6 (bit for bit
-   expected; held to 1e-3), solves/s and fleet-steps/s of that one run
-   beside phases 4 and 6; (b) real
+   expected; held to 1e-3); (b) real
    collectives on the one card: ranks that share it over gloo, each a
    process of its own with a deadline, the LPV headline split (2, 1) for
    3 steps and 16 NL hp_opt fleets split (1, 3), one agent per rank, for
@@ -190,18 +175,14 @@ are printed:
    (196 neighbours, the epoch launch spilled past shared memory), each
    also solved on the CPU's plain path and held to the larger of 3e-3 and
    1.5x the CPU's distance (``TOL_ORACLE_FLOOR``, ``TOL_ORACLE_CPU``);
-   the ADMM iterations of the card, the CPU and the twin printed
-   (``scripts/rounding_control.py --oracle`` splits the 197-agent QP's
-   distance between the kernels and the card's float32 rounding);
+   the ADMM iterations of the card, the CPU and the twin printed;
    (b) ``nl_solve`` (eu) against ``nl_solve_native``: the test's shape
    within 1e-2 and the NL-OCD headline's N=20 QP under (a)'s rule; (c)
    ``mpcc_solve`` against ``mpcc_solve_native`` within 5e-3, and
    ``run_mpcc_experiment`` against ``mpcc_race_native`` (50 steps: the
    same steps, every step feasible, progress within 2%); (d)
    ``_sep_filter_beta`` on the card against ``sep_filter_native`` on 100
-   random fleets within 2e-3; (e) the median of 20 native headline solves
-   on the host beside the median of 20 synchronised ``lpv_solve`` calls of
-   the same QP on the card, with the host CPU's model name.
+   random fleets within 2e-3.
 
 Kernel times come from ``cuda_ms``: CUDA events around the calls, with a
 spin kernel queued first so that the host's queueing stays outside the
@@ -707,31 +688,6 @@ def check_epoch_data(dev, tag, qp, rho_scale, reps):
     return out
 
 
-def epoch_data_split_on_card(dev, tag, qp, rho_scale):
-    """Phase 3c's split of the epoch-data kernel: its clock-stamped build
-    (``cuda_lqr.epoch_data_clocked``, a library of its own) on ``qp``, the
-    mean cycles of each barrier interval (``scripts/epoch_data_split.py
-    split``), its outputs against the default build's bit for bit."""
-    from colaborativempc_tpu_torch.ops import ADMMEpochData, cuda_lqr
-    from colaborativempc_tpu_torch.ops.admm import admm_epoch_inputs
-    from colaborativempc_tpu_torch.scripts.epoch_data_split import split
-    got, clocks, names, plan = cuda_lqr.epoch_data_clocked(qp, 10.0,
-                                                           rho_scale)
-    ref = admm_epoch_inputs(qp, 10.0, rho_scale)
-    torch.cuda.synchronize()
-    for f, g, r in zip(ADMMEpochData._fields, got, ref):
-        if not torch.equal(g.nan_to_num(), r.nan_to_num()):
-            fail(f"phase 3c split {tag}: field {f} of the clocked build "
-                 "differs from the default build's")
-    res = split(clocks.cpu().numpy(), names, qp.lo.shape[1])
-    print(f"phase 3c split {tag}: {res['cycles_per_stage']:.0f} cycles per "
-          f"stage (blocks at once per SM {res.get('blocks_at_once_per_sm')}"
-          f"); " + "; ".join(
-              f"{k} {v['mean_cycles']:.0f} x {v['count_per_block']}"
-              for k, v in res["intervals"].items()), flush=True)
-    return res
-
-
 TOL_SQP_QP = 1e-4         # of max(1, the field's max |value|), float32
 
 
@@ -1114,32 +1070,23 @@ def read_launches():
             "mpcc_qp": cuda_sqp.mpcc_qp_batched.launches}
 
 
-# epoch-data kernel launches of each checked run, by the run's name
-EPOCH_DATA_LAUNCHES = {}
-# build kernel launches of each checked run: {run: {"nl": n, "mpcc": n}}
-BUILD_LAUNCHES = {}
-
-
 def check_build_launches(what, launches, builds):
     """Each build kernel launched once per SQP build the solves ran:
     ``builds`` counts the solves by planner family (an NL or MPCC solve
-    follows one build; the families absent ran none). Records the
-    launches under ``what``."""
+    follows one build; the families absent ran none)."""
     for fam in ("nl", "mpcc"):
         n = builds.get(fam, 0)
         if launches[f"{fam}_qp"] != n:
             fail(f"{what}: the {fam} build kernel launched "
                  f"{launches[f'{fam}_qp']} times, the {fam} solves ran "
                  f"{n} builds")
-    BUILD_LAUNCHES[what] = {fam: launches[f"{fam}_qp"]
-                            for fam in ("nl", "mpcc")}
 
 
 def check_epoch_launches(what, launches, epochs, builds=None):
     """The epoch kernel and the epoch-data kernel each launched once per
-    epoch the solves ran, and at least once; records the epoch-data
-    launches under ``what``. With ``builds`` (solves by planner family),
-    or ``epochs`` a ``SolverCalls``, also ``check_build_launches``."""
+    epoch the solves ran, and at least once. With ``builds`` (solves by
+    planner family), or ``epochs`` a ``SolverCalls``, also
+    ``check_build_launches``."""
     n = sum(epochs) if not isinstance(epochs, int) else epochs
     if launches["epoch"] != n or n == 0:
         fail(f"{what}: epoch kernel launched {launches['epoch']} times, the "
@@ -1147,7 +1094,6 @@ def check_epoch_launches(what, launches, epochs, builds=None):
     if launches["epoch_data"] != n:
         fail(f"{what}: epoch-data kernel launched {launches['epoch_data']} "
              f"times, the solves ran {n} epochs")
-    EPOCH_DATA_LAUNCHES[what] = launches["epoch_data"]
     if builds is None and isinstance(epochs, SolverCalls):
         builds = {epochs.family: len(epochs)}
     if builds is not None:
@@ -1158,9 +1104,9 @@ NL_B, NL_STEPS = 64, 20
 
 
 def nl_main_path(dev, card):
-    """Phase 6: the NL-OCD Monte-Carlo, once with the launch counters and
-    the solver's epochs counted, then timed as the best of 2 rollouts.
-    Returns the record and the counted run's final state."""
+    """Phase 6: the NL-OCD Monte-Carlo with the launch counters and the
+    solver's epochs counted. Returns the record and the run's final
+    state."""
     from colaborativempc_tpu_torch.scripts import monte_carlo
     cfg, rollout, state0 = monte_carlo.setup(
         "nl", scenarios=NL_B, agents=3, N=20, steps=NL_STEPS, device=dev)
@@ -1175,25 +1121,15 @@ def nl_main_path(dev, card):
     if not all_finite(list(final) + [xh, uh] + list(met)):
         fail("NL path: a state is not finite")
     check_epoch_launches("phase 6 (NL path)", launches, epochs)
-    best = float("inf")
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(state0)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
     out = dict(
         card=card, fleets=NL_B, steps=NL_STEPS,
-        fleet_steps_per_s=NL_B * NL_STEPS / best,
-        ms_per_step=best / NL_STEPS * 1e3,
         mean_ocd_iterations=float(met.ocd_iterations.float().mean()),
         max_ocd_iterations=int(met.ocd_iterations.max()),
         feasible_share=float(met.feasible.float().mean()),
         min_dist_exec=float(met.min_dist_exec.min()),
         solver_calls=len(epochs), launches=launches)
     print(f"phase 6: NL-OCD {NL_B} fleets x 3 agents x {NL_STEPS} steps: "
-          f"{out['fleet_steps_per_s']:.2f} fleet-steps/s "
-          f"({out['ms_per_step']:.1f} ms/step, best of 2), mean OCD "
+          f"mean OCD "
           f"iterations {out['mean_ocd_iterations']:.2f}, feasible share "
           f"{out['feasible_share']:.4f}, min_dist_exec "
           f"{out['min_dist_exec']:.4f} m, epoch-kernel launches "
@@ -1296,127 +1232,14 @@ def nl_single_fleet(dev, card):
     if res.steps != 20 or not np.isfinite(res.states).all():
         fail(f"single-fleet NL run: {res.steps} steps, finite states: "
              f"{bool(np.isfinite(res.states).all())}")
-    ms = res.step_times * 1e3
-    out = dict(card=card, steps=res.steps, p50_ms=float(np.percentile(ms, 50)),
-               p95_ms=float(np.percentile(ms, 95)), first_ms=float(ms[0]),
+    out = dict(card=card, steps=res.steps,
                mean_ocd_iterations=float(res.ocd_iterations.mean()),
                feasible_share=float(res.feasible.mean()),
                min_dist_exec=float(res.min_dist_exec.min()))
-    print(f"single fleet: run_nl_experiment 3 agents N=20, {res.steps} steps: "
-          f"p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms per step "
-          f"(first {out['first_ms']:.1f} ms), mean OCD iterations "
+    print(f"phase 8: run_nl_experiment 3 agents N=20, {res.steps} steps: "
+          f"mean OCD iterations "
           f"{out['mean_ocd_iterations']:.2f}, feasible share "
           f"{out['feasible_share']:.4f} [{card}]", flush=True)
-    return out
-
-
-class LayerTimer:
-    """Synchronised host timers around module functions: each call adds
-    its milliseconds to ``ms[name]``; ``restore()`` unwraps them."""
-
-    def __init__(self):
-        self.ms, self.calls, self._undo = {}, {}, []
-
-    def wrap(self, module, attr, name):
-        orig = getattr(module, attr)
-
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return orig(*args, **kw)
-            finally:
-                torch.cuda.synchronize()
-                self.ms[name] = (self.ms.get(name, 0.0)
-                                 + (time.perf_counter() - t0) * 1e3)
-                self.calls[name] = self.calls.get(name, 0) + 1
-        setattr(module, attr, timed)
-        self._undo.append((module, attr, orig))
-
-    def restore(self):
-        for module, attr, orig in reversed(self._undo):
-            setattr(module, attr, orig)
-
-
-def layer_split(dev, card, steps=3):
-    """Phase 9: milliseconds per control step in each layer of the LPV step
-    (B=256, from bench.py's perturbed start), of the NL-OCD step (B=64, the
-    Monte-Carlo's perturbed start) and of an MPCC race step at N=60 (after
-    5 steps from the cold start), over ``steps`` steps, with every layer's
-    function wrapped in a synchronised timer (the timers' syncs make the
-    step slower than unwrapped)."""
-    from colaborativempc_tpu_torch.geometry import make_track
-    from colaborativempc_tpu_torch.ops import admm
-    from colaborativempc_tpu_torch.planners import lpv, mpcc, nl
-    from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
-    from colaborativempc_tpu_torch.runtime import (
-        make_lpv_fleet_rollout, ocd, racing, simulate,
-    )
-    from colaborativempc_tpu_torch.scripts import monte_carlo
-    out = {}
-    for path in ("lpv", "nl", "mpcc"):
-        if path == "lpv":
-            cfg, track, st = fleet(dev, 256)
-            roll = make_lpv_fleet_rollout(track, cfg, steps)
-        elif path == "nl":
-            _, roll, st = monte_carlo.setup("nl", scenarios=NL_B, agents=3,
-                                            N=20, steps=steps, device=dev)
-        else:
-            cfg = MPCCConfig(N=MPCC_N)
-            track = make_track(cfg.map_type, device=dev)
-            st = racing.init_mpcc(track, cfg, device=dev)
-            st, _ = racing.make_mpcc_rollout(track, cfg, 5)(st)
-            roll = racing.make_mpcc_rollout(track, cfg, steps)
-        roll(st)  # warm
-        timer = LayerTimer()
-        # an epoch is one replay of its CUDA graph (epoch data, epoch
-        # kernel, rescale and merge), timed as a whole
-        timer.wrap(admm._EpochGraph, "run", "epoch")
-        planner = {"lpv": lpv, "nl": nl, "mpcc": mpcc}[path]
-        timer.wrap(planner, "admm_solve", "admm_solve")
-        if path == "lpv":
-            timer.wrap(lpv, "build_lpv_qp", "qp_assembly")
-            timer.wrap(simulate, "lpv_solve", "planner")
-        elif path == "nl":
-            timer.wrap(nl, "build_nl_qp", "qp_build")
-            timer.wrap(ocd, "nl_solve", "planner")
-        else:
-            timer.wrap(mpcc, "build_mpcc_qp", "qp_build")
-            timer.wrap(racing, "mpcc_solve", "planner")
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = roll(st)
-            torch.cuda.synchronize()
-            total = (time.perf_counter() - t0) * 1e3
-        finally:
-            timer.restore()
-        ms = {k: v / steps for k, v in timer.ms.items()}
-        split = {"epochs": ms["epoch"],
-                 "admm_rest": ms["admm_solve"] - ms["epoch"]}
-        if path == "lpv":
-            split["qp_assembly"] = ms["qp_assembly"]
-            split["planner_rest"] = (ms["planner"] - ms["qp_assembly"]
-                                     - ms["admm_solve"])
-        else:     # the NL and MPCC SQPs: the build kernel, one launch
-            split["qp_build"] = ms["qp_build"]
-            split["planner_rest"] = (ms["planner"] - ms["qp_build"]
-                                     - ms["admm_solve"])
-        split["step_rest"] = total / steps - ms["planner"]
-        out[path] = dict(
-            card=card, steps=steps, ms_per_step_timed=total / steps,
-            epochs_per_step=timer.calls["epoch"] / steps,
-            ms_per_epoch=ms["epoch"] * steps / timer.calls["epoch"],
-            split_ms_per_step=split)
-        if path == "nl":
-            out[path]["ocd_iterations_per_step"] = float(
-                res[1][2].ocd_iterations.amax(dim=0).float().mean())
-        if path == "mpcc":
-            out[path]["N"] = MPCC_N
-        print(f"phase 9 {path}: {total / steps:.1f} ms per step with layer "
-              f"timers, {out[path]['epochs_per_step']:.1f} epochs per step; "
-              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-              + f" [{card}]", flush=True)
     return out
 
 
@@ -1469,16 +1292,10 @@ MPCC_N, MPCC_WARM, MPCC_STEPS = 60, 10, 80
 BAT_N, BAT_WARM, BAT_STEPS = 20, 10, 160
 
 
-def percentiles(ms):
-    ms = np.asarray(ms)
-    return dict(p50_ms=float(np.percentile(ms, 50)),
-                p95_ms=float(np.percentile(ms, 95)), best_ms=float(ms.min()))
-
-
 def mpcc_race(dev, card):
     """Phase 10: one MPCC race at the reference's horizon, N=60 (the
     associative schedule, epoch 15): 10 warm-in steps, then MPCC_STEPS
-    timed steps with the launch counters and the solver's epochs counted."""
+    steps with the launch counters and the solver's epochs counted."""
     from colaborativempc_tpu_torch.geometry import make_track
     from colaborativempc_tpu_torch.planners import mpcc
     from colaborativempc_tpu_torch.planners.mpcc import MPCCConfig
@@ -1493,15 +1310,12 @@ def mpcc_race(dev, card):
         st, _ = step(st)
     epochs, restore = count_solver_epochs(mpcc)
     reset_launches()
-    times, ms, resets, feas = [], [], 0, []
+    ms = []
     try:
         for _ in range(MPCC_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             st, m = step(st)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
             ms.append(m)
+        torch.cuda.synchronize()
     finally:
         restore()
     launches = read_launches()
@@ -1510,15 +1324,13 @@ def mpcc_race(dev, card):
     check_epoch_launches("phase 10 (MPCC race)", launches, epochs)
     resets = sum(int(m.reset.sum()) for m in ms)
     feas = float(np.mean([float(m.feasible.float().mean()) for m in ms]))
-    out = dict(card=card, N=MPCC_N, steps=MPCC_STEPS, **percentiles(times),
-               final_s=float(st.x[0, 6]), feasible_share=feas, resets=resets,
+    out = dict(card=card, N=MPCC_N, steps=MPCC_STEPS, final_s=float(st.x[0, 6]), feasible_share=feas, resets=resets,
                epochs=sum(epochs), launches=launches["epoch"],
                launches_per_step=launches["epoch"] / MPCC_STEPS,
                mean_admm_iterations=float(np.mean(
                    [int(m.iterations[0]) for m in ms])))
     print(f"phase 10: MPCC race N={MPCC_N}, {MPCC_STEPS} steps after "
-          f"{MPCC_WARM} warm-in: p50 {out['p50_ms']:.1f} ms, p95 "
-          f"{out['p95_ms']:.1f} ms, best {out['best_ms']:.1f} ms; final s "
+          f"{MPCC_WARM} warm-in: final s "
           f"{out['final_s']:.3f} m, feasible share {feas:.4f}, resets "
           f"{resets}, epoch-kernel launches {launches['epoch']} "
           f"({out['launches_per_step']:.2f} per step) [{card}]", flush=True)
@@ -1549,11 +1361,8 @@ def mpcc_battery(dev, card):
     epochs, restore = count_solver_epochs(mpcc)
     reset_launches()
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         st, met = racing._race(lambda s: step_fn(gains, s), st, BAT_STEPS)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
     finally:
         restore()
     launches = read_launches()
@@ -1562,15 +1371,13 @@ def mpcc_battery(dev, card):
     check_epoch_launches("phase 11 (MPCC battery)", launches, epochs)
     laps = int((st.x[:, 6] >= L).sum())
     out = dict(card=card, races=len(grid), N=BAT_N, steps=BAT_STEPS,
-               race_steps_per_s=len(grid) * BAT_STEPS / secs,
-               ms_per_step=secs / BAT_STEPS * 1e3, laps_completed=laps,
+               laps_completed=laps,
                feasible_share=float(met.feasible.float().mean()),
                resets=int(met.reset.sum()), epochs=sum(epochs),
                launches=launches["epoch"],
                launches_per_step=launches["epoch"] / BAT_STEPS)
     print(f"phase 11: MPCC battery {len(grid)} races N={BAT_N} x "
-          f"{BAT_STEPS} steps: {out['race_steps_per_s']:.1f} race-steps/s "
-          f"({out['ms_per_step']:.1f} ms/step), laps completed {laps}/"
+          f"{BAT_STEPS} steps: laps completed {laps}/"
           f"{len(grid)}, feasible share {out['feasible_share']:.4f}, "
           f"epoch-kernel launches {launches['epoch']} "
           f"({out['launches_per_step']:.2f} per step) [{card}]", flush=True)
@@ -1712,14 +1519,10 @@ TOL_ASSOC = 1e-3   # float32, relative to the solution's scale
 
 def assoc_on_card(dev, card):
     """Phase 14: the associative affine solve against the sequential one
-    on CUDA tensors (a check), then one torch associative epoch (its
-    factorisation the plain version's, which the associative solve needs)
-    beside one refactorisation + kernel epoch, the refactorisation the
-    epoch-data kernel (a record)."""
+    on CUDA tensors."""
     from colaborativempc_tpu_torch.ops import (
-        LQRCost, LQRDynamics, StageQP, admm_epoch_assoc, admm_epoch_inputs,
-        build_admm_cost, cuda_lqr, lqr_affine_solve, lqr_affine_solve_assoc,
-        lqr_factorize,
+        LQRCost, LQRDynamics, StageQP, build_admm_cost, lqr_affine_solve,
+        lqr_affine_solve_assoc, lqr_factorize,
     )
     rng = np.random.default_rng(125)
     pr = random_epoch_problems(rng, P=3, N=125, nz=11, nc=2, mr=6)
@@ -1734,10 +1537,9 @@ def assoc_on_card(dev, card):
         D=t(pr["D"]), E=t(pr["E"]), lo=t(pr["lo"]), hi=t(pr["hi"]),
         soft_lo=soft, soft_hi=soft)
     mq, mz0, _ = mpcc_qps(dev, 1, MPCC_N)
-    cases = {"mpcc_p1_n60": (mq, mz0, 15),
-             "p3_n125": (lpv_like, t(pr["z0"]), 15)}
+    cases = {"mpcc_p1_n60": (mq, mz0), "p3_n125": (lpv_like, t(pr["z0"]))}
     out = {}
-    for tag, (qp, z0, el) in cases.items():
+    for tag, (qp, z0) in cases.items():
         rho_scale = torch.full(qp.lo.shape[::2], 100.0, device=dev)
         rv = 10.0 * rho_scale[:, None, :] * (
             torch.isfinite(qp.lo) | torch.isfinite(qp.hi)).float()
@@ -1750,29 +1552,9 @@ def assoc_on_card(dev, card):
         if not (all_finite([za, ca]) and err <= TOL_ASSOC):
             fail(f"phase 14 {tag}: associative vs sequential affine solve "
                  f"{err} of the solution's scale (tol {TOL_ASSOC})")
-        w0 = torch.clamp(torch.zeros_like(qp.lo), qp.lo, qp.hi).contiguous()
-        y0 = torch.zeros_like(w0)
-        kw = dict(epoch_len=el, alpha=ALPHA)
-
-        def kernel_epoch():
-            data = admm_epoch_inputs(qp, 10.0, rho_scale)
-            return cuda_lqr.admm_epoch_batched(data, z0, w0, y0, **kw)
-        data = admm_epoch_inputs(qp, 10.0, rho_scale)
-        out[tag] = dict(
-            rel_err_assoc_vs_sequential=err,
-            assoc_epoch_ms=cuda_ms(lambda: admm_epoch_assoc(
-                qp, z0, w0, y0, 10.0, rho_scale, **kw), 3),
-            refactorisation_plus_kernel_epoch_ms=cuda_ms(kernel_epoch, 3),
-            kernel_only_ms=cuda_ms(lambda: cuda_lqr.admm_epoch_batched(
-                data, z0, w0, y0, **kw), 5))
-        o = out[tag]
+        out[tag] = dict(rel_err_assoc_vs_sequential=err)
         print(f"phase 14 {tag}: assoc vs sequential affine solve "
-              f"{err:.3g} of scale (tol {TOL_ASSOC}); one torch assoc epoch "
-              f"(plain factorisation) {o['assoc_epoch_ms']:.2f} ms vs "
-              f"epoch-data kernel + epoch kernel "
-              f"{o['refactorisation_plus_kernel_epoch_ms']:.2f} ms "
-              f"(kernel alone {o['kernel_only_ms']:.4f} ms) [{card}]",
-              flush=True)
+              f"{err:.3g} of scale (tol {TOL_ASSOC}) [{card}]", flush=True)
     return out
 
 
@@ -1803,16 +1585,13 @@ def lpv_long_horizon(dev, card):
         fail(f"phase 15: {res.steps} steps, finite states: "
              f"{bool(np.isfinite(res.states).all())}")
     check_epoch_launches("phase 15 (LPV N=125)", launches, epochs)
-    ms = res.step_times * 1e3
-    out = dict(card=card, steps=res.steps, **percentiles(ms),
-               first_ms=float(ms[0]), epochs=sum(epochs),
+    out = dict(card=card, steps=res.steps, epochs=sum(epochs),
                launches=launches["epoch"],
                launches_per_step=launches["epoch"] / res.steps,
                feasible_share=float(res.feasible.mean()),
                max_admm_iterations=int(res.iterations.max()))
     print(f"phase 15: run_lpv_experiment 3 agents N=125, {res.steps} steps: "
-          f"p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms (first "
-          f"{out['first_ms']:.1f} ms), feasible share "
+          f"feasible share "
           f"{out['feasible_share']:.4f}, epoch-kernel launches "
           f"{launches['epoch']} ({out['launches_per_step']:.1f} per step) "
           f"[{card}]", flush=True)
@@ -1859,14 +1638,11 @@ def dynamic_lanes(dev, card):
     reset_launches()
     lanes, ms = [st.lane], []
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         for _ in range(LANE_STEPS):
             st, m = step(st)
             lanes.append(st.lane)
             ms.append(m)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
     finally:
         restore()
     launches = read_launches()
@@ -1895,7 +1671,7 @@ def dynamic_lanes(dev, card):
     agree = held_to_tolerance("phase 16 (dynamic lanes cuda vs cpu)",
                               (xg - xc).abs().flatten(1).amax(dim=1), differ)
     out = dict(card=card, fleets=LANE_B, steps=LANE_STEPS,
-               ms_per_step=secs / LANE_STEPS * 1e3, lane_switches=switches,
+               lane_switches=switches,
                agents_on_lane_1=int((st.lane == 1).sum()),
                feasible_share=float(torch.stack(
                    [m.feasible for m in ms]).float().mean()),
@@ -1903,7 +1679,7 @@ def dynamic_lanes(dev, card):
                launches_per_step=launches["epoch"] / LANE_STEPS,
                cuda_vs_cpu=agree)
     print(f"phase 16: dynamic lanes Oval2 B={LANE_B} x {LANE_STEPS} steps: "
-          f"{out['ms_per_step']:.1f} ms/step, {switches} lane switches, "
+          f"{switches} lane switches, "
           f"{out['agents_on_lane_1']} agents on lane 1 at the end, feasible "
           f"share {out['feasible_share']:.4f}, epoch-kernel launches "
           f"{launches['epoch']}; B=2 x 3 steps cuda vs cpu max |dx| "
@@ -1913,16 +1689,13 @@ def dynamic_lanes(dev, card):
 
 def run_counted(what, fn, *planners):
     """``fn()`` with the launch counters reset and the planners' solver
-    epochs counted: ``(result, epoch launches, seconds)``; fails unless the
-    epoch kernel launched once per epoch the solves ran, and at least
-    once."""
+    epochs counted: ``(result, epoch launches)``; fails unless the epoch
+    kernel launched once per epoch the solves ran, and at least once."""
     counts, restores = zip(*(count_solver_epochs(p) for p in planners))
     reset_launches()
     try:
-        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
     finally:
         for restore in restores:
             restore()
@@ -1932,7 +1705,7 @@ def run_counted(what, fn, *planners):
         builds[c.family] = builds.get(c.family, 0) + len(c)
     check_epoch_launches(what, launches, [e for c in counts for e in c],
                          builds)
-    return out, launches["epoch"], secs
+    return out, launches["epoch"]
 
 
 CLI_STEPS, CLI_COMPARE_STEPS, CLI_TINY = 8, 5, (2, 8, 4)
@@ -2007,7 +1780,7 @@ def lpv_cli(dev, card):
     out = dict(card=card, steps=steps)
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "lpv")
-        res, launches, secs = run_counted(
+        res, launches = run_counted(
             "phase 17 (lpv_main)", lambda: lpv_main.main(
                 ["--steps", str(steps), "--no-plot", "--verb", "0",
                  "--out", run_dir]), lpv)
@@ -2024,16 +1797,13 @@ def lpv_cli(dev, card):
             fail(f"phase 17: lpv_main ran {res.steps} steps, wrote "
                  f"{written.shape[0]}; finite: "
                  f"{bool(np.isfinite(written).all())}")
-        ms = res.step_times * 1e3
-        out.update(percentiles(ms), first_ms=float(ms[0]), seconds=secs,
-                   launches=launches, launches_per_step=launches / steps,
+        out.update(launches=launches, launches_per_step=launches / steps,
                    feasible_share=float(res.feasible.mean()),
                    max_admm_iterations=int(res.iterations.max()),
                    matplotlib_importable=(
                        importlib.util.find_spec("matplotlib") is not None))
         print(f"phase 17: lpv_main 3 agents N=125 dt 0.025, {steps} "
-              f"steps: p50 {out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} "
-              f"ms (first {out['first_ms']:.1f} ms), feasible share "
+              f"steps: feasible share "
               f"{out['feasible_share']:.4f}, epoch-kernel launches "
               f"{launches} ({out['launches_per_step']:.1f} per step); csv/pck "
               f"written; matplotlib importable here: "
@@ -2058,14 +1828,14 @@ def lpv_cli(dev, card):
         with open(os.path.join(golden, "settings.csv"), "w") as f:
             f.write("n_agents,3\nN,125\ndt,0.025\nmap_type,Highway\n"
                     "vx_ref,3.0\nmin_dist,0.25\n")
-        cmp, l_cmp, s_cmp = run_counted(
+        cmp, l_cmp = run_counted(
             "phase 17 (compare_reference)", lambda: compare_reference.main(
                 ["--ref", golden, "--steps", str(CLI_COMPARE_STEPS),
                  "--short", "3"]), lpv)
         dev_short = float(np.max(cmp["short_deviation"]))
         if not np.isfinite(dev_short):
             fail("phase 17: compare_reference deviation not finite")
-        out.update(compare_launches=l_cmp, compare_seconds=s_cmp,
+        out.update(compare_launches=l_cmp,
                    compare_short_deviation_max=dev_short)
 
         a, N, k = CLI_TINY
@@ -2088,7 +1858,7 @@ def lpv_cli(dev, card):
         out["tiny_card_vs_cpu"] = d_tiny
     print(f"phase 17: eval_lpv_model card vs cpu {d_eval:.3g} (tol "
           f"{TOL_EVAL_ROLLOUT}); compare_reference {CLI_COMPARE_STEPS} steps "
-          f"in {s_cmp:.1f} s ({l_cmp} launches), short-horizon deviation "
+          f"({l_cmp} launches), short-horizon deviation "
           f"{dev_short:.3g}; tiny lpv_main ({a} agents, N={N}, {k} steps) "
           f"card vs cpu {d_tiny:.3g} (tol {TOL_ROLLOUT}); open-loop tools "
           f"card vs cpu: rollout_rk4 {tools['rollout_rk4']:.3g} (tol "
@@ -2104,105 +1874,39 @@ NL125_STEPS = 2
 PERT_STARTS, PERT_STEPS, PERT_CHUNK = 8, 5, 5
 
 
-def assoc_admm_solve(qp, z0, **kw):
-    """``admm_solve`` with every epoch ``admm_epoch_assoc`` (the JAX XLA
-    epoch with the associative affine solve), on whatever device the
-    tensors are: ``admm_solve``'s own loop, with its refactorisation and
-    kernel pair swapped for the associative epoch for the call."""
-    from colaborativempc_tpu_torch.ops import admm
-    saved = admm.admm_epoch_inputs, admm.admm_epoch_batched
-
-    def inputs(qp, rho, rho_scale, reg):
-        return qp, rho, rho_scale, reg
-
-    def epoch(held, z0, w, y, epoch_len, alpha):
-        qp, rho, rho_scale, reg = held
-        return admm.admm_epoch_assoc(qp, z0, w, y, rho, rho_scale, reg,
-                                     epoch_len=epoch_len, alpha=alpha)
-    admm.admm_epoch_inputs, admm.admm_epoch_batched = inputs, epoch
-    try:
-        return admm.admm_solve(qp, z0, **kw)
-    finally:
-        admm.admm_epoch_inputs, admm.admm_epoch_batched = saved
-
-
-def kernel_vs_assoc(qp, z0, kw, card):
-    """Phase 18's convergence record: the first perturbed N=125 step's
-    stage QPs solved by ``admm_solve`` on the card (every epoch the
-    epoch-data kernel and the epoch kernel) and with every epoch the
-    associative one (its factorisation the plain version's), on the card;
-    each problem's ADMM iterations and the problems left above
-    ``feas_tol``."""
-    from colaborativempc_tpu_torch.ops import admm
-    out = {}
-    for name, solve in (("kernel", admm.admm_solve),
-                        ("assoc", assoc_admm_solve)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = solve(qp, z0, **kw)
-        torch.cuda.synchronize()
-        out[name] = dict(
-            seconds=time.perf_counter() - t0,
-            iterations=sol.iterations.cpu().tolist(),
-            epochs=int(sol.iterations.max()) // kw["epoch_len"],
-            infeasible=int((~sol.feasible).sum()),
-            r_prim_max=float(sol.r_prim.max()))
-    k, a = out["kernel"], out["assoc"]
-    print(f"phase 18: first perturbed N=125 step, {qp.lo.shape[0]} stage QPs "
-          f"(iters {kw['iters']}, epoch {kw['epoch_len']}, eps {kw['eps']}): "
-          f"kernels {k['epochs']} epochs, {k['infeasible']} above feas_tol, "
-          f"iterations {k['iterations']} ({k['seconds']:.1f} s); assoc "
-          f"(plain factorisation) {a['epochs']} epochs, "
-          f"{a['infeasible']} above feas_tol, "
-          f"iterations {a['iterations']} ({a['seconds']:.1f} s) [{card}]",
-          flush=True)
-    return out
-
-
 def stress_full_width(dev, card):
     """Phase 18: ``stress_study latency`` of one NL-OCD fleet at N=125 and
-    ``perturbed --batched`` LPV at N=125 (one chunk of 5 steps), then the
-    kernel against the associative epoch on the first perturbed step's
-    QPs."""
+    ``perturbed --batched`` LPV at N=125 (one chunk of 5 steps)."""
     from colaborativempc_tpu_torch.planners import lpv, nl
     from colaborativempc_tpu_torch.scripts import stress_study
     n, nl_steps = 125, NL125_STEPS
     starts, steps, chunk = PERT_STARTS, PERT_STEPS, PERT_CHUNK
-    lat, l_lat, s_lat = run_counted(
+    lat, l_lat = run_counted(
         "phase 18 (latency nl-eu)", lambda: stress_study.main(
             ["latency", "--family", "nl-eu", "--n", str(n), "--steps",
              str(nl_steps)]), nl)
     if lat["steps"] != nl_steps or not np.isfinite(lat["s_final"]).all():
         fail(f"phase 18: NL latency ran {lat['steps']} steps, s_final "
              f"{lat['s_final']}")
-    solves, restore = watch_solver(
-        lpv, lambda qp, z0, kw, sol: (qp, z0, dict(kw)))
-    try:
-        pert, l_pert, s_pert = run_counted(
-            "phase 18 (perturbed --batched lpv)", lambda: stress_study.main(
-                ["perturbed", "--batched", "--family", "lpv", "--n", str(n),
-                 "--starts", str(starts), "--steps", str(steps), "--chunk",
-                 str(chunk)]), lpv)
-    finally:
-        restore()
+    pert, l_pert = run_counted(
+        "phase 18 (perturbed --batched lpv)", lambda: stress_study.main(
+            ["perturbed", "--batched", "--family", "lpv", "--n", str(n),
+             "--starts", str(starts), "--steps", str(steps), "--chunk",
+             str(chunk)]), lpv)
     if pert["steps"] != steps or None in pert["min_dist_exec"]:
         fail(f"phase 18: perturbed ran {pert['steps']} steps, min_dist_exec "
              f"{pert['min_dist_exec']}")
-    out = dict(card=card, latency_nl=lat, latency_seconds=s_lat,
+    out = dict(card=card, latency_nl=lat,
                launches_nl=l_lat, launches_per_step_nl=l_lat / nl_steps,
-               perturbed=pert, perturbed_seconds=s_pert,
-               ms_per_step_perturbed=s_pert / steps * 1e3,
-               launches_perturbed=l_pert,
+               perturbed=pert, launches_perturbed=l_pert,
                launches_per_step_perturbed=l_pert / steps)
     print(f"phase 18: NL-OCD eu N={n} latency, {nl_steps} steps: p50 "
           f"{lat['p50_ms']} ms, p95 {lat['p95_ms']} ms, "
           f"{out['launches_per_step_nl']:.1f} epoch launches per step; "
-          f"perturbed --batched LPV N={n}, {starts} starts x {steps} steps "
-          f"in {s_pert:.1f} s ({out['ms_per_step_perturbed']:.1f} ms/step), "
+          f"perturbed --batched LPV N={n}, {starts} starts x {steps} steps: "
           f"{pert['complete']} complete, "
           f"{out['launches_per_step_perturbed']:.1f} launches per step "
           f"[{card}]", flush=True)
-    out["kernel_vs_assoc"] = kernel_vs_assoc(*solves[0], card)
     return out
 
 
@@ -2212,28 +1916,27 @@ def batteries(dev, card):
     horizons, nl_steps, lpv_steps = "20,40", 5, 10
     from colaborativempc_tpu_torch.planners import lpv, nl
     from colaborativempc_tpu_torch.scripts import experiment_battery
-    res_nl, l_nl, s_nl = run_counted(
+    res_nl, l_nl = run_counted(
         "phase 19 (NL battery)", lambda: experiment_battery.main(
             ["--pipeline", "nl", "--horizons", horizons, "--steps",
              str(nl_steps)]), nl)
-    res_lpv, l_lpv, s_lpv = run_counted(
+    res_lpv, l_lpv = run_counted(
         "phase 19 (LPV battery)", lambda: experiment_battery.main(
             ["--pipeline", "lpv", "--steps", str(lpv_steps)]), lpv)
     runs = list(res_nl.values()) + [res_lpv]
     if not all(np.isfinite(r.states).all() for r in runs):
         fail("phase 19: a battery state is not finite")
     out = dict(card=card, nl_horizons=horizons, nl_steps=nl_steps,
-               nl_configs=res_nl[min(res_nl)].n_configs, nl_seconds=s_nl,
+               nl_configs=res_nl[min(res_nl)].n_configs,
                launches_nl=l_nl, lpv_steps=lpv_steps,
-               lpv_configs=res_lpv.n_configs, lpv_seconds=s_lpv,
-               launches_lpv=l_lpv,
+               lpv_configs=res_lpv.n_configs, launches_lpv=l_lpv,
                nl_feasible_share={N: float(r.feasible.mean())
                                   for N, r in res_nl.items()},
                lpv_feasible_share=float(res_lpv.feasible.mean()))
     print(f"phase 19: NL battery {out['nl_configs']} configs at N={horizons} "
-          f"x {nl_steps} steps in {s_nl:.1f} s ({l_nl} launches); LPV "
-          f"battery {out['lpv_configs']} configs x {lpv_steps} steps in "
-          f"{s_lpv:.1f} s ({l_lpv} launches) [{card}]", flush=True)
+          f"x {nl_steps} steps ({l_nl} launches); LPV battery "
+          f"{out['lpv_configs']} configs x {lpv_steps} steps ({l_lpv} "
+          f"launches) [{card}]", flush=True)
     return out
 
 
@@ -2243,11 +1946,11 @@ def gs_tradeoff(dev, card):
     n, batch, steps = 20, 16, 8
     from colaborativempc_tpu_torch.planners import nl
     from colaborativempc_tpu_torch.scripts import stress_study
-    rows, launches, secs = run_counted(
+    rows, launches = run_counted(
         "phase 20 (gs-tradeoff)", lambda: stress_study.main(
             ["gs-tradeoff", "--n", str(n), "--batch", str(batch), "--steps",
              str(steps), "--reps", "1"]), nl)
-    out = dict(card=card, rows=rows, seconds=secs, launches=launches)
+    out = dict(card=card, rows=rows, launches=launches)
     print("phase 20: gs-tradeoff " + "; ".join(
         f"{r['study'].split('/')[1]}: {r['ocd_iters_mean']} OCD iterations, "
         f"{r['fleet_steps_per_s']} fleet-steps/s" for r in rows)
@@ -2274,21 +1977,12 @@ def record_diff(a, b):
     return dx, n_int
 
 
-EXCHANGE_REPS = 200
-
-
-def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
-                      phase6_fleet_steps_per_s):
+def sharded_world_one(dev, card, lpv_ref, nl_ref):
     """Phase 21 (a): the LPV headline (phase 4's config and start) and the
     NL-OCD Monte-Carlo (phase 6's) through the sharded rollouts on a
     (1, 1) mesh over NCCL, each run once: launches equal to the epochs the
     solves ran, final states against phases 4 and 6 (bit for bit expected,
-    held to TOL_ROLLOUT), and the run's solves/s and fleet-steps/s printed
-    beside the rates of phases 4 and 6. The NL run's time includes the
-    epoch count's host read of each solve's iterations. Also the host
-    milliseconds of one exchange gather of the LPV plans and of one
-    all-reduce read back to the host (the OCD loop's running test), each
-    the mean of EXCHANGE_REPS calls ending in a synchronise."""
+    held to TOL_ROLLOUT)."""
     import datetime
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2297,7 +1991,6 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         gather_sharded, initialize_distributed, make_sharded_lpv_rollout,
         shard_fleet_state,
     )
-    from colaborativempc_tpu_torch.parallel.multihost import AgentExchange
     from colaborativempc_tpu_torch.scripts import monte_carlo
     cfg, track, state0 = fleet(dev, LPV_B)
     tmp = tempfile.mkdtemp()
@@ -2313,11 +2006,8 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         roll = make_sharded_lpv_rollout(track, cfg, mesh, LPV_STEPS)
         local = shard_fleet_state(state0, mesh)
         reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         final, met = roll(local)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         el = cfg.solver.epoch_len or default_epoch_len(cfg.N)
         epochs = int((met.iterations.amax(dim=(1, 2)) // el).sum())
         check_epoch_launches("phase 21 (a) LPV", read_launches(), epochs)
@@ -2326,33 +2016,12 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         if not (dx <= TOL_ROLLOUT and n_int == 0):
             fail(f"phase 21 (a) LPV: final state vs phase 4 max |dx| {dx} "
                  f"(tol {TOL_ROLLOUT}), {n_int} integer entries differ")
-        rate = LPV_B * cfg.n_agents * LPV_STEPS / secs
-        ex = AgentExchange(mesh)
-        xy = local.x_pred[..., 7:9]
-        flag = torch.ones(NL_B, dtype=torch.bool, device=dev)
-        exchange_ms = {}
-        for name, fn in (("gather_lpv_plans", lambda: ex.gather(xy)),
-                         ("all_reduce_read", lambda: ex.any_fleet(flag))):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(EXCHANGE_REPS):
-                fn()
-            torch.cuda.synchronize()
-            exchange_ms[name] = ((time.perf_counter() - t0) * 1e3
-                                 / EXCHANGE_REPS)
         out["lpv"] = dict(
             card=card, fleets=LPV_B, steps=LPV_STEPS, mesh=[1, 1],
-            backend="nccl", seconds=secs, solves_per_s=rate,
-            solves_per_s_phase4=phase4_solves_per_s,
-            exchange_host_ms=exchange_ms, launches=launches, epochs=epochs,
+            backend="nccl", launches=launches, epochs=epochs,
             max_abs_diff_vs_phase4=dx, bit_identical=dx == 0.0)
         print(f"phase 21 (a): sharded LPV rollout on a (1, 1) NCCL mesh, "
-              f"B={LPV_B} x {LPV_STEPS} steps: {rate:.1f} solves/s (one "
-              f"run) beside phase 4's {phase4_solves_per_s:.1f}, one "
-              f"exchange gather of the plans "
-              f"{exchange_ms['gather_lpv_plans']:.3f} ms and one all-reduce "
-              f"read {exchange_ms['all_reduce_read']:.3f} ms on the host, "
+              f"B={LPV_B} x {LPV_STEPS} steps: "
               f"epoch-kernel and epoch-data launches {launches} = epochs; "
               f"final state vs "
               f"phase 4 max |dx| {dx:.3g} (bit for bit: {dx == 0.0}) "
@@ -2364,11 +2033,8 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         epochs_nl, restore = count_solver_epochs()
         reset_launches()
         try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             fin_nl, met_nl = roll_nl(local_nl)
             torch.cuda.synchronize()
-            secs_nl = time.perf_counter() - t0
         finally:
             restore()
         launches_nl = read_launches()
@@ -2377,18 +2043,13 @@ def sharded_world_one(dev, card, lpv_ref, nl_ref, phase4_solves_per_s,
         if not (dx_nl <= TOL_ROLLOUT and n_int_nl == 0):
             fail(f"phase 21 (a) NL: final state vs phase 6 max |dx| {dx_nl} "
                  f"(tol {TOL_ROLLOUT}), {n_int_nl} integer entries differ")
-        rate_nl = NL_B * NL_STEPS / secs_nl
         out["nl"] = dict(
             card=card, fleets=NL_B, steps=NL_STEPS, mesh=[1, 1],
-            backend="nccl", seconds=secs_nl, fleet_steps_per_s=rate_nl,
-            fleet_steps_per_s_phase6=phase6_fleet_steps_per_s,
-            launches=launches_nl["epoch"], epochs=sum(epochs_nl),
+            backend="nccl", launches=launches_nl["epoch"], epochs=sum(epochs_nl),
             mean_ocd_iterations=float(met_nl.ocd_iterations.float().mean()),
             max_abs_diff_vs_phase6=dx_nl, bit_identical=dx_nl == 0.0)
         print(f"phase 21 (a): sharded NL-OCD rollout on a (1, 1) NCCL mesh, "
-              f"B={NL_B} x {NL_STEPS} steps: {rate_nl:.2f} fleet-steps/s "
-              f"(one run, epochs counted) beside phase 6's "
-              f"{phase6_fleet_steps_per_s:.2f}, mean OCD iterations "
+              f"B={NL_B} x {NL_STEPS} steps: mean OCD iterations "
               f"{out['nl']['mean_ocd_iterations']:.2f}, epoch-kernel and "
               f"epoch-data launches {launches_nl['epoch']} = epochs; final "
               f"state vs "
@@ -2474,14 +2135,12 @@ def sharded_gloo_on_card(dev, card):
     tmp = tempfile.mkdtemp()
     try:
         # both cases' ranks run at once, each case its own process group
-        t0 = time.perf_counter()
         with ThreadPoolExecutor(len(cases)) as pool:
             runs = {case: pool.submit(
                 run_local_ranks, _gloo_card_rank, world,
                 (f"file://{tmp}/rendezvous_{case}", case, dev.type) + size,
                 timeout=RANK_DEADLINE_S)
                 for case, world, _, _, size in cases}
-        secs = time.perf_counter() - t0
         for case, world, mesh, ref, size in cases:
             try:
                 ranks = runs[case].result()
@@ -2505,7 +2164,6 @@ def sharded_gloo_on_card(dev, card):
             out[case] = dict(
                 card=card, ranks=world, mesh=mesh, backend="gloo",
                 fleets=size[0], steps=size[1],
-                seconds_both_cases_with_start=secs,
                 launches=sum(res["launches"] for res in ranks),
                 launches_per_rank=[res["launches"] for res in ranks],
                 max_abs_diff_vs_single_process=dx)
@@ -2513,10 +2171,8 @@ def sharded_gloo_on_card(dev, card):
                   f"{world} ranks sharing card 0: final state vs the "
                   f"single-process rollout max |dx| {dx:.3g} (tol "
                   f"{TOL_ROLLOUT}), epoch-kernel and epoch-data launches "
-                  f"per rank {out[case]['launches_per_rank']} = epochs; "
-                  f"both cases "
-                  f"at once {secs:.1f} s with the ranks' start [{card}]",
-                  flush=True)
+                  f"per rank {out[case]['launches_per_rank']} = epochs "
+                  f"[{card}]", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2574,15 +2230,11 @@ def large_fleets(dev, card):
             calls, restore_calls = watch_solver(
                 planner, lambda qp, z0, kw_, sol: sol.iterations.cpu())
             reset_launches()
-            t0 = time.perf_counter()
             try:
                 fin, (xh, uh, m) = rollout(st)
-                if name == "cuda":
-                    torch.cuda.synchronize()
             finally:
                 restore_calls()
                 restore()
-            secs = time.perf_counter() - t0
             launches = read_launches()
             if not all_finite(list(fin) + [xh, uh] + list(m)):
                 fail(f"phase 22 {tag} ({name}): a state is not finite")
@@ -2591,15 +2243,14 @@ def large_fleets(dev, card):
             elif any(launches.values()):
                 fail(f"phase 22 {tag}: the CPU run launched kernels "
                      f"{launches}")
-            runs[name] = (fin.x_pred.cpu(), m, calls, secs, launches)
-        (xg, mg, cg, sg, lg), (xc, mc, cc, sc, _) = runs["cuda"], runs["cpu"]
+            runs[name] = (fin.x_pred.cpu(), m, calls, launches)
+        (xg, mg, cg, lg), (xc, mc, cc, _) = runs["cuda"], runs["cpu"]
         B = xg.shape[0]
         differing = (sum(int((a != b).sum()) for a, b in zip(cg, cc))
                      if len(cg) == len(cc) else None)
         dx = float((xg - xc).abs().max())
         rec = dict(max_dx=dx, card=card, scenarios=B, agents=kw["agents"],
-                   steps=kw["steps"], seconds_card=sg, seconds_cpu=sc,
-                   feasible_share=float(mg.feasible.float().mean()),
+                   steps=kw["steps"], feasible_share=float(mg.feasible.float().mean()),
                    min_dist_exec=float(mg.min_dist_exec.min()),
                    solver_calls=len(cg), problem_solves_differing=differing,
                    launches=lg)
@@ -2608,10 +2259,8 @@ def large_fleets(dev, card):
             fail(f"phase 22 {tag}: max |dx| card vs CPU {dx} (tol "
                  f"{TOL_ROLLOUT})")
         if not dx <= TOL_ROLLOUT:
-            t0 = time.perf_counter()
             x64 = float64_plans(kw["pipeline"], cfg, st, kw["steps"])
-            rec.update(seconds_cpu_f64=time.perf_counter() - t0,
-                       **f64_ratios(xg, xc, x64))
+            rec.update(**f64_ratios(xg, xc, x64))
             if not rec["ratio_mean"] <= TOL_ROLLOUT_F64:
                 fail(f"phase 22 {tag}: max |dx| card vs CPU {dx} (tol "
                      f"{TOL_ROLLOUT}); against the CPU in float64, the "
@@ -2631,8 +2280,7 @@ def large_fleets(dev, card):
               f"{differing} problem solves), feasible share "
               f"{rec['feasible_share']:.4f}, min_dist_exec "
               f"{rec['min_dist_exec']:.4f} m, launches {lg} over {len(cg)} "
-              f"solver calls, {sg:.1f} s on the card, {sc:.1f} s on the CPU "
-              f"[{card}]", flush=True)
+              f"solver calls [{card}]", flush=True)
     return out
 
 
@@ -2680,7 +2328,6 @@ def spill_fleet(dev, card):
         first.setdefault("qp", (qp, z0, k)), sol.iterations.max())[1])
     nl.build_nl_qp = first_build
     reset_launches()
-    t0 = time.perf_counter()
     try:
         fin, (xh, uh, m) = rollout(st)
         torch.cuda.synchronize()
@@ -2688,7 +2335,6 @@ def spill_fleet(dev, card):
         nl.build_nl_qp = build
         restore_calls()
         restore()
-    secs = time.perf_counter() - t0
     launches = read_launches()
     if not all_finite(list(fin) + [xh, uh] + list(m)):
         fail("phase 22 spill fleet: a state is not finite")
@@ -2721,8 +2367,7 @@ def spill_fleet(dev, card):
         fail(f"phase 22 spill fleet: the kernels spilled {spilled}, not "
              "the epoch's horizon and the epoch data's block")
     rec = dict(card=card, agents=kw["agents"], N=kw["N"], steps=kw["steps"],
-               scenarios=kw["scenarios"], seconds_card=secs,
-               feasible_share=float(m.feasible.float().mean()),
+               scenarios=kw["scenarios"], feasible_share=float(m.feasible.float().mean()),
                min_dist_exec=float(m.min_dist_exec.min()),
                ocd_iterations=m.ocd_iterations.tolist(),
                solver_calls=len(calls), launches=launches,
@@ -2735,7 +2380,7 @@ def spill_fleet(dev, card):
           f"{rec['feasible_share']:.4f}, min_dist_exec "
           f"{rec['min_dist_exec']:.4f} m, OCD iterations "
           f"{rec['ocd_iterations']}, launches {launches} over {len(calls)} "
-          f"solver calls ({sum(epochs)} epochs), {secs:.1f} s; first build "
+          f"solver calls ({sum(epochs)} epochs); first build "
           f"{differing} entries differing, first epoch data "
           f"{data_rec['entries_differing']}, first epoch kernel err "
           f"{epoch_rec['epoch']['max_abs_err']:.3g} (spilled {spilled}) "
@@ -2767,7 +2412,6 @@ def bench_suite_on_card(dev, card):
 # and this times the CPU plain path's own distance from the oracle
 TOL_ORACLE_FLOOR = 3e-3
 TOL_ORACLE_CPU = 1.5
-ORACLE_REPS = 20
 
 
 def oracle_lpv_inputs(dev, name):
@@ -2811,27 +2455,6 @@ def oracle_distance(sol, x_nat, u_nat):
             float(np.abs(sol.u_pred[0].double().cpu().numpy()
                          - u_nat).max()))
 
-
-def host_cpu_model():
-    """The host CPU as ``/proc/cpuinfo`` describes its first processor: the
-    model name, and the vendor, family, model and clock (a virtualised
-    host may name its model "unknown"); with the architecture and the CPU
-    count."""
-    import platform
-    fields = {}
-    try:
-        with open("/proc/cpuinfo") as f:
-            for ln in f:
-                if not ln.strip():
-                    break                       # the first processor only
-                k, _, v = ln.partition(":")
-                fields[k.strip().lower()] = v.strip()
-    except OSError:
-        pass
-    desc = ", ".join(f"{k} {fields[k]}" for k in (
-        "model name", "vendor_id", "cpu family", "model", "cpu mhz")
-        if k in fields) or "unknown"
-    return f"{desc} ({platform.machine()}, {os.cpu_count()} CPUs)"
 
 def native_oracle(dev, card):
     """Phase 24: the card's LPV, NL, MPCC and safety-filter results
@@ -2934,8 +2557,8 @@ def native_oracle(dev, card):
         ok, x_nat, u_nat, res_nat = native.lpv_solve_native(
             track, gl, lim, mp, N, dt, x0[0], xl[0], ul[0], np.zeros(2),
             neighbours_xy=None if nb is None else nb[0])
-        sol, launches, _ = run_counted(f"phase 24 {tag}",
-                                       lambda: lpv_on(dev, tag), lpv)
+        sol, launches = run_counted(f"phase 24 {tag}",
+                                    lambda: lpv_on(dev, tag), lpv)
         oracle_case(tag, ok, sol, x_nat, u_nat, bounds, launches,
                     int(res_nat[2]))
         if tag == "lpv_197_agents_n125":
@@ -2954,8 +2577,8 @@ def native_oracle(dev, card):
             track, gn, lim, mp, N, 0.02, xb[0, 0], xb[0], ub[0],
             np.zeros(2), lam[0], nb[1:], master[0].to(torch.int32),
             mix=0.7, **kw)
-        sol, launches, _ = run_counted(f"phase 24 {tag}",
-                                       lambda: nl_on(dev, tag), nl)
+        sol, launches = run_counted(f"phase 24 {tag}",
+                                    lambda: nl_on(dev, tag), nl)
         oracle_case(tag, ok, sol, x_nat, u_nat, bounds, launches)
 
     # (c) MPCC: one SQP solve, then the closed-loop race
@@ -2973,7 +2596,7 @@ def native_oracle(dev, card):
     ok, x_nat, u_nat, _ = native.mpcc_solve_native(
         track, g, b, p, N, dt, x[0], x_bar[0], u_bar[0], u_old[0],
         sqp_iters=3, mix=0.7, admm_iters=300)
-    sol, launches, _ = run_counted(
+    sol, launches = run_counted(
         "phase 24 mpcc_solve_n16", lambda: mpcc.mpcc_solve(
             track, g, p, N, dt, x, x_bar, u_bar, u_old, sqp_iters=3,
             sqp_mix=0.7, admm_iters=300, bounds=b, norm=None), mpcc)
@@ -2982,7 +2605,7 @@ def native_oracle(dev, card):
     steps = 50
     cfg = MPCCConfig(N=N, dt=dt, n_sim=steps, map_type="oval_mt",
                      initial_velocity=0.5, verb=0)
-    res, launches, race_s = run_counted(
+    res, launches = run_counted(
         "phase 24 mpcc_race", lambda: run_mpcc_experiment(
             cfg, track=track, device=dev), mpcc)
     t, xs, _, feas = native.mpcc_race_native(
@@ -3003,7 +2626,7 @@ def native_oracle(dev, card):
         steps=steps, s_card=s_card, s_native=s_nat, progress_rel=progress,
         bound_rel=0.02, max_abs_ds=float(np.abs(res.states[:, 6]
                                                 - xs[:, 6]).max()),
-        epoch_launches=launches, seconds=race_s)
+        epoch_launches=launches)
     print(f"phase 24 mpcc_race_n16: {steps} steps, every step feasible on "
           f"both; final s {s_card:.4f} m card, {s_nat:.4f} m native "
           f"({progress:.3%} apart, bound 2%); max |ds| over the race "
@@ -3032,35 +2655,6 @@ def native_oracle(dev, card):
     out["cases"]["sep_filter_100_fleets"] = dict(dbeta=worst, bound=2e-3)
     print(f"phase 24 sep_filter: 100 fleets of 2-5 agents, max |dbeta| "
           f"{worst:.3e} from the oracle (bound 2e-3) [{card}]", flush=True)
-
-    # (e) one headline QP: native on the host beside the card
-    track, N, dt, x0, xl, ul, nb = oracle_lpv_inputs(dev, "headline_n20")
-    host = [t.detach().cpu().double().numpy()
-            for t in (x0[0], xl[0], ul[0], nb[0])]
-    nat_ms, card_ms = [], []
-    for _ in range(ORACLE_REPS):
-        t0 = time.perf_counter()
-        native.lpv_solve_native(track, gl, lim, mp, N, dt, *host[:3],
-                                np.zeros(2), neighbours_xy=host[3])
-        nat_ms.append((time.perf_counter() - t0) * 1e3)
-    u0 = torch.zeros_like(x0[:, :2])
-    lpv.lpv_solve(track, gl, lim, mp, N, dt, x0, xl, ul, u0, nb, **lpv_kw)
-    for _ in range(ORACLE_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lpv.lpv_solve(track, gl, lim, mp, N, dt, x0, xl, ul, u0, nb,
-                      **lpv_kw)
-        torch.cuda.synchronize()
-        card_ms.append((time.perf_counter() - t0) * 1e3)
-    cpu_model = host_cpu_model()
-    out["timing"] = dict(native_ms=float(np.median(nat_ms)),
-                         card_ms=float(np.median(card_ms)),
-                         reps=ORACLE_REPS, card=card, host_cpu=cpu_model)
-    print(f"phase 24 timing: headline QP (Highway, agent 0 of 3, N=20, "
-          f"600 iterations, eps 1e-6): native float64 on the host median "
-          f"{out['timing']['native_ms']:.3f} ms, the card's synchronised "
-          f"lpv_solve median {out['timing']['card_ms']:.3f} ms over "
-          f"{ORACLE_REPS} calls [{card}; host CPU {cpu_model}]", flush=True)
     return out
 
 
@@ -3080,12 +2674,8 @@ def main():
     from colaborativempc_tpu_torch.ops.admm import default_epoch_len
     from colaborativempc_tpu_torch.runtime import make_lpv_fleet_rollout
 
-    # phase 2: build (the clock-stamped epoch-data kernel of phase 3c's
-    # split beside the library, its nvcc processes started together)
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        clocked = ex.submit(_build.load_epoch_data_clocks)
-        info = _build.build()
-        clocked.result()
+    # phase 2: build
+    info = _build.build()
     _build.load()
     secs["phase 2"] = time.perf_counter() - t_start
     print(f"phase 2: kernels built in {info['seconds']:.2f} s "
@@ -3146,9 +2736,6 @@ def main():
             *random_qp(dev, P, N, nc, mr, 3000 + N + nc)[:2], 2)
         if kdata[f"spill_{tag}"]["plan"]["spilled"] != "block":
             fail(f"phase 3c {tag}: the epoch data did not spill")
-    ksplit = {"headline": epoch_data_split_on_card(dev, "headline",
-                                                   *k20["qp"]),
-              "p7": epoch_data_split_on_card(dev, "p7", *k7["qp"])}
     # phase 3d: the SQP build kernels vs their plain versions
     ksqp = check_sqp_builds(dev)
 
@@ -3166,19 +2753,11 @@ def main():
     # per step the solve runs as many epochs as its slowest problem
     expected = int((met.iterations.amax(dim=(0, 2)) // el).sum())
     check_epoch_launches("phase 4 (LPV main path)", launches, expected)
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(state0)
-        torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / STEPS)
-    solves_per_s = B * cfg.n_agents / best
     feas = float(met.feasible.float().mean())
     mean_it = float(met.iterations.float().mean())
     min_exec = float(met.min_dist_exec.min())
-    print(f"phase 4: {solves_per_s:.1f} solves/s ({best * 1e3:.3f} ms/step, "
-          f"best of 3), feasible share {feas:.4f}, mean ADMM iterations "
+    print(f"phase 4: LPV B={B} x {STEPS} steps: feasible share "
+          f"{feas:.4f}, mean ADMM iterations "
           f"{mean_it:.2f}, min_dist_exec {min_exec:.4f} m, epoch-kernel "
           f"launches {launches['epoch']} ({launches['epoch'] / STEPS:.2f} "
           f"per step), epoch-data kernel launches {launches['epoch_data']} "
@@ -3200,7 +2779,6 @@ def main():
     nl_path, nl_final = timed("phase 6", nl_main_path, dev, card)
     phase7 = timed("phase 7", nl_end_to_end, dev)
     single = timed("phase 8", nl_single_fleet, dev, card)
-    layers = timed("phase 9", layer_split, dev, card)
     race = timed("phase 10", mpcc_race, dev, card)
     bat = timed("phase 11", mpcc_battery, dev, card)
     phase12 = timed("phase 12", mpcc_kernel_vs_plain, dev)
@@ -3215,14 +2793,13 @@ def main():
     bats = timed("phase 19", batteries, dev, card)
     gs = timed("phase 20", gs_tradeoff, dev, card)
     sharded = timed("phase 21 (a)", sharded_world_one, dev, card, final,
-                    nl_final, solves_per_s, nl_path["fleet_steps_per_s"])
+                    nl_final)
     gloo = timed("phase 21 (b)", sharded_gloo_on_card, dev, card)
     large = timed("phase 22", large_fleets, dev, card)
     large["nl_hp_opt_36_agents_n125"] = timed("phase 22 (b)", spill_fleet,
                                               dev, card)
     suite = timed("phase 23", bench_suite_on_card, dev, card)
     oracle = timed("phase 24", native_oracle, dev, card)
-    large_epochs = sum(r["launches"]["epoch"] for r in large.values())
     secs["total"] = time.perf_counter() - t_start
     print(f"chip_smoke phases took {secs['total']:.1f} s", flush=True)
 
@@ -3236,42 +2813,6 @@ def main():
     kernels = [
         dict(name="admm_epoch_batched", route="cuda", source=src,
              replaces="colaborativempc_tpu/ops/pallas_lqr.py:88",
-             launches=(launches["epoch"] + nl_path["launches"]["epoch"]
-                       + race["launches"] + bat["launches"]
-                       + lpv125["launches"] + lanes["launches"]
-                       + cli["launches"] + cli["compare_launches"]
-                       + stress["launches_nl"] + stress["launches_perturbed"]
-                       + bats["launches_nl"] + bats["launches_lpv"]
-                       + gs["launches"] + sharded["lpv"]["launches"]
-                       + sharded["nl"]["launches"]
-                       + sum(g["launches"] for g in gloo.values())
-                       + large_epochs
-                       + sum(oracle["launches"].values())),
-             launches_lpv=launches["epoch"],
-             launches_nl=nl_path["launches"]["epoch"],
-             launches_mpcc=race["launches"] + bat["launches"],
-             launches_lpv_n125=lpv125["launches"],
-             launches_dynamic_lane=lanes["launches"],
-             launches_per_step_lpv=launches["epoch"] / STEPS,
-             launches_per_step_nl=nl_path["launches"]["epoch"] / NL_STEPS,
-             launches_per_step_mpcc=race["launches_per_step"],
-             launches_per_step_mpcc_battery=bat["launches_per_step"],
-             launches_per_step_lpv_n125=lpv125["launches_per_step"],
-             launches_cli=cli["launches"] + cli["compare_launches"],
-             launches_per_step_lpv_cli=cli["launches_per_step"],
-             launches_per_step_nl_n125=stress["launches_per_step_nl"],
-             launches_per_step_perturbed_lpv_n125=stress[
-                 "launches_per_step_perturbed"],
-             launches_battery_nl=bats["launches_nl"],
-             launches_battery_lpv=bats["launches_lpv"],
-             launches_gs_tradeoff=gs["launches"],
-             launches_sharded_lpv=sharded["lpv"]["launches"],
-             launches_sharded_nl=sharded["nl"]["launches"],
-             launches_sharded_gloo={k: g["launches_per_rank"]
-                                    for k, g in gloo.items()},
-             launches_large_fleets={k: r["launches"]["epoch"]
-                                    for k, r in large.items()},
-             launches_native_oracle=oracle["launches"],
              max_abs_err=k20["epoch"]["max_abs_err"],
              max_abs_err_resid=k20["epoch"]["max_abs_err_resid"],
              ms=k20["epoch"]["ms"], plain_ms=k20["epoch"]["plain_ms"],
@@ -3285,7 +2826,6 @@ def main():
                            **kmpcc, **kwide, **kspill)),
         dict(name="lqr_affine_solve_batched", route="cuda", source=src,
              replaces="colaborativempc_tpu/ops/pallas_lqr.py:40",
-             launches=launches["affine"] + nl_path["launches"]["affine"],
              on_main_path=False,
              max_abs_err=k20["affine"]["max_abs_err"],
              ms=k20["affine"]["ms"], plain_ms=k20["affine"]["plain_ms"],
@@ -3300,11 +2840,6 @@ def main():
              source="colaborativempc_tpu_torch/csrc/epoch_data.cu",
              replaces=("colaborativempc_tpu/ops/admm.py:159 "
                        "(admm_epoch_inputs: XLA, not Pallas)"),
-             launches=sum(EPOCH_DATA_LAUNCHES.values()),
-             launches_by_run=dict(EPOCH_DATA_LAUNCHES),
-             launches_per_step_lpv=launches["epoch_data"] / STEPS,
-             launches_per_step_nl=nl_path["launches"]["epoch_data"]
-             / NL_STEPS,
              max_abs_err=kdata["headline"]["max_abs_err"],
              max_rel_err=kdata["headline"]["max_rel_err"],
              ms=kdata["headline"]["ms"],
@@ -3316,7 +2851,7 @@ def main():
              plain_max_rel_err_vs_f64=kdata["headline"][
                  "plain_max_rel_err_vs_f64"],
              library_ms=None, plan=kdata["headline"]["plan"],
-             host_us=kdata["headline"]["host_us"], split=ksplit,
+             host_us=kdata["headline"]["host_us"],
              torch_version=torch.__version__, cuda_version=torch.version.cuda,
              shapes={tag: {k: r[k] for k in keys + (
                  "max_rel_err", "max_rel_err_vs_f64",
@@ -3327,37 +2862,29 @@ def main():
                 "max_abs_err", "max_rel_err", "entries_differing",
                 "max_rel_err_vs_f64", "plain_max_rel_err_vs_f64",
                 "compared_as_batch", "matvec_order", "host_us")
-    for fam, name, head, main_run, replaces in (
-            ("nl", "nl_qp_batched", "nl eu", "phase 6 (NL path)",
+    for fam, name, head, replaces in (
+            ("nl", "nl_qp_batched", "nl eu",
              "colaborativempc_tpu/planners/nl.py:80-94 _linearize_horizon, "
              ":97 build_nl_qp (XLA, not Pallas)"),
             ("mpcc", "mpcc_qp_batched", "mpcc P=1 N=60",
-             "phase 10 (MPCC race)",
              "colaborativempc_tpu/planners/mpcc.py:132 build_mpcc_qp, "
              "dynamics/pacejka.py:110 linearize_pacejka, mpcc.py:215-221 "
              "(XLA, not Pallas)")):
-        runs = {k: v[fam] for k, v in BUILD_LAUNCHES.items() if v[fam]}
         r = ksqp[head]
         kernels.append(dict(
             name=name, route="cuda",
             source="colaborativempc_tpu_torch/csrc/sqp_qp.cu",
-            replaces=replaces, launches=sum(runs.values()),
-            launches_main_path=BUILD_LAUNCHES[main_run][fam],
-            launches_per_step_main_path=BUILD_LAUNCHES[main_run][fam]
-            / (NL_STEPS if fam == "nl" else race["steps"]),
-            launches_by_run=runs, library_ms=None,
+            replaces=replaces, library_ms=None,
             **{k: r[k] for k in sqp_keys},
             shapes={tag: {k: v[k] for k in sqp_keys}
                     for tag, v in ksqp.items()
                     if tag.startswith(fam) and tag != head}))
     print(json.dumps({"main_path": {
-        "card": card, "solves_per_s": solves_per_s, "ms_per_step": best * 1e3,
-        "feasible_share": feas, "mean_admm_iterations": mean_it,
+        "card": card, "feasible_share": feas, "mean_admm_iterations": mean_it,
         "min_dist_exec": min_exec}}))
     print(json.dumps({"nl_main_path": {
         k: v for k, v in nl_path.items() if k != "launches"},
-        "nl_single_fleet": single, "phase5": phase5, "phase7": phase7,
-        "layers": layers}))
+        "nl_single_fleet": single, "phase5": phase5, "phase7": phase7}))
     print(json.dumps({"mpcc_race": race, "mpcc_battery": bat,
                       "phase12": phase12, "phase14": phase14,
                       "lpv_n125": lpv125, "dynamic_lanes": lanes}))

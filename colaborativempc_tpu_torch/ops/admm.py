@@ -31,10 +31,11 @@ Per-problem freeze: under the JAX double vmap each problem's
 ``while_loop`` stops on its own convergence while its batch-mates iterate.
 Here an ``active`` mask of shape (P,) applies each epoch's results only to
 problems still running, so every problem gets the result (and iteration
-count) of its standalone solve. The host reads the mask once per epoch. On
-CUDA tensors the loop's state stays in static buffers and each epoch is one
-replay of a CUDA graph (:class:`_EpochGraph`), so an epoch costs the host a
-graph launch and that read.
+count) of its standalone solve. The host reads the mask once per epoch.
+On CPU tensors each epoch's ops run as they come. On CUDA tensors the
+loop's state stays in static buffers and each epoch is one replay of a
+CUDA graph (:class:`_EpochGraph`), so an epoch costs the host a graph
+launch and that read.
 """
 
 from __future__ import annotations
@@ -323,10 +324,6 @@ def _qp_leaves(qp: StageQP):
             qp.soft_hi)
 
 
-# the epoch pair a graph holds: the two kernels' launches. A tool that
-# swaps in another (a plain or associative twin, whose solver-library calls
-# the card cannot record) gets the loop op by op.
-_KERNEL_EPOCH = (admm_epoch_inputs, admm_epoch_batched)
 # the wrappers' launch counters, which a replay advances by what its
 # epoch's launches would
 _LAUNCH_COUNTERS = ((admm_epoch_batched, "launches"),
@@ -517,9 +514,7 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
     ``admm_solve.graph_records`` and ``admm_solve.graph_replays``), and
     the read before the first epoch is made only for a non-finite ``eps``
     (with a finite one every problem runs it): the same epochs and the
-    same bits. A tool that rebinds this module's ``admm_epoch_inputs`` or
-    ``admm_epoch_batched`` to a plain twin gets the op-by-op loop on the
-    card too, since the solver libraries' calls cannot be recorded.
+    same bits.
     """
     with span("cmpc.admm.solve"):
         P, N, m = qp.lo.shape
@@ -537,8 +532,7 @@ def admm_solve(qp: StageQP, z0: torch.Tensor,
                              qp.lo, qp.hi)
         if y0 is None:
             y0 = torch.zeros((P, N, m), dtype=dtype, device=dev)
-        if (dev.type == "cuda"
-                and (admm_epoch_inputs, admm_epoch_batched) == _KERNEL_EPOCH):
+        if dev.type == "cuda":
             return _epoch_graph(qp, z0, opts, budget).solve(
                 qp, z0, w0, y0, rho_scale0, n_epochs, feas_tol)
 

@@ -245,26 +245,6 @@ def test_cuda_admm_solution_survives_the_next_solve(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_swapped_epoch_pair_runs_op_by_op(cuda, monkeypatch):
-    """A tool that swaps the epoch kernel for its plain twin (as
-    ``scripts/rounding_control.py`` does) gets the loop op by op, as
-    before the graph, bit for bit; nothing is recorded or replayed."""
-    import test_torch_admm_graph as tg
-    from colaborativempc_tpu_torch.ops import admm
-    plain = cuda_lqr.admm_epoch_batched_plain
-    monkeypatch.setattr(admm, "admm_epoch_batched", plain)
-    monkeypatch.setattr(tg, "admm_epoch_batched", plain)
-    qp, z0, w0, y0 = (to(x, cuda) if isinstance(x, tuple) else x.to(cuda)
-                      for x in problems(66, P=4, N=20))
-    before = graph_counts()[:2]
-    got = admm_solve(qp, z0, w0, y0, iters=100, epoch_len=20)
-    ref = tg.frozen_admm_solve(qp, z0, w0, y0, iters=100, epoch_len=20)
-    torch.cuda.synchronize()
-    assert graph_counts()[:2] == before
-    assert tg.bits_equal(got, ref) == []
-
-
-@pytest.mark.cuda
 def test_cuda_graphed_epoch_moves_nothing_between_host_and_card(cuda):
     """The graph's body on the card reads no value back, builds no tensor
     from Python data and runs no op that touches the host's tensors."""

@@ -295,15 +295,15 @@ def test_cuda_request_without_card_raises():
         ttracks.make_track("Highway", device="cuda")
 
 
-SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
-           "lpv_main", "experiment_battery", "stress_study", "eval_lpv_model",
+SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "lpv_main",
+           "experiment_battery", "stress_study", "eval_lpv_model",
            "compare_reference", "eval_exp", "paper_figs", "show_maps",
            "test_planes", "epoch_data_split", "sqp_qp_split", "clock_split",
            "admm_epoch_split", "epoch_turns"]
 # the scripts that compute (and so run on the card): they must import
 # where matplotlib is missing, as on the card's machine
-COMPUTE_SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "rounding_control",
-                   "lpv_main", "experiment_battery", "stress_study",
+COMPUTE_SCRIPTS = ["nl_main", "mpcc_main", "monte_carlo", "lpv_main",
+                   "experiment_battery", "stress_study",
                    "eval_lpv_model", "compare_reference", "epoch_data_split",
                    "sqp_qp_split", "clock_split", "admm_epoch_split",
                    "epoch_turns"]
