@@ -18,6 +18,8 @@ escape checks only ``x_pred``/``u_pred`` for finiteness before adopting
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import time
 from typing import NamedTuple, Optional
@@ -34,6 +36,7 @@ from colaborativempc_tpu_torch.geometry import (
 )
 from colaborativempc_tpu_torch.planners.lpv import lpv_solve, LPVSolution
 from colaborativempc_tpu_torch.utils.device import resolve_device, synchronize
+from colaborativempc_tpu_torch.utils.graphs import graphed
 from colaborativempc_tpu_torch.utils.tracing import span
 from colaborativempc_tpu_torch.utils.warmstart import (
     initialise_agents, warmstart_trajectory,
@@ -396,8 +399,143 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
     """The one-control-step function for a batch of fleets:
     ``state (B, n_ag, ...) -> (new_state, StepMetrics)``. With
     ``cfg.dynamic_lane`` every step first re-selects each agent's lane
-    (:func:`switch_lanes`); ``cfg.solver.assoc`` reaches ``admm_solve``."""
+    (:func:`switch_lanes`); ``cfg.solver.assoc`` reaches ``admm_solve``.
+    On CUDA tensors the step's own ops before and after the solve are
+    replayed from two CUDA graphs, counted in
+    ``make_lpv_fleet_step.graph_records`` and ``.graph_replays``."""
     return _lpv_step(track, cfg, LocalExchange())
+
+
+make_lpv_fleet_step.graph_records = 0   # graphs recorded (two per layout)
+make_lpv_fleet_step.graph_replays = 0   # phases run by a replay (two a step)
+
+
+def _hold_phase(track: Track, cfg: ExperimentConfig, ex, ns: torch.Tensor,
+                limits_pa: SysLimits, *fields: torch.Tensor):
+    """A step's ops before the solve: the lane switch, the hold ladder and
+    the plan exchange, on a :class:`FleetState`'s ``fields``. Returns the
+    escalated state's fields, the lanes, the step's flat limits and, in a
+    fleet of more than one agent, the neighbours' plans and hold boosts."""
+    state = FleetState(*fields)
+    B, A = state.x0.shape[:2]
+    P = B * A
+    dtype, dev = state.x0.dtype, track.s0.device
+    gids = ex.gids(A, dev)
+
+    def flat(t):
+        return t.reshape((P,) + t.shape[2:])
+
+    with span("cmpc.hold"):
+        if cfg.dynamic_lane:
+            state = switch_lanes(track, state)
+            lanes = state.lane
+        else:
+            lanes = torch.full((B, A), cfg.lane, dtype=torch.int32,
+                               device=dev)
+        # recovery feasibility pass: pre-escalation hold-or-brake counts
+        vxs = hold_vx_scale(
+            cfg, torch.maximum(state.hold_count, state.brake_count), dtype)
+        lim = SysLimits(*(v[gids] for v in limits_pa))
+        limits_step = SysLimits(*(
+            flat(torch.broadcast_to(v, (B, A))) for v in
+            lim._replace(vx_ref=lim.vx_ref * vxs)))
+        state = escalate_holds(track, cfg, state, lanes)
+
+    # the "communication": everyone reads everyone's (X, Y) plan
+    with span("cmpc.exchange"):
+        if cfg.n_agents > 1:
+            xy = ex.gather(state.x_pred[..., 7:9])          # (B, n, N+1, 2)
+            nb = ns[gids]                                   # (A, n - 1)
+            # (P, N+1, nb, 2)
+            neigh = flat(xy[:, nb].permute(0, 1, 3, 2, 4))
+            boost_sc = (cfg.hold_sep_boost if cfg.hold_on_infeasible
+                        else 0.0)
+            hold_f = ex.gather((state.hold_count > 0).to(dtype) * boost_sc)
+            neighbours = (neigh, flat(hold_f[:, nb]))
+        else:
+            neighbours = ()
+    return (*state, lanes, *limits_step, *neighbours)
+
+
+def _plant_phase(track: Track, cfg: ExperimentConfig, ex,
+                 *fields: torch.Tensor):
+    """A step's ops after the solve, on the escalated :class:`FleetState`'s
+    fields, the lanes and the flat :class:`LPVSolution`'s fields: the jam
+    and hold bookkeeping with the degraded escape, the physical envelope,
+    the executed-separation filter and the plant. Returns the fields of
+    the next :class:`FleetState` and of the :class:`StepMetrics`."""
+    k = len(FleetState._fields)
+    state, lanes = FleetState(*fields[:k]), fields[k]
+    B, A = state.x0.shape[:2]
+    n, dev = cfg.n_agents, track.s0.device
+    gids = ex.gids(A, dev)
+    sol = LPVSolution(*(t.reshape((B, A) + t.shape[1:])
+                        for t in fields[k + 1:]))
+
+    with span("cmpc.hold"):
+        jam_count = torch.where(sol.feasible,
+                                torch.zeros_like(state.jam_count),
+                                state.jam_count + 1)
+        if cfg.hold_on_infeasible:
+            # a plan whose residual exceeded the feasibility tolerance is
+            # not executed: the agent follows its previous plan one more
+            # stage; after hold_exec_k consecutive failures a finite
+            # unconverged plan is executed under the envelope and the
+            # safety filter
+            ok = sol.feasible
+            if cfg.hold_exec_k is not None:
+                finite = (torch.isfinite(sol.x_pred).all(-1).all(-1)
+                          & torch.isfinite(sol.u_pred).all(-1).all(-1))
+                degraded = ((~ok) & finite
+                            & (state.jam_count >= cfg.hold_exec_k))
+                ok = ok | degraded
+            ok3 = ok[..., None, None]
+            hold_x = torch.cat([state.x_pred[:, :, 1:],
+                                state.x_pred[:, :, -1:]], dim=2)
+            hold_u = torch.cat([state.u_pred[:, :, 1:],
+                                state.u_pred[:, :, -1:]], dim=2)
+            x_pred = torch.where(ok3, sol.x_pred, hold_x)
+            u_pred = torch.where(ok3, sol.u_pred, hold_u)
+            w = torch.where(ok3, sol.w, state.w)
+            y = torch.where(ok3, sol.y, state.y)
+            rho_scale = torch.where(ok[..., None], sol.rho_scale,
+                                    state.rho_scale)
+            # hold_count tracks solver feasibility, not the override
+            hold_count = torch.where(sol.feasible,
+                                     torch.zeros_like(state.hold_count),
+                                     state.hold_count + 1)
+        else:
+            x_pred, u_pred = sol.x_pred, sol.u_pred
+            w, y, rho_scale = sol.w, sol.y, sol.rho_scale
+            hold_count = state.hold_count
+
+    # physical envelope, then the executed-separation filter
+    with span("cmpc.safety"):
+        x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
+                                          x_pred[:, :, 1, :], lanes)
+        x0_exec, exec_beta, exec_xy = _exchange_filter(
+            cfg, ex, gids, state.x0, x0_cand)
+
+    with span("cmpc.plant"):
+        brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
+                                  torch.zeros_like(state.brake_count))
+        new_state = FleetState(
+            x0=x0_exec, x_pred=x_pred, u_pred=u_pred,
+            u_old=u_pred[:, :, 0, :], w=w, y=y, rho_scale=rho_scale,
+            lane=lanes, hold_count=hold_count, brake_count=brake_count,
+            jam_count=jam_count)
+        dd = exec_xy[..., :, None, :] - exec_xy[..., None, :, :]
+        dexec = torch.sqrt(torch.sum(dd * dd, dim=-1) + 1e-12)
+        dexec = dexec + torch.eye(n, dtype=dexec.dtype, device=dev) * 1e9
+        metrics = StepMetrics(
+            feasible=sol.feasible, iterations=sol.iterations,
+            r_prim=sol.r_prim,
+            min_dist=_pairwise_min_dist(
+                ex.gather(x_pred[..., 7:9]).transpose(1, 2)),
+            min_dist_exec=torch.amin(dexec, dim=(-2, -1)),
+            slack_max=torch.amax(torch.abs(sol.s_pred), dim=(-2, -1)),
+            exec_beta=exec_beta, wall_clip=wall_clip)
+    return (*new_state, *metrics)
 
 
 def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
@@ -405,15 +543,27 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
     ``(B, A, ...)`` blocks of this shard's fleets and agents, every agent
     reads every agent's (X, Y) plan and hold flag through ``ex.gather``,
     and per-agent limits follow the global agent ids. A
-    :class:`LocalExchange` makes it the single-process step."""
+    :class:`LocalExchange` makes it the single-process step.
+
+    The step's own ops around the solve (:func:`_hold_phase`,
+    :func:`_plant_phase`) are two fixed-shape stretches of hundreds of
+    tiny kernels each. With a :class:`LocalExchange` on CUDA tensors each
+    is replayed from one CUDA graph (``utils/graphs.py``: the same kernels,
+    the same bits); another exchange's ``gather`` is a collective, which a
+    graph does not record, so there both run op by op."""
     dev = track.s0.device
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     gains = _gains_on(cfg.gains if cfg.gains is not None else lpv_gains(),
                       dev, dtype)
-    n = cfg.n_agents
-    ns = torch.as_tensor(_neighbour_index(n), device=dev)
-    multi = n > 1
-    limits_pa = _per_agent_limits(cfg, dev)
+    ns = torch.as_tensor(_neighbour_index(cfg.n_agents), device=dev)
+    hold = functools.partial(_hold_phase, track, cfg, ex, ns,
+                             _per_agent_limits(cfg, dev))
+    plant = functools.partial(_plant_phase, track, cfg, ex)
+    replay = isinstance(ex, LocalExchange)
+    if replay:
+        hold = graphed(hold, counter=make_lpv_fleet_step)
+        plant = graphed(plant, counter=make_lpv_fleet_step)
+    n_state, n_lim = len(FleetState._fields), len(SysLimits._fields)
 
     def step(state: FleetState):
         with span("cmpc.step"):
@@ -422,46 +572,18 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
     def control_step(state: FleetState):
         B, A = state.x0.shape[:2]
         P = B * A
-        dtype = state.x0.dtype
-        gids = ex.gids(A, dev)
+        # on the card a span holds each replay (the phases' own spans
+        # stamp only while they run op by op)
+        card = replay and state.x0.is_cuda
 
         def flat(t):
             return t.reshape((P,) + t.shape[2:])
 
-        def unflat(t):
-            return t.reshape((B, A) + t.shape[1:])
-
-        with span("cmpc.hold"):
-            if cfg.dynamic_lane:
-                state = switch_lanes(track, state)
-                lanes = state.lane
-            else:
-                lanes = torch.full((B, A), cfg.lane, dtype=torch.int32,
-                                   device=dev)
-            # recovery feasibility pass: pre-escalation hold-or-brake counts
-            vxs = hold_vx_scale(
-                cfg, torch.maximum(state.hold_count, state.brake_count),
-                dtype)
-            lim = SysLimits(*(v[gids] for v in limits_pa))
-            limits_step = SysLimits(*(
-                flat(torch.broadcast_to(v, (B, A))) for v in
-                lim._replace(vx_ref=lim.vx_ref * vxs)))
-            state = escalate_holds(track, cfg, state, lanes)
-
-        # the "communication": everyone reads everyone's (X, Y) plan
-        with span("cmpc.exchange"):
-            if multi:
-                xy = ex.gather(state.x_pred[..., 7:9])      # (B, n, N+1, 2)
-                nb = ns[gids]                               # (A, n - 1)
-                # (P, N+1, nb, 2)
-                neigh = flat(xy[:, nb].permute(0, 1, 3, 2, 4))
-                boost_sc = (cfg.hold_sep_boost if cfg.hold_on_infeasible
-                            else 0.0)
-                hold_f = ex.gather((state.hold_count > 0).to(dtype)
-                                   * boost_sc)
-                neigh_boost = flat(hold_f[:, nb])
-            else:
-                neigh, neigh_boost = None, None
+        with span("cmpc.hold") if card else contextlib.nullcontext():
+            out = hold(*state)
+        state, lanes = FleetState(*out[:n_state]), out[n_state]
+        limits_step = SysLimits(*out[n_state + 1:n_state + 1 + n_lim])
+        neigh, neigh_boost = out[n_state + 1 + n_lim:] or (None, None)
 
         sol: LPVSolution = lpv_solve(
             track, gains, limits_step, cfg.model, cfg.N, cfg.dt,
@@ -473,72 +595,14 @@ def _lpv_step(track: Track, cfg: ExperimentConfig, ex):
             alpha_relax=cfg.solver.alpha_relax, eps=cfg.solver.eps,
             lane=flat(lanes), epoch_len=cfg.solver.epoch_len,
             assoc=bool(cfg.solver.assoc))
-        sol = LPVSolution(*(unflat(t) for t in sol))
 
-        with span("cmpc.hold"):
-            jam_count = torch.where(sol.feasible,
-                                    torch.zeros_like(state.jam_count),
-                                    state.jam_count + 1)
-            if cfg.hold_on_infeasible:
-                # a plan whose residual exceeded the feasibility tolerance
-                # is not executed: the agent follows its previous plan one
-                # more stage; after hold_exec_k consecutive failures a
-                # finite unconverged plan is executed under the envelope
-                # and the safety filter
-                ok = sol.feasible
-                if cfg.hold_exec_k is not None:
-                    finite = (torch.isfinite(sol.x_pred).all(-1).all(-1)
-                              & torch.isfinite(sol.u_pred).all(-1).all(-1))
-                    degraded = ((~ok) & finite
-                                & (state.jam_count >= cfg.hold_exec_k))
-                    ok = ok | degraded
-                ok3 = ok[..., None, None]
-                hold_x = torch.cat([state.x_pred[:, :, 1:],
-                                    state.x_pred[:, :, -1:]], dim=2)
-                hold_u = torch.cat([state.u_pred[:, :, 1:],
-                                    state.u_pred[:, :, -1:]], dim=2)
-                x_pred = torch.where(ok3, sol.x_pred, hold_x)
-                u_pred = torch.where(ok3, sol.u_pred, hold_u)
-                w = torch.where(ok3, sol.w, state.w)
-                y = torch.where(ok3, sol.y, state.y)
-                rho_scale = torch.where(ok[..., None], sol.rho_scale,
-                                        state.rho_scale)
-                # hold_count tracks solver feasibility, not the override
-                hold_count = torch.where(sol.feasible,
-                                         torch.zeros_like(state.hold_count),
-                                         state.hold_count + 1)
-            else:
-                x_pred, u_pred = sol.x_pred, sol.u_pred
-                w, y, rho_scale = sol.w, sol.y, sol.rho_scale
-                hold_count = state.hold_count
-
-        # physical envelope, then the executed-separation filter
-        with span("cmpc.safety"):
-            x0_cand, wall_clip = lateral_wall(track, cfg, state.x0,
-                                              x_pred[:, :, 1, :], lanes)
-            x0_exec, exec_beta, exec_xy = _exchange_filter(
-                cfg, ex, gids, state.x0, x0_cand)
-
-        with span("cmpc.plant"):
-            brake_count = torch.where(exec_beta < 1.0, state.brake_count + 1,
-                                      torch.zeros_like(state.brake_count))
-            new_state = FleetState(
-                x0=x0_exec, x_pred=x_pred, u_pred=u_pred,
-                u_old=u_pred[:, :, 0, :], w=w, y=y, rho_scale=rho_scale,
-                lane=lanes, hold_count=hold_count, brake_count=brake_count,
-                jam_count=jam_count)
-            dd = exec_xy[..., :, None, :] - exec_xy[..., None, :, :]
-            dexec = torch.sqrt(torch.sum(dd * dd, dim=-1) + 1e-12)
-            dexec = dexec + torch.eye(n, dtype=dexec.dtype, device=dev) * 1e9
-            metrics = StepMetrics(
-                feasible=sol.feasible, iterations=sol.iterations,
-                r_prim=sol.r_prim,
-                min_dist=_pairwise_min_dist(
-                    ex.gather(x_pred[..., 7:9]).transpose(1, 2)),
-                min_dist_exec=torch.amin(dexec, dim=(-2, -1)),
-                slack_max=torch.amax(torch.abs(sol.s_pred), dim=(-2, -1)),
-                exec_beta=exec_beta, wall_clip=wall_clip)
-        return new_state, metrics
+        if card:
+            with span("cmpc.plant"):
+                # the graph's buffers: a returned state outlives the replay
+                out = tuple(t.clone() for t in plant(*state, lanes, *sol))
+        else:
+            out = plant(*state, lanes, *sol)
+        return FleetState(*out[:n_state]), StepMetrics(*out[n_state:])
 
     return step
 

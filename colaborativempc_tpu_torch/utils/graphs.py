@@ -1,9 +1,10 @@
 """Replay a fixed-shape stretch of torch ops as one CUDA graph.
 
 The racing step's own ops (re-projection, both guesses, failure
-bookkeeping, the RK4 plant) are thousands of tiny kernels on a batch of a
-few races; the host pays a dispatch and a launch for each, so the step's
-time follows the host's speed rather than the card's. :class:`graphed`
+bookkeeping, the RK4 plant) and the LPV fleet step's (hold ladder,
+exchange, safety filter, plant) are hundreds to thousands of tiny kernels
+on a small batch; the host pays a dispatch and a launch for each, so the
+step's time follows the host's speed rather than the card's. :class:`graphed`
 records such a function once per layout of its tensor arguments as a CUDA
 graph and replays it: the host copies the inputs in and launches one
 graph. The replay runs the same kernels on the same data, so its results
@@ -40,10 +41,14 @@ class graphed:
     dtypes, device) runs ``fn`` once outside the graph, for lazy
     initialisation, then records it. The tensors returned on the card are
     the graph's own buffers: they hold until the next call, so a caller
-    that keeps one longer clones it."""
+    that keeps one longer clones it. ``counter``, when given, is an object
+    whose ``graph_records`` and ``graph_replays`` each recording and each
+    replay advance by one."""
 
-    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]]):
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
+                 counter=None):
         self.fn = fn
+        self.counter = counter
         self._graphs = {}
 
     def __call__(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -57,6 +62,8 @@ class graphed:
         for dst, src in zip(inputs, args):
             dst.copy_(src)
         graph.replay()
+        if self.counter is not None:
+            self.counter.graph_replays += 1
         return outputs
 
     def _record(self, args):
@@ -69,4 +76,6 @@ class graphed:
                 self.fn(*inputs)
             torch.cuda.current_stream().wait_stream(side)
         graph, outputs = record(lambda: self.fn(*inputs), dev)
+        if self.counter is not None:
+            self.counter.graph_records += 1
         return graph, inputs, tuple(outputs)

@@ -688,6 +688,89 @@ def test_cuda_graphed_race_keeps_the_bits(cuda, races, N):
     assert bool(eager[3][reset][0]) and not bool(eager[4][reset][0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, N", [(1, 125), (64, 20)])
+def test_cuda_graphed_lpv_step_keeps_the_bits(cuda, tmp_path, B, N):
+    """The LPV fleet step with its own ops replayed from two CUDA graphs
+    against the same step run op by op on the card: 8 steps, agent 0 of
+    fleet 0 put on the cold rung of the hold ladder before step 4, every
+    state and metric equal bit for bit; a state a step returned is not
+    overwritten by the next step; 2 graphs recorded per layout and 2
+    replays a step. The sharded step on a (1, 1) mesh, whose exchange is
+    a collective, records and replays none."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from colaborativempc_tpu_torch import config as tcfg
+    from colaborativempc_tpu_torch.geometry import make_track
+    from colaborativempc_tpu_torch.parallel import (
+        initialize_distributed, make_sharded_lpv_step, shard_fleet_state,
+    )
+    from colaborativempc_tpu_torch.runtime import simulate
+    cfg = tcfg.ExperimentConfig(
+        N=N, dt=0.025, gains=tcfg.lpv_gains(),
+        solver=tcfg.SolverConfig(admm_iters=300, epoch_len=15))
+    track = make_track(cfg.map_type, device=cuda)
+    start = simulate.batch_fleet_state(
+        simulate.init_lpv_fleet(track, cfg, device=cuda), B, device=cuda)
+    pert = 0.02 * torch.randn(start.x0.shape, device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(5))
+    pert[..., 5:] = 0.0
+    start = start._replace(x0=start.x0 + pert)
+    counts = simulate.make_lpv_fleet_step
+    runs = []
+    for graphed in (lambda fn, counter=None: fn, simulate.graphed):
+        mp = pytest.MonkeyPatch()
+        mp.setattr(simulate, "graphed", graphed)
+        try:
+            step = simulate.make_lpv_fleet_step(track, cfg)
+        finally:
+            mp.undo()
+        before = (counts.graph_records, counts.graph_replays)
+        st, seen = start, []
+        for k in range(8):
+            if k == 3:
+                hold = st.hold_count.clone()
+                hold[0, 0] = cfg.hold_cold_k
+                st = st._replace(hold_count=hold)
+            prev = st
+            st, m = step(st)
+            seen.append([t.clone() for t in list(st) + list(m)])
+            if k:
+                # the state handed in, as the step before returned it
+                for f, t, r in zip(prev._fields, prev, seen[-2]):
+                    assert torch.equal(t, r) or (k, f) == (3, "hold_count")
+        runs.append(seen)
+        torch.cuda.synchronize()
+        made = (counts.graph_records - before[0],
+                counts.graph_replays - before[1])
+    assert made == (2, 16)
+    eager, replayed = runs
+    for k, (a, b) in enumerate(zip(eager, replayed)):
+        assert bits_differing([t.float() for t in b],
+                              [t.float() for t in a]) == 0, k
+    # the cold rung fired: agent 0's hold count restarted in step 4
+    hc = simulate.FleetState._fields.index("hold_count")
+    assert int(eager[3][hc][0, 0]) <= 1
+
+    initialize_distributed(cuda, init_method=f"file://{tmp_path}/rdv",
+                           rank=0, world_size=1,
+                           timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("scen", "agent"))
+        before = (counts.graph_records, counts.graph_replays)
+        st = shard_fleet_state(start, mesh)
+        sharded = make_sharded_lpv_step(track, cfg, mesh)
+        for _ in range(2):
+            st, _ = sharded(st)
+        torch.cuda.synchronize()
+        assert (counts.graph_records, counts.graph_replays) == before
+        assert bool(torch.isfinite(st.x0).all())
+    finally:
+        dist.destroy_process_group()
+
+
 def close_to_scale(got, ref, tol):
     """Each field within ``tol`` of the reference, relative to the larger
     of 1 and the reference field's max |finite value|; NaN and infinite
